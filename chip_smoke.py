@@ -1,0 +1,498 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of CATO's serving pipeline on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the root of a checkout
+
+Phases, each printing one JSON line:
+
+1. device: the card, its name and power limit from nvidia-smi; TF32 off.
+2. build: the port's CUDA kernels compiled from src/repro_torch/csrc with
+   nvcc for sm_90a (into build/kernels/, which git ignores).
+3. data: the full-width deployment, iot-class with 28 classes, 4000 flows
+   of up to 128 packets, all 67 registry features at connection depth 50,
+   and two forests trained on the CPU with the port's numpy trainer: the
+   one `train_traffic_model(model="rf")` selects, and 25 trees of depth 10.
+4. kernels vs plain: each kernel against its plain PyTorch version on the
+   card, on the same inputs: the forest traversal (B1) at the main-path
+   shape and a ragged one, the fused extract+infer kernel (B2) for plans
+   covering every op family at connection depths 1, 8 and 50, with the
+   kernel's own feature columns; then each kernel's time.
+5. main path: `build_pipeline(..., fused=True)` and `fused=False` on the
+   card for both forests, warmed on buckets 1..128, serving 16
+   micro-batches of 128 flows, one batch of 4096 and the held-out split,
+   with the launch counters set to 0 just before and read just after.
+
+Probabilities of pipelines whose feature columns agree only to float32
+rounding are compared by the straddle rule
+(`repro_torch.kernels.ref.straddled_flows`): flows whose path meets a
+threshold lying between the two sides' values of its feature are counted
+and may be at most 1%; every other flow agrees to 1e-6 with the same
+argmax. Then come a `kernels` line, the card's name and power limit, and
+as the last line {"ok": true, "device": {...}}. Without a CUDA device, or
+when any check fails, the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM: 80 GB of HBM3 at 3.35 TB/s
+FP32_OPS_PER_S = 67e12     # H100 SXM: float32 outside the tensor cores
+PROB_ATOL = 1e-6
+MAX_STRADDLED = 0.01
+KERNEL_REPS, PLAIN_REPS = 30, 5
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return r.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, flush: torch.Tensor, warmup: int = 3) -> float:
+    """Median ms of `fn()` over `reps` runs, each bracketed by CUDA events,
+    with `flush` (larger than the 50 MB L2) overwritten before each run so
+    that the inputs come from device memory, as a fresh micro-batch's
+    packets do."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def forest_touch(x: np.ndarray, forest) -> tuple[int, int, int]:
+    """What one traversal of `x` must read: distinct (flow, column) values,
+    internal nodes and leaves on the visited paths."""
+    N = x.shape[0]
+    rows = np.arange(N)
+    ni = 2 ** forest.depth - 1
+    x_read = np.zeros(x.shape, bool)
+    nodes = leaves = 0
+    for t in range(forest.feature.shape[0]):
+        seen = np.zeros(2 * ni + 1, bool)
+        node = np.zeros(N, np.int64)
+        for _ in range(forest.depth):
+            seen[node] = True
+            f = forest.feature[t, node]
+            x_read[rows, f] = True
+            node = 2 * node + 1 + (x[rows, f] > forest.threshold[t, node])
+        seen[node] = True
+        nodes += int(seen[:ni].sum())
+        leaves += int(seen[ni:].sum())
+    return int(x_read.sum()), nodes, leaves
+
+
+def device_profile(fn, n: int) -> dict:
+    """Device time of `n` calls of `fn`, from torch.profiler: the summed
+    time of every kernel and copy on the card over the host wall time of
+    the window, and the largest contributors. Profiling adds host time, so
+    the busy share is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key[:60], e.count, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[2])
+    busy_ms = sum(r[2] for r in rows)
+    return dict(calls=n, window_ms=window_ms, device_busy_ms=busy_ms,
+                busy_share=busy_ms / window_ms if busy_ms > 0 else None,
+                top=[dict(name=k, count=c, ms=ms) for k, c, ms in rows[:5]])
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def straddle_compare(p_a, p_b, x_a, x_b, forest, what: str) -> dict:
+    """Hold (N, K) probabilities p_b to p_a by the straddle rule, given the
+    feature columns each side computed."""
+    from repro_torch.kernels.ref import straddled_flows
+
+    p_a, p_b = np.asarray(p_a), np.asarray(p_b)
+    s = straddled_flows(x_a, x_b, forest.feature, forest.threshold, forest.depth)
+    keep = ~s
+    err = float(np.abs(p_a - p_b)[keep].max()) if keep.any() else 0.0
+    mism = int((p_a[keep].argmax(1) != p_b[keep].argmax(1)).sum())
+    out = dict(straddled=int(s.sum()), n=len(s), max_abs_err=err,
+               argmax_mismatches=mism)
+    check(s.sum() <= MAX_STRADDLED * len(s), f"{what}: {out}")
+    check(err <= PROB_ATOL and mism == 0, f"{what}: {out}")
+    return out
+
+
+def main() -> None:
+    t_start = time.perf_counter()
+
+    # 1. device -------------------------------------------------------------
+    t0 = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch sees no CUDA device; it runs "
+                         "only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    dev = torch.device("cuda")
+
+    from repro_torch.convert import forest_from_numpy, forest_tables
+    from repro_torch.core.forest import train_forest
+    from repro_torch.core.search_space import FeatureRep
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_pipeline import (
+        encode_plan,
+        fused_forest_infer_plain,
+        fused_pipeline_call,
+    )
+    from repro_torch.kernels.tree_infer import (
+        forest_infer_kernel_call,
+        forest_infer_plain,
+    )
+    from repro_torch.traffic.extraction import (
+        dataset_tensors,
+        extract_features,
+        stats_plan,
+    )
+    from repro_torch.traffic.features import FEATURE_NAMES
+    from repro_torch.traffic.models import macro_f1, train_traffic_model
+    from repro_torch.traffic.pipeline import build_pipeline
+    from repro_torch.traffic.synth import make_dataset
+
+    # printed only once the port imports: outside a checkout nothing prints
+    emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
+         torch=torch.__version__, cuda=torch.version.cuda,
+         seconds=time.perf_counter() - t0)
+
+    # 2. build --------------------------------------------------------------
+    t0 = time.perf_counter()
+    lib = _build.build_library()
+    _build.load_library()
+    log = (lib.parent / "build.log").read_text()
+    emit("build", seconds=time.perf_counter() - t0, library=str(lib),
+         nvcc_flags=" ".join(_build.NVCC_FLAGS),
+         ptxas=[ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln])
+
+    # 3. data and forests ----------------------------------------------------
+    t0 = time.perf_counter()
+    ds = make_dataset("iot-class", n_flows=4000, max_pkts=128, seed=0)
+    train, test = ds.split(test_frac=0.2, seed=0)
+    conn_depth = 50
+    rep = FeatureRep(tuple(FEATURE_NAMES), depth=conn_depth)
+    x_train = extract_features(train, rep.features, conn_depth, device="cpu")
+    rf, val_f1 = train_traffic_model(x_train, train.label, model="rf", seed=0)
+    deep = train_forest(x_train, train.label, n_trees=25, max_depth=10,
+                        max_features="sqrt", rng=np.random.default_rng(0))
+    forests = {"rf": rf, "rf_depth10": deep}
+    big = ds.take(np.arange(4096) % ds.n_flows)
+    emit("data", flows=ds.n_flows, max_pkts=ds.max_pkts, classes=28,
+         features=len(rep.features), conn_depth=conn_depth,
+         forests={k: dict(trees=f.n_trees, depth=f.depth, classes=f.n_out)
+                  for k, f in forests.items()},
+         rf_validation_f1=val_f1, seconds=time.perf_counter() - t0)
+    check(deep.n_out == 28 and deep.depth == 10 and deep.n_trees == 25,
+          "deep forest shape")
+
+    # 4. kernels vs plain, on the card ---------------------------------------
+    t0 = time.perf_counter()
+    plan67 = stats_plan(rep.features)
+    bt = dataset_tensors(big, dev)
+    packets = [bt[k] for k in ("ts", "size", "direction", "ttl", "winsize",
+                               "flags", "flow_len", "proto", "s_port", "d_port")]
+    x_main = extract_features(big, rep.features, conn_depth, device="cuda")
+    x_main_t = torch.from_numpy(x_main).to(dev)
+
+    # B1 on one and the same x: every flow agrees
+    b1_err = 0.0
+    b1_cases = []
+    for name, n, n_trees in (("main", 4096, 25), ("ragged", 257, 12)):
+        tables = [t[:n_trees].contiguous() for t in forest_tables(deep, dev)]
+        x = x_main_t[:n].contiguous()
+        got = forest_infer_kernel_call(x, *tables, deep.depth)
+        want = forest_infer_plain(x, *tables, deep.depth)
+        torch.cuda.synchronize()
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        err = float(np.abs(got - want).max())
+        mism = int((got.argmax(1) != want.argmax(1)).sum())
+        b1_cases.append(dict(case=name, N=n, F=67, T=n_trees, D=deep.depth,
+                             K=deep.n_out, max_abs_err=err,
+                             argmax_mismatches=mism,
+                             bitwise=bool((got == want).all())))
+        check(err <= PROB_ATOL and mism == 0, f"B1 {name}: {b1_cases[-1]}")
+        b1_err = max(b1_err, err)
+    emit("kernel_check", kernel="forest_infer", cases=b1_cases)
+
+    # B2: the kernel's own columns against the plain columns, probabilities
+    # by the straddle rule, for plans covering every op family
+    subsets = [
+        ("dur", "proto", "s_port", "d_port"),
+        ("s_load", "d_load", "s_pkt_cnt", "d_pkt_cnt"),
+        ("tcp_rtt", "syn_ack", "ack_dat", "syn_cnt", "ack_cnt", "fin_cnt"),
+        ("s_bytes_sum", "s_bytes_mean", "s_bytes_min", "s_bytes_max",
+         "s_bytes_med", "s_bytes_std"),
+        ("d_iat_mean", "d_iat_std", "d_iat_med", "s_iat_min", "s_iat_max"),
+        ("s_winsize_mean", "d_winsize_std", "s_ttl_min", "d_ttl_max",
+         "d_winsize_med"),
+        tuple(FEATURE_NAMES),
+    ]
+    rng = np.random.default_rng(5)
+    b2_err, b2_straddled, b2_mism, b2_col_err, b2_cases = 0.0, 0, 0, 0.0, []
+    for names in subsets:
+        plan = stats_plan(names)
+        op_table = torch.from_numpy(encode_plan(plan)).to(dev)
+        for d in (1, 8, 50):
+            # a random depth-10 forest whose thresholds are quantile edges
+            # of the plain columns, as the trainer's are: ties happen
+            xp = extract_features(big, names, d, device="cpu")
+            T, D, K, F = 25, 10, 28, len(plan)
+            feature = rng.integers(0, F, (T, 2 ** D - 1))
+            q = rng.random((T, 2 ** D - 1))
+            threshold = np.quantile(xp, q.ravel(), axis=0, method="lower")[
+                np.arange(q.size), feature.ravel()].reshape(T, -1)
+            forest = forest_from_numpy(feature, threshold,
+                                       rng.random((T, 2 ** D, K)), D, F)
+            tables = forest_tables(forest, dev)
+            outs = {}
+            for side, fn in (("kernel", fused_pipeline_call),
+                             ("plain", fused_forest_infer_plain)):
+                cols = torch.empty((big.n_flows, F), device=dev)
+                p = fn(*packets, *tables, op_table=op_table, depth=d,
+                       forest_depth=D, columns=cols)
+                outs[side] = (p, cols)
+            torch.cuda.synchronize()
+            (pk, xk), (pp, xq) = ((p.cpu().numpy(), c.cpu().numpy())
+                                  for p, c in outs.values())
+            col_err = float((np.abs(xk - xq) / np.maximum(np.abs(xq), 1e-6)).max())
+            check(np.allclose(xk, xq, rtol=1e-5, atol=1e-6),
+                  f"B2 columns {names[:2]} depth {d}: rel err {col_err}")
+            r = straddle_compare(pp, pk, xq, xk, forest, f"B2 {names[:2]} d{d}")
+            b2_cases.append(dict(plan=len(plan), first=names[0], depth=d,
+                                 columns_bitwise=bool((xk == xq).all()),
+                                 max_col_rel_err=col_err, **r))
+            b2_err = max(b2_err, r["max_abs_err"])
+            b2_straddled += r["straddled"]
+            b2_mism += r["argmax_mismatches"]
+            b2_col_err = max(b2_col_err, col_err)
+    emit("kernel_check", kernel="fused_forest_infer", cases=b2_cases)
+
+    # times at the main-path shapes, with the deep forest
+    deep_tables = forest_tables(deep, dev)
+    op67 = torch.from_numpy(encode_plan(plan67)).to(dev)
+    x_read, nodes, leaves = forest_touch(x_main, deep)
+    N, K = big.n_flows, deep.n_out
+    T, D = deep.n_trees, deep.depth
+    b1_bytes = 4 * x_read + 8 * nodes + 4 * K * leaves + 4 * N * K
+    b1_ops = N * T * (2 * D + K)
+    # the fused kernel reads the packets instead of x; its columns equal x
+    L = np.minimum(np.minimum(big.flow_len, conn_depth), big.max_pkts)
+    b2_bytes = (int(L.sum()) * (4 * 4 + 1 + 8) + N * 16 + op67.numel() * 4
+                + 8 * nodes + 4 * K * leaves + 4 * N * K)
+    b2_ops = int(L.sum()) * len(plan67) + N * T * (2 * D + K)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    # the first 128 flows: one micro-batch, the size the main path serves
+    x_128 = x_main_t[:128].contiguous()
+    packets_128 = [t[:128].contiguous() for t in packets]
+    timing = {
+        "forest_infer": dict(
+            ms=time_ms(lambda: forest_infer_kernel_call(
+                x_main_t, *deep_tables, D), KERNEL_REPS, flush),
+            plain_ms=time_ms(lambda: forest_infer_plain(
+                x_main_t, *deep_tables, D), PLAIN_REPS, flush),
+            ms_128=time_ms(lambda: forest_infer_kernel_call(
+                x_128, *deep_tables, D), KERNEL_REPS, flush),
+            bytes=b1_bytes, ops=b1_ops),
+        "fused_forest_infer": dict(
+            ms=time_ms(lambda: fused_pipeline_call(
+                *packets, *deep_tables, op_table=op67, depth=conn_depth,
+                forest_depth=D), KERNEL_REPS, flush),
+            plain_ms=time_ms(lambda: fused_forest_infer_plain(
+                *packets, *deep_tables, op_table=op67, depth=conn_depth,
+                forest_depth=D), PLAIN_REPS, flush),
+            ms_128=time_ms(lambda: fused_pipeline_call(
+                *packets_128, *deep_tables, op_table=op67, depth=conn_depth,
+                forest_depth=D), KERNEL_REPS, flush),
+            bytes=b2_bytes, ops=b2_ops),
+    }
+    for v in timing.values():
+        v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["ops"])
+    emit("kernel_times", shape=dict(N=N, F=67, T=T, D=D, K=K, P=big.max_pkts,
+                                    conn_depth=conn_depth),
+         reps=dict(kernel=KERNEL_REPS, plain=PLAIN_REPS), timing=timing,
+         seconds=time.perf_counter() - t0)
+
+    # 5. main path, serving ---------------------------------------------------
+    t0 = time.perf_counter()
+    buckets = [2 ** i for i in range(8)]                    # 1 .. 128
+    micro = [ds.take(np.arange(i * 128, (i + 1) * 128)) for i in range(16)]
+    pipes = {}
+    for fname, forest in forests.items():
+        for fused in (True, False):
+            p = build_pipeline(rep, forest, max_pkts=conn_depth, fused=fused)
+            p.warm(buckets)
+            pipes[fname, fused] = p
+    torch.cuda.synchronize()
+
+    forest_infer_kernel_call.launches = 0
+    fused_pipeline_call.launches = 0
+    served = {}
+    for (fname, fused), p in pipes.items():
+        ms, preds = [], []
+        for b in micro:
+            s = time.perf_counter()
+            preds.append(p(b))
+            ms.append((time.perf_counter() - s) * 1e3)
+        s = time.perf_counter()
+        probs_big = p.probabilities(big)
+        ms_big = (time.perf_counter() - s) * 1e3
+        pred_test = p(test)
+        served[fname, fused] = dict(
+            micro_preds=np.concatenate(preds), probs_big=probs_big,
+            f1=macro_f1(test.label, pred_test),
+            micro_ms_median=statistics.median(ms), micro_ms_max=max(ms),
+            micro_flows_per_s=128 / (statistics.median(ms) / 1e3),
+            big_ms=ms_big, big_flows_per_s=4096 / (ms_big / 1e3))
+    torch.cuda.synchronize()
+    launches = {"forest_infer": forest_infer_kernel_call.launches,
+                "fused_forest_infer": fused_pipeline_call.launches}
+    n_pipes = len(forests)
+    per_pipe = len(micro) + 2
+    check(launches["forest_infer"] == n_pipes * per_pipe,
+          f"forest kernel launched {launches['forest_infer']} times on the "
+          f"main path, expected {n_pipes * per_pipe}")
+    check(launches["fused_forest_infer"] == n_pipes * per_pipe,
+          f"fused kernel launched {launches['fused_forest_infer']} times on "
+          f"the main path, expected {n_pipes * per_pipe}")
+
+    # outside the counted run: the columns each path computed, and the
+    # CPU plain pipeline, for the straddle comparisons on the 4096 batch
+    x_cpu = extract_features(big, rep.features, conn_depth, device="cpu")
+    x_gpu = x_main
+    x_ker = torch.empty((big.n_flows, len(plan67)), device=dev)
+    fused_pipeline_call(*packets, *deep_tables, op_table=op67, depth=conn_depth,
+                        forest_depth=D, columns=x_ker)
+    x_ker = x_ker.cpu().numpy()
+    for fname, forest in forests.items():
+        cpu = build_pipeline(rep, forest, max_pkts=conn_depth, fused=True,
+                             device="cpu")
+        p_cpu = cpu.probabilities(big)
+        f, u = served[fname, True], served[fname, False]
+        cmp = {
+            "fused_vs_cpu": straddle_compare(p_cpu, f["probs_big"], x_cpu,
+                                             x_ker, forest, f"{fname} fused"),
+            "unfused_vs_cpu": straddle_compare(p_cpu, u["probs_big"], x_cpu,
+                                               x_gpu, forest, f"{fname} unfused"),
+            "fused_vs_unfused": straddle_compare(u["probs_big"], f["probs_big"],
+                                                 x_gpu, x_ker, forest,
+                                                 f"{fname} fused/unfused"),
+        }
+        # a micro-batch serves a flow as the 4096 batch does
+        for fused in (True, False):
+            s = served[fname, fused]
+            big_pred = s["probs_big"][:2048].argmax(1)
+            check(np.array_equal(s["micro_preds"],
+                                 forest.classes[big_pred]),
+                  f"{fname} fused={fused}: micro-batch and big-batch "
+                  "predictions differ")
+        check(abs(f["f1"] - u["f1"]) < 0.01, f"{fname}: macro-F1 fused "
+              f"{f['f1']} vs unfused {u['f1']}")
+        emit("main_path", forest=fname, trees=forest.n_trees,
+             depth=forest.depth, classes=forest.n_out,
+             macro_f1={"fused": f["f1"], "unfused": u["f1"]},
+             micro_batch={"flows": 128, "count": len(micro),
+                          "fused_ms": f["micro_ms_median"],
+                          "unfused_ms": u["micro_ms_median"],
+                          "fused_ms_max": f["micro_ms_max"],
+                          "unfused_ms_max": u["micro_ms_max"],
+                          "fused_flows_per_s": f["micro_flows_per_s"],
+                          "unfused_flows_per_s": u["micro_flows_per_s"]},
+             batch_4096={"fused_ms": f["big_ms"], "unfused_ms": u["big_ms"],
+                         "fused_flows_per_s": f["big_flows_per_s"],
+                         "unfused_flows_per_s": u["big_flows_per_s"]},
+             compare=cmp)
+    emit("main_path_launches", launches=launches, pipelines=n_pipes * 2,
+         batches_per_pipeline=per_pipe, seconds=time.perf_counter() - t0)
+
+    # where the card's time goes while one pipeline serves the 16
+    # micro-batches (a separate, traced run: its times are not the above)
+    t0 = time.perf_counter()
+    share = {}
+    for fused in (True, False):
+        p = pipes["rf_depth10", fused]
+        share["fused" if fused else "unfused"] = device_profile(
+            lambda: [p(b) for b in micro], 1)
+    emit("device_share", forest="rf_depth10", profile=share,
+         seconds=time.perf_counter() - t0)
+
+    kernels = [
+        dict(name="forest_infer", route="cuda",
+             source="src/repro_torch/csrc/forest_infer.cu",
+             replaces="src/repro/kernels/tree_infer.py:87",
+             launches=launches["forest_infer"], max_abs_err=b1_err,
+             straddled=0, argmax_mismatches=0,
+             ms=timing["forest_infer"]["ms"],
+             plain_ms=timing["forest_infer"]["plain_ms"],
+             ms_128_flows=timing["forest_infer"]["ms_128"],
+             bound_ms=timing["forest_infer"]["bound_ms"],
+             bound_us=timing["forest_infer"]["bound_ms"] * 1e3,
+             bound_by=timing["forest_infer"]["bound_by"],
+             library_ms=None),
+        dict(name="fused_forest_infer", route="cuda",
+             source="src/repro_torch/csrc/fused_pipeline.cu",
+             replaces="src/repro/kernels/fused_pipeline.py:209",
+             launches=launches["fused_forest_infer"], max_abs_err=b2_err,
+             straddled=b2_straddled, argmax_mismatches=b2_mism,
+             max_col_rel_err=b2_col_err,
+             ms=timing["fused_forest_infer"]["ms"],
+             plain_ms=timing["fused_forest_infer"]["plain_ms"],
+             ms_128_flows=timing["fused_forest_infer"]["ms_128"],
+             bound_ms=timing["fused_forest_infer"]["bound_ms"],
+             bound_us=timing["fused_forest_infer"]["bound_ms"] * 1e3,
+             bound_by=timing["fused_forest_infer"]["bound_by"],
+             library_ms=None),
+    ]
+    check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched")
+    emit("total", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+        flush=True)
+
+
+if __name__ == "__main__":
+    main()

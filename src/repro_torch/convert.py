@@ -1,0 +1,53 @@
+"""Carry a trained forest across to the port.
+
+`forest_from_numpy` takes the arrays of a reference `DenseForest` (or any
+forest in the dense level-order layout) and builds the port's
+`DenseForest`, checking shapes, dtypes and feature ids on the way in.
+`forest_tables` makes the forest's device tensors; `build_pipeline` calls
+it once per pipeline, so no call on the serving path copies the forest.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.forest import DenseForest
+from .device import resolve_device
+
+__all__ = ["forest_from_numpy", "forest_tables"]
+
+
+def forest_from_numpy(feature, threshold, leaf, depth: int, n_features: int,
+                      classes=None) -> DenseForest:
+    """The port's `DenseForest` from dense level-order arrays:
+    feature (T, 2**depth - 1) int, threshold (T, 2**depth - 1) float,
+    leaf (T, 2**depth, K) float, each feature id in [0, n_features)."""
+    feature = np.ascontiguousarray(feature, np.int32)
+    threshold = np.ascontiguousarray(threshold, np.float32)
+    leaf = np.ascontiguousarray(leaf, np.float32)
+    depth, n_features = int(depth), int(n_features)
+    ni = 2 ** depth - 1
+    T = feature.shape[0] if feature.ndim == 2 else 0
+    if (T < 1 or feature.shape != (T, ni) or threshold.shape != (T, ni)
+            or leaf.ndim != 3 or leaf.shape[:2] != (T, ni + 1)):
+        raise ValueError(
+            f"shapes feature {feature.shape}, threshold {threshold.shape}, "
+            f"leaf {leaf.shape} do not form a depth-{depth} dense forest")
+    if feature.size and not (0 <= feature.min() and feature.max() < n_features):
+        raise ValueError(f"feature ids outside [0, {n_features})")
+    return DenseForest(
+        feature=feature, threshold=threshold, leaf=leaf, depth=depth,
+        n_features=n_features,
+        classes=None if classes is None else np.asarray(classes))
+
+
+def forest_tables(forest: DenseForest, device: str | torch.device = "cuda"
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(feature int32, threshold float32, leaf float32) tensors on `device`,
+    after checking that every feature id indexes a column of the input."""
+    checked = forest_from_numpy(forest.feature, forest.threshold, forest.leaf,
+                                forest.depth, forest.n_features)
+    dev = resolve_device(device)
+    return (torch.from_numpy(checked.feature).to(dev),
+            torch.from_numpy(checked.threshold).to(dev),
+            torch.from_numpy(checked.leaf).to(dev))

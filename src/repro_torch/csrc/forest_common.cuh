@@ -1,0 +1,65 @@
+// Dense level-order forest traversal shared by forest_infer.cu (B1) and
+// fused_pipeline.cu (B2): the counterpart of `_traverse` in
+// src/repro/kernels/fused_pipeline.py and of `_tree_kernel` in
+// src/repro/kernels/tree_infer.py, for one flow per thread.
+//
+// Order of the arithmetic, kept from the reference so that the kernel agrees
+// with the plain versions to float32 rounding:
+//   for each block of `block_t` trees, in tree order:
+//     votes = sum over the block's trees of the leaf payload reached
+//     acc  += votes / n_trees_padded
+//   out = acc * rescale        (rescale = (T + rem) / T, or 1)
+// The reference pads the tree axis with pass-through trees whose leaves are
+// zero; here the padding trees are skipped, which adds the same +0.0.
+// No atomics: each thread owns its flow's output row, so the result does not
+// depend on the order in which blocks run.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cato {
+
+constexpr int kThreads = 32;      // flows per block, one flow per thread
+constexpr int kMaxClasses = 64;   // K; the wrappers raise above it
+
+// xrow: this flow's F feature values (global memory for B1, a per-thread
+// array for B2). The node tables (T, 2^D - 1) and the leaf table
+// (T, 2^D, K) stay in global memory and are read through the read-only
+// cache: at T=25, D=10, K=28 the leaves alone are 2.9 MB, far above the
+// 227 KB of shared memory a block may use and far below the 50 MB of L2.
+__device__ __forceinline__ void traverse_forest(
+    const float* xrow,
+    const int* __restrict__ feature,
+    const float* __restrict__ threshold,
+    const float* __restrict__ leaf,
+    int T, int depth, int K, int block_t, int n_trees_padded, float rescale,
+    float* __restrict__ out_row) {
+  const int n_internal = (1 << depth) - 1;
+  const int n_leaf = 1 << depth;
+  const float n_pad = static_cast<float>(n_trees_padded);
+  float acc[kMaxClasses];
+  float votes[kMaxClasses];
+  for (int k = 0; k < K; ++k) acc[k] = 0.0f;
+  for (int j0 = 0; j0 < T; j0 += block_t) {
+    const int j1 = min(j0 + block_t, T);
+    for (int k = 0; k < K; ++k) votes[k] = 0.0f;
+    for (int t = j0; t < j1; ++t) {
+      const int* ft = feature + static_cast<size_t>(t) * n_internal;
+      const float* tt = threshold + static_cast<size_t>(t) * n_internal;
+      int node = 0;
+      for (int d = 0; d < depth; ++d) {
+        const int f = __ldg(ft + node);
+        const float th = __ldg(tt + node);
+        node = 2 * node + 1 + (xrow[f] > th ? 1 : 0);
+      }
+      const float* lt =
+          leaf + (static_cast<size_t>(t) * n_leaf + (node - n_internal)) * K;
+      for (int k = 0; k < K; ++k) votes[k] += __ldg(lt + k);
+    }
+    for (int k = 0; k < K; ++k) acc[k] += votes[k] / n_pad;
+  }
+  for (int k = 0; k < K; ++k) out_row[k] = acc[k] * rescale;
+}
+
+}  // namespace cato

@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
+PyTorch version:
+
+  tree_infer      dense level-order random-forest inference (B1,
+                  csrc/forest_infer.cu)
+  fused_pipeline  one-launch feature extraction + forest inference (B2,
+                  csrc/fused_pipeline.cu)
+
+`ops.py` holds the entry points that dispatch CUDA tensors to a kernel and
+CPU tensors to its plain version; `ref.py` the oracles and the straddle
+rule; `_build.py` compiles the sources with nvcc at first launch.
+"""
+from . import ops, ref
+
+__all__ = ["ops", "ref"]

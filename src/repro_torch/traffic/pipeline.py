@@ -1,0 +1,137 @@
+"""The generated end-to-end serving pipeline (paper §3.4, Pipeline Generation).
+
+Port of `repro.traffic.pipeline`. `build_pipeline` takes a feature
+representation and its trained forest and returns one callable
+
+    packets (dense flow tensors) -> class predictions
+
+with the forest's tables on the device, made once per pipeline. Two fusion
+levels exist, as in the reference:
+
+- ``fused=False`` (two launches): `extraction_fn` computes the ``(N, F)``
+  feature matrix with torch ops, then the forest kernel B1
+  (``use_kernel=True``, `repro_torch.kernels.ops.forest_infer`) or the
+  plain oracle `forest_infer_ref` consumes it.
+- ``fused=True`` (one launch): the fused kernel B2 computes the plan's
+  columns in the thread that owns each flow and walks the forest on them;
+  the feature matrix is never written. The plan is encoded once, here, as
+  the int32 op table the kernel interprets.
+
+On ``device="cpu"`` each kernel's plain PyTorch version runs instead. The
+incremental entry (`predict_agg`) comes with the reuse path.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..convert import forest_tables
+from ..core.forest import DenseForest
+from ..core.search_space import FeatureRep
+from ..device import resolve_device
+from ..kernels import ops, ref
+from ..kernels.fused_pipeline import encode_plan, fused_forest_infer
+from .extraction import dataset_tensors, extraction_fn, stats_plan
+from .synth import TrafficDataset
+
+__all__ = ["ServingPipeline", "build_pipeline"]
+
+
+@dataclasses.dataclass
+class ServingPipeline:
+    rep: FeatureRep
+    forest: DenseForest
+    _fn: Callable
+    device: torch.device
+    fused: bool = False
+
+    def __call__(self, ds: TrafficDataset) -> np.ndarray:
+        """Predicted class ids for every flow in the batch."""
+        return self.finalize(self.predict_async(ds))
+
+    def predict_async(self, ds: TrafficDataset) -> torch.Tensor:
+        """Submit the batch and return its (N, K) probabilities on the device.
+
+        The batch's arrays are copied to the device before this returns, so
+        the caller may overwrite them at once; the kernels are queued on
+        the current stream and the call does not wait for them. Only
+        `finalize` blocks.
+        """
+        return self._fn(ds)
+
+    def finalize(self, probs: torch.Tensor) -> np.ndarray:
+        """Wait for a `predict_async` result and map it to class labels.
+        On a tie the first maximal class wins, as in the reference."""
+        idx = torch.argmax(probs, dim=1).cpu().numpy()
+        if self.forest.classes is not None:
+            return self.forest.classes[idx]
+        return idx
+
+    def probabilities(self, ds: TrafficDataset) -> np.ndarray:
+        return self._fn(ds).cpu().numpy()
+
+    def warm(self, buckets: "list[int]") -> None:
+        """Run a zero-filled batch of every dispatch size in `buckets`.
+
+        Nothing is compiled per configuration here (the one fused kernel
+        interprets every plan), so a warmed replacement pipeline can be
+        swapped in while the old one serves (DESIGN.md §9.3). Warming
+        builds and loads the kernel library if this process has not yet,
+        and makes the device allocations of each batch shape once.
+        """
+        P = int(self.rep.depth)
+        for b in buckets:
+            ds = TrafficDataset(
+                ts=np.zeros((b, P), np.float32),
+                size=np.zeros((b, P), np.float32),
+                direction=np.zeros((b, P), np.uint8),
+                ttl=np.zeros((b, P), np.float32),
+                winsize=np.zeros((b, P), np.float32),
+                flags=np.zeros((b, P, 8), np.uint8),
+                flow_len=np.zeros(b, np.int32),
+                proto=np.zeros(b, np.float32),
+                s_port=np.zeros(b, np.float32),
+                d_port=np.zeros(b, np.float32),
+                label=np.zeros(b, np.int32),
+                name="warm",
+            )
+            self.finalize(self.predict_async(ds))
+
+
+def build_pipeline(
+    rep: FeatureRep,
+    forest: DenseForest,
+    max_pkts: int,
+    *,
+    use_kernel: bool = True,
+    fused: bool = False,
+    device: str | torch.device = "cuda",
+) -> ServingPipeline:
+    dev = resolve_device(device)
+    feat_t, thr_t, leaf_t = forest_tables(forest, dev)
+    depth = forest.depth
+
+    if fused:
+        op_table = torch.from_numpy(encode_plan(stats_plan(rep.features))).to(dev)
+        conn_depth = int(rep.depth)
+
+        def run(ds: TrafficDataset) -> torch.Tensor:
+            t = dataset_tensors(ds, dev)
+            return fused_forest_infer(
+                t["ts"], t["size"], t["direction"], t["ttl"], t["winsize"],
+                t["flags"], t["flow_len"], t["proto"], t["s_port"],
+                t["d_port"], feat_t, thr_t, leaf_t,
+                op_table=op_table, depth=conn_depth, forest_depth=depth)
+
+        return ServingPipeline(rep, forest, run, dev, fused=True)
+
+    extract = extraction_fn(rep.features, rep.depth, max_pkts, device=dev)
+    infer = ops.forest_infer if use_kernel else ref.forest_infer_ref
+
+    def run(ds: TrafficDataset) -> torch.Tensor:
+        return infer(extract(ds), feat_t, thr_t, leaf_t, depth)
+
+    return ServingPipeline(rep, forest, run, dev)

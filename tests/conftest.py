@@ -10,6 +10,8 @@ def pytest_configure(config):
         "filterwarnings",
         "ignore:Some donated buffers were not usable:UserWarning",
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,104 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here needs a CUDA device and skips without one. The file
+imports nothing of JAX, so it also runs on a machine that has only the
+port's dependencies:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import PROB_ATOL, assert_straddle_parity, cuda  # noqa: F401
+from repro_torch.convert import forest_from_numpy, forest_tables
+from repro_torch.core.search_space import FeatureRep
+from repro_torch.kernels.fused_pipeline import (
+    encode_plan,
+    fused_forest_infer_plain,
+    fused_pipeline_call,
+)
+from repro_torch.kernels.tree_infer import forest_infer_kernel_call, forest_infer_plain
+from repro_torch.traffic.extraction import dataset_tensors, extract_features, stats_plan
+from repro_torch.traffic.features import FEATURE_NAMES
+from repro_torch.traffic.models import train_traffic_model
+from repro_torch.traffic.pipeline import build_pipeline
+from repro_torch.traffic.synth import make_dataset
+
+pytestmark = pytest.mark.cuda
+
+
+def _random_forest(R, T, depth, K, F):
+    return forest_from_numpy(
+        R.integers(0, F, (T, 2 ** depth - 1)),
+        R.standard_normal((T, 2 ** depth - 1)),
+        R.random((T, 2 ** depth, K)), depth, F)
+
+
+def _packets(ds, dev):
+    t = dataset_tensors(ds, dev)
+    return [t[k] for k in ("ts", "size", "direction", "ttl", "winsize", "flags",
+                           "flow_len", "proto", "s_port", "d_port")]
+
+
+@pytest.mark.parametrize("n,T,depth,K", [(4096, 25, 10, 28), (257, 12, 6, 7),
+                                         (1, 3, 4, 2)])
+def test_forest_kernel_matches_plain(cuda, n, T, depth, K):  # noqa: F811
+    R = np.random.default_rng(n)
+    tables = forest_tables(_random_forest(R, T, depth, K, 67), cuda)
+    x = torch.from_numpy(R.standard_normal((n, 67)).astype(np.float32)).to(cuda)
+    got = forest_infer_kernel_call(x, *tables, depth)
+    want = forest_infer_plain(x, *tables, depth)
+    torch.cuda.synchronize()
+    # the same x and the same order of additions: every flow agrees
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=PROB_ATOL)
+    np.testing.assert_array_equal(got.argmax(1).cpu(), want.argmax(1).cpu())
+
+
+@pytest.mark.parametrize("conn_depth", [1, 8, 50])
+def test_fused_kernel_matches_plain(cuda, conn_depth):  # noqa: F811
+    ds = make_dataset("iot-class", n_flows=300, max_pkts=64, seed=2)
+    plan = stats_plan(FEATURE_NAMES)
+    R = np.random.default_rng(conn_depth)
+    forest = _random_forest(R, 9, 6, 28, len(plan))
+    tables = forest_tables(forest, cuda)
+    op_table = torch.from_numpy(encode_plan(plan)).to(cuda)
+    outs = []
+    for fn in (fused_pipeline_call, fused_forest_infer_plain):
+        cols = torch.empty((ds.n_flows, len(plan)), device=cuda)
+        p = fn(*_packets(ds, cuda), *tables, op_table=op_table,
+               depth=conn_depth, forest_depth=forest.depth, columns=cols)
+        outs.append((p.cpu().numpy(), cols.cpu().numpy()))
+    (pk, xk), (pp, xp) = outs
+    np.testing.assert_allclose(xk, xp, rtol=1e-5, atol=1e-6)
+    assert_straddle_parity(pp, pk, xp, xk, forest)
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):  # noqa: F811
+    x = torch.zeros((4, 3), device=cuda)
+    feature = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    leaf = torch.zeros((2, 4, 5), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        forest_infer_kernel_call(x, feature, feature, leaf, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        forest_infer_kernel_call(torch.zeros((3, 4), device=cuda).t(), feature,
+                                 torch.zeros((2, 3), device=cuda), leaf, 2)
+
+
+def test_pipeline_on_card_matches_cpu(cuda):  # noqa: F811
+    ds = make_dataset("app-class", n_flows=257, max_pkts=16, seed=11)
+    rep = FeatureRep(tuple(FEATURE_NAMES), depth=10)
+    X = extract_features(ds, rep.features, rep.depth, device="cpu")
+    forest, _ = train_traffic_model(X, ds.label, model="rf-fast", seed=0)
+    n0, f0 = forest_infer_kernel_call.launches, fused_pipeline_call.launches
+    for fused in (False, True):
+        cpu = build_pipeline(rep, forest, ds.max_pkts, fused=fused, device="cpu")
+        gpu = build_pipeline(rep, forest, ds.max_pkts, fused=fused)
+        gpu.warm([1, 2, 4])
+        xg = extract_features(ds, rep.features, rep.depth)
+        assert_straddle_parity(cpu.probabilities(ds), gpu.probabilities(ds),
+                               X, xg, forest)
+        np.testing.assert_array_equal(gpu(ds), cpu(ds))
+    assert forest_infer_kernel_call.launches > n0
+    assert fused_pipeline_call.launches > f0

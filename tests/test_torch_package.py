@@ -1,0 +1,107 @@
+"""The port stands alone: `repro_torch` imports without jax, imports nothing
+of `repro`, runs on the card by default and never quietly on the CPU."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.forest import train_forest
+from repro_torch.core.search_space import FeatureRep
+from repro_torch.kernels import ops
+from repro_torch.kernels.fused_pipeline import MAX_WINDOW, fused_pipeline_call
+from repro_torch.kernels.tree_infer import forest_infer_kernel_call
+from repro_torch.traffic.extraction import extract_features
+from repro_torch.traffic.pipeline import build_pipeline
+from repro_torch.traffic.synth import make_dataset
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    out = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        out.append(".".join(parts))
+    return out
+
+
+def test_imports_with_jax_blocked():
+    mods = _modules()
+    assert "repro_torch.traffic.pipeline" in mods
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert not any(k == 'repro' or k.startswith('repro.') "
+            "for k in sys.modules)\n"
+            "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    roots = set(_imported_roots(path))
+    # `repro_torch` is a root of its own and must not match `repro`
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = make_dataset("app-class", n_flows=20, max_pkts=8, seed=3)
+    rep = FeatureRep(("dur", "s_bytes_mean"), depth=4)
+    X = extract_features(ds, rep.features, rep.depth, device="cpu")
+    forest = train_forest(X, ds.label, n_trees=2, max_depth=3,
+                          rng=np.random.default_rng(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_pipeline(rep, forest, ds.max_pkts)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_pipeline(rep, forest, ds.max_pkts, fused=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract_features(ds, rep.features, rep.depth)
+    build_pipeline(rep, forest, ds.max_pkts, device="cpu")
+
+
+def test_kernel_wrappers_take_only_cuda_tensors():
+    x = torch.zeros((4, 3))
+    feature = torch.zeros((2, 3), dtype=torch.int32)
+    threshold = torch.zeros((2, 3))
+    leaf = torch.zeros((2, 4, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        forest_infer_kernel_call(x, feature, threshold, leaf, 2)
+    # the dispatcher sends CPU tensors to the plain version
+    assert ops.forest_infer(x, feature, threshold, leaf, 2).shape == (4, 5)
+
+
+def test_fused_wrapper_states_its_window():
+    N, P = 2, MAX_WINDOW + 1
+    f32 = torch.zeros((N, P))
+    u8 = torch.zeros((N, P), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="exceeds"):
+        fused_pipeline_call(
+            f32, f32, u8, f32, f32, torch.zeros((N, P, 8), dtype=torch.uint8),
+            torch.zeros(N, dtype=torch.int32), torch.zeros(N), torch.zeros(N),
+            torch.zeros(N), torch.zeros((1, 1), dtype=torch.int32),
+            torch.zeros((1, 1)), torch.zeros((1, 2, 3)),
+            op_table=torch.zeros((1, 4), dtype=torch.int32), depth=P,
+            forest_depth=1)
