@@ -12,15 +12,33 @@ Phases, each printing one JSON line:
    of up to 128 packets, all 67 registry features at connection depth 50,
    and two forests trained on the CPU with the port's numpy trainer: the
    one `train_traffic_model(model="rf")` selects, and 25 trees of depth 10.
+   Then (`stream_data`) the stream phase's deployment below, and the
+   aggregate rows of a flow table that ingested its whole trace.
 4. kernels vs plain: each kernel against its plain PyTorch version on the
    card, on the same inputs: the forest traversal (B1) at the main-path
    shape and a ragged one, the fused extract+infer kernel (B2) for plans
    covering every op family at connection depths 1, 8 and 50, with the
    kernel's own feature columns; then each kernel's time.
+   The aggregate kernel (B3) against its plain version on aggregate rows
+   of a flow table that ingested the stream phase's trace, for the
+   59-feature incremental plan and one plan per op family, at 8, 777 and
+   4096 flows; then its time at 8 and 4096 flows.
 5. main path: `build_pipeline(..., fused=True)` and `fused=False` on the
    card for both forests, warmed on buckets 1..128, serving 16
    micro-batches of 128 flows, one batch of 4096 and the held-out split,
    with the launch counters set to 0 just before and read just after.
+6. stream: the streaming runtime on the card, in the JAX package's reuse
+   A/B configuration at full size (benchmarks/bench_runtime.py): the zipf
+   app-class trace of 600 flows of up to 4000 packets, four host shards
+   feeding one card, micro-batches of 8, a 25-tree forest over the 59
+   incremental features at connection depth 50, fused. For reuse off and
+   on (drift threshold 0.1, refresh every 256 packets): the service
+   constants measured on the card, then the zero-loss rate by bisection,
+   with the launch counters set to 0 just before and read just after.
+   Then threshold-0 parity: an executing replay with forced refreshes
+   predicts bitwise as the reuse-off replay, and its refreshed predictions
+   agree with the same replay on the two-launch pipeline (torch emission
+   + B1) for all but 1% of refreshed flows.
 
 Probabilities of pipelines whose feature columns agree only to float32
 rounding are compared by the straddle rule
@@ -50,6 +68,19 @@ FP32_OPS_PER_S = 67e12     # H100 SXM: float32 outside the tensor cores
 PROB_ATOL = 1e-6
 MAX_STRADDLED = 0.01
 KERNEL_REPS, PLAIN_REPS = 30, 5
+# the stream phase's trace and search (benchmarks/bench_runtime.py, reuse A/B)
+STREAM_FLOWS, STREAM_PKTS, BISECT_ITERS = 600, 4000, 6
+# the drift gate's configurations per op family of the incremental plan
+AGG_PLANS = (
+    ("dur", "proto", "s_port", "d_port"),
+    ("s_load", "d_load", "s_pkt_cnt", "d_pkt_cnt"),
+    ("tcp_rtt", "syn_ack", "ack_dat", "syn_cnt", "ack_cnt", "fin_cnt"),
+    ("s_bytes_sum", "s_bytes_mean", "s_bytes_min", "s_bytes_max",
+     "s_bytes_std", "d_bytes_std"),
+    ("s_iat_sum", "d_iat_mean", "d_iat_std", "s_iat_min", "s_iat_max"),
+    ("s_winsize_mean", "d_winsize_std", "s_ttl_min", "d_ttl_max",
+     "d_winsize_sum", "s_ttl_std"),
+)
 
 
 def check(ok: bool, what: str) -> None:
@@ -156,6 +187,44 @@ def straddle_compare(p_a, p_b, x_a, x_b, forest, what: str) -> dict:
     return out
 
 
+def quantile_forest(x: np.ndarray, rng, T=25, D=10, K=28):
+    """A random depth-D forest over the columns `x` whose thresholds are
+    quantile edges of those columns, as the trainer's are: ties happen."""
+    from repro_torch.convert import forest_from_numpy
+
+    F = x.shape[1]
+    feature = rng.integers(0, F, (T, 2 ** D - 1))
+    q = rng.random((T, 2 ** D - 1))
+    threshold = np.quantile(x, q.ravel(), axis=0, method="lower")[
+        np.arange(q.size), feature.ravel()].reshape(T, -1)
+    return forest_from_numpy(feature, threshold, rng.random((T, 2 ** D, K)),
+                             D, F)
+
+
+def table_rows(stream, depth: int) -> tuple[np.ndarray, np.ndarray]:
+    """Ingest the whole stream into a reuse flow table, as one worker
+    would, and return the live flows' float64 aggregate rows and float32
+    (proto, s_port, d_port) meta."""
+    from repro_torch.serve.runtime import FlowTable
+
+    tbl = FlowTable(2048, depth, reuse=True, refresh_every=256,
+                    agg_buffer=4096)
+    fid = stream.fid
+    for lo in range(0, stream.n_events, 4096):
+        sl = slice(lo, lo + 4096)
+        f = fid[sl]
+        tbl.observe_batch(stream.key[f], stream.base_t[sl],
+                          stream.rel_ts32[sl], stream.size[sl],
+                          stream.direction[sl], stream.ttl[sl],
+                          stream.winsize[sl], stream.flags_byte[sl],
+                          stream.proto[f], stream.s_port[f],
+                          stream.d_port[f], f, stream.fin[sl])
+    tbl.flush_agg()
+    live = np.flatnonzero(tbl.ctrl["state"] != 0)
+    meta = np.stack([tbl.proto[live], tbl.s_port[live], tbl.d_port[live]], 1)
+    return tbl.agg[live], meta
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -176,6 +245,8 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_pipeline import (
         encode_plan,
+        fused_agg_call,
+        fused_agg_infer_plain,
         fused_forest_infer_plain,
         fused_pipeline_call,
     )
@@ -183,15 +254,24 @@ def main() -> None:
         forest_infer_kernel_call,
         forest_infer_plain,
     )
+    from repro_torch.serve.runtime import (
+        PacketStream,
+        ReuseConfig,
+        ServiceModel,
+        ShardedRuntime,
+        find_zero_loss_rate,
+        replay,
+    )
     from repro_torch.traffic.extraction import (
         dataset_tensors,
+        emit_agg_features,
         extract_features,
         stats_plan,
     )
     from repro_torch.traffic.features import FEATURE_NAMES
     from repro_torch.traffic.models import macro_f1, train_traffic_model
     from repro_torch.traffic.pipeline import build_pipeline
-    from repro_torch.traffic.synth import make_dataset
+    from repro_torch.traffic.synth import make_dataset, make_scenario_dataset
 
     # printed only once the port imports: outside a checkout nothing prints
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
@@ -227,6 +307,26 @@ def main() -> None:
          rf_validation_f1=val_f1, seconds=time.perf_counter() - t0)
     check(deep.n_out == 28 and deep.depth == 10 and deep.n_trees == 25,
           "deep forest shape")
+
+    # the stream phase's deployment, and the aggregate rows B3 is checked on
+    t0 = time.perf_counter()
+    ds_s = make_scenario_dataset("app-class", "zipf", n_flows=STREAM_FLOWS,
+                                 max_pkts=STREAM_PKTS, seed=3)
+    stream = PacketStream.from_dataset(ds_s, seed=0)
+    inc_names = tuple(f for f in FEATURE_NAMES if not f.endswith("_med"))
+    rep_s = FeatureRep(inc_names, depth=conn_depth)
+    x_s = extract_features(ds_s, inc_names, conn_depth, device="cuda")
+    forest_s, f1_s = train_traffic_model(x_s, ds_s.label, model="rf", seed=0)
+    agg_rows, agg_meta = table_rows(stream, conn_depth)
+    emit("stream_data", flows=ds_s.n_flows, max_pkts=ds_s.max_pkts,
+         events=stream.n_events, base_pps=stream.base_pps,
+         features=len(inc_names), conn_depth=conn_depth,
+         forest=dict(trees=forest_s.n_trees, depth=forest_s.depth,
+                     classes=forest_s.n_out),
+         rf_validation_f1=f1_s, table_rows=len(agg_rows),
+         seconds=time.perf_counter() - t0)
+    check(forest_s.n_trees == 25 and len(agg_rows) >= 64,
+          "stream deployment shape")
 
     # 4. kernels vs plain, on the card ---------------------------------------
     t0 = time.perf_counter()
@@ -310,6 +410,46 @@ def main() -> None:
             b2_col_err = max(b2_col_err, col_err)
     emit("kernel_check", kernel="fused_forest_infer", cases=b2_cases)
 
+    # B3: the kernel's own columns against the plain columns on aggregate
+    # rows of a real table, probabilities by the straddle rule
+    b3_err, b3_straddled, b3_mism, b3_cols_differ, b3_cases = 0.0, 0, 0, 0, []
+    for names in AGG_PLANS + (inc_names,):
+        plan = stats_plan(names)
+        op_table = torch.from_numpy(encode_plan(plan)).to(dev)
+        for n in (8, 777, 4096):
+            idx = np.arange(n) % len(agg_rows)
+            a = torch.from_numpy(agg_rows[idx].astype(np.float32)).to(dev)
+            m = torch.from_numpy(agg_meta[idx]).to(dev)
+            x_plain = torch.stack(emit_agg_features(
+                plan, a, proto=m[:, 0], s_port=m[:, 1], d_port=m[:, 2]),
+                dim=1).cpu().numpy()
+            forest = quantile_forest(x_plain, rng)
+            tables = forest_tables(forest, dev)
+            outs = {}
+            for side, fn in (("kernel", fused_agg_call),
+                             ("plain", fused_agg_infer_plain)):
+                cols = torch.empty((n, len(plan)), device=dev)
+                p = fn(a, m, *tables, op_table=op_table,
+                       forest_depth=forest.depth, columns=cols)
+                outs[side] = (p, cols)
+            torch.cuda.synchronize()
+            (pk, xk), (pp, xq) = ((p.cpu().numpy(), c.cpu().numpy())
+                                  for p, c in outs.values())
+            check(np.isfinite(xk).all(), f"B3 columns {names[:2]} N={n}")
+            bitwise = bool((xk == xq).all())
+            # columns that differ must leave the forest's choices alone on
+            # all but 1% of flows: the same straddle rule
+            r = straddle_compare(pp, pk, xq, xk, forest, f"B3 {names[:2]} N={n}")
+            b3_cases.append(dict(plan=len(plan), first=names[0], N=n,
+                                 columns_bitwise=bitwise,
+                                 max_col_abs_err=float(np.abs(xk - xq).max()),
+                                 **r))
+            b3_err = max(b3_err, r["max_abs_err"])
+            b3_straddled += r["straddled"]
+            b3_mism += r["argmax_mismatches"]
+            b3_cols_differ += 0 if bitwise else 1
+    emit("kernel_check", kernel="fused_agg_infer", cases=b3_cases)
+
     # times at the main-path shapes, with the deep forest
     deep_tables = forest_tables(deep, dev)
     op67 = torch.from_numpy(encode_plan(plan67)).to(dev)
@@ -348,6 +488,39 @@ def main() -> None:
                 forest_depth=D), KERNEL_REPS, flush),
             bytes=b2_bytes, ops=b2_ops),
     }
+    # B3 on the stream deployment: the 59-feature plan, its trained forest,
+    # 4096 flows and one refresh micro-batch of 8
+    s_tables = forest_tables(forest_s, dev)
+    op59 = torch.from_numpy(encode_plan(stats_plan(inc_names))).to(dev)
+    idx = np.arange(4096) % len(agg_rows)
+    a_big = torch.from_numpy(agg_rows[idx].astype(np.float32)).to(dev)
+    m_big = torch.from_numpy(agg_meta[idx]).to(dev)
+    a_8, m_8 = a_big[:8].contiguous(), m_big[:8].contiguous()
+    x_agg = torch.empty((4096, len(inc_names)), device=dev)
+    fused_agg_call(a_big, m_big, *s_tables, op_table=op59,
+                   forest_depth=forest_s.depth, columns=x_agg)
+    x_read, nodes, leaves = forest_touch(x_agg.cpu().numpy(), forest_s)
+    Ks, Ts, Ds = forest_s.n_out, forest_s.n_trees, forest_s.depth
+    # each flow's 53 + 3 floats in, the op table, the visited node and leaf
+    # entries, N x K floats out
+    b3_bytes = (4096 * 56 * 4 + op59.numel() * 4 + 8 * nodes
+                + 4 * Ks * leaves + 4 * 4096 * Ks)
+    b3_ops = 4096 * (4 * len(inc_names) + Ts * (2 * Ds + Ks))
+    timing["fused_agg_infer"] = dict(
+        ms=time_ms(lambda: fused_agg_call(
+            a_big, m_big, *s_tables, op_table=op59,
+            forest_depth=Ds), KERNEL_REPS, flush),
+        plain_ms=time_ms(lambda: fused_agg_infer_plain(
+            a_big, m_big, *s_tables, op_table=op59,
+            forest_depth=Ds), PLAIN_REPS, flush),
+        ms_8=time_ms(lambda: fused_agg_call(
+            a_8, m_8, *s_tables, op_table=op59,
+            forest_depth=Ds), KERNEL_REPS, flush),
+        plain_ms_8=time_ms(lambda: fused_agg_infer_plain(
+            a_8, m_8, *s_tables, op_table=op59,
+            forest_depth=Ds), PLAIN_REPS, flush),
+        shape=dict(N=4096, F=len(inc_names), T=Ts, D=Ds, K=Ks),
+        bytes=b3_bytes, ops=b3_ops)
     for v in timing.values():
         v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["ops"])
     emit("kernel_times", shape=dict(N=N, F=67, T=T, D=D, K=K, P=big.max_pkts,
@@ -458,6 +631,113 @@ def main() -> None:
     emit("device_share", forest="rf_depth10", profile=share,
          seconds=time.perf_counter() - t0)
 
+    # 6. stream: the runtime on the card ------------------------------------
+    t0 = time.perf_counter()
+    pipe_s = build_pipeline(rep_s, forest_s, max_pkts=conn_depth, fused=True)
+    check(pipe_s.supports_agg, "the stream pipeline has no aggregate entry")
+    ring = max(64, min(6144, stream.n_events // 6))
+
+    def fleet(pipe, reuse):
+        def make(execute):
+            return ShardedRuntime(pipe, n_shards=4, capacity=2048, max_batch=8,
+                                  flush_timeout_s=2e-4, execute=execute,
+                                  reuse=reuse)
+        return make
+
+    counters = {"forest_infer": forest_infer_kernel_call,
+                "fused_forest_infer": fused_pipeline_call,
+                "fused_agg_infer": fused_agg_call}
+    arms = {}
+    for tag, reuse in (("off", None),
+                       ("on", ReuseConfig(drift_threshold=0.1,
+                                          refresh_every=256))):
+        ta = time.perf_counter()
+        make = fleet(pipe_s, reuse)
+        svc = ServiceModel.measure(make(True), stream, n_pkt_sample=16000,
+                                   reps=5, calibrate_warm=True)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        pps, st = find_zero_loss_rate(stream, make, svc, iters=BISECT_ITERS,
+                                      ring_capacity=ring)
+        torch.cuda.synchronize()
+        n_launch = {k: fn.launches for k, fn in counters.items()}
+        m = st.metrics
+        arms[tag] = dict(
+            zero_loss_pps=pps, zero_loss_gbps=st.offered_gbps, drops=st.drops,
+            latency_p50_s=st.latency_p50_s, latency_p99_s=st.latency_p99_s,
+            reuse_hits=m.reuse_hits, refreshes=m.refreshes,
+            forced_reinfer=m.forced_reinfer, flows_predicted=m.flows_predicted,
+            batches=m.batches, load_imbalance=st.load_imbalance,
+            stage_seconds=st.stage_seconds,
+            service=dict(pkt_accum_ns=svc.pkt_accum_ns,
+                         pkt_track_ns=svc.pkt_track_ns,
+                         pkt_frozen_ns=svc.pkt_frozen_ns,
+                         bucket_ns=svc.bucket_ns,
+                         gather_ns_per_flow=svc.gather_ns_per_flow,
+                         reuse_check_ns=svc.reuse_check_ns),
+            launches=n_launch, seconds=time.perf_counter() - ta)
+        emit("stream", arm=tag, **arms[tag])
+        check(st.drops == 0, f"reuse {tag}: {st.drops} drops at the "
+              "reported zero-loss rate")
+        check(len(st.predictions) == ds_s.n_flows,
+              f"reuse {tag}: {len(st.predictions)} flows predicted")
+        check(n_launch["fused_forest_infer"] > 0,
+              f"reuse {tag}: the fused kernel was not launched")
+    check(arms["on"]["launches"]["fused_agg_infer"] > 0,
+          "the aggregate kernel was not launched on the reuse arm")
+    check(arms["off"]["launches"]["fused_agg_infer"] == 0,
+          "the aggregate kernel was launched with reuse off")
+
+    # threshold 0: every refresh re-infers, and predictions stay bitwise
+    # the reuse-off replay's (first prediction wins); the refreshed ones
+    # agree with the two-launch pipeline's by the straddle rule's limit
+    tp = time.perf_counter()
+    syn = ServiceModel(pkt_accum_ns=800.0, pkt_track_ns=200.0,
+                       bucket_ns={8: 3e4, 16: 4e4, 32: 6e4, 64: 1e5},
+                       gather_ns_per_flow=200.0, pkt_frozen_ns=100.0,
+                       source="synthetic")
+    thr0 = ReuseConfig(drift_threshold=0.0, refresh_every=256)
+    pipe_u = build_pipeline(rep_s, forest_s, max_pkts=conn_depth, fused=False)
+
+    def run(pipe, reuse):
+        made = []
+
+        def make():
+            made.append(fleet(pipe, reuse)(True))
+            return made[-1]
+
+        st = replay(stream, make, stream.base_pps, syn, ring_capacity=ring)
+        live = {}
+        for w in made[0].shards:
+            live.update(w.dispatcher.live_predictions)
+        return st, live
+
+    base, _ = run(pipe_s, None)
+    fused0, live_f = run(pipe_s, thr0)
+    unfused0, live_u = run(pipe_u, thr0)
+    same = (set(base.predictions) == set(fused0.predictions)
+            and all(np.array_equal(base.predictions[k], fused0.predictions[k])
+                    for k in base.predictions))
+    check(same, "threshold-0 predictions differ from the reuse-off replay")
+    check(set(live_f) == set(live_u) and len(live_f) > 0,
+          "refreshed flows differ between fused and two-launch replays")
+    live_differ = sum(int(live_f[k] != live_u[k]) for k in live_f)
+    check(live_differ <= MAX_STRADDLED * len(live_f),
+          f"{live_differ} of {len(live_f)} refreshed predictions differ "
+          "between B3 and torch emission + B1")
+    check(fused0.metrics.forced_reinfer > 0, "threshold 0 forced nothing")
+    parity = dict(flows=len(base.predictions), threshold0_bitwise=same,
+                  forced_reinfer=fused0.metrics.forced_reinfer,
+                  refreshed_flows=len(live_f),
+                  refreshed_differ_fused_vs_unfused=live_differ,
+                  seconds=time.perf_counter() - tp)
+    emit("stream_parity", **parity)
+    ratio = arms["on"]["zero_loss_pps"] / arms["off"]["zero_loss_pps"]
+    emit("stream_summary", flows=ds_s.n_flows, events=stream.n_events,
+         shards=4, max_batch=8, ring_capacity=ring, bisect_iters=BISECT_ITERS,
+         reuse_on_off_pps_ratio=ratio, seconds=time.perf_counter() - t0)
+
     kernels = [
         dict(name="forest_infer", route="cuda",
              source="src/repro_torch/csrc/forest_infer.cu",
@@ -483,6 +763,21 @@ def main() -> None:
              bound_ms=timing["fused_forest_infer"]["bound_ms"],
              bound_us=timing["fused_forest_infer"]["bound_ms"] * 1e3,
              bound_by=timing["fused_forest_infer"]["bound_by"],
+             library_ms=None),
+        dict(name="fused_agg_infer", route="cuda",
+             source="src/repro_torch/csrc/fused_agg.cu",
+             replaces="src/repro/kernels/fused_pipeline.py:467",
+             launches=arms["on"]["launches"]["fused_agg_infer"],
+             max_abs_err=b3_err,
+             straddled=b3_straddled, argmax_mismatches=b3_mism,
+             cases_columns_not_bitwise=b3_cols_differ,
+             ms=timing["fused_agg_infer"]["ms"],
+             plain_ms=timing["fused_agg_infer"]["plain_ms"],
+             ms_8_flows=timing["fused_agg_infer"]["ms_8"],
+             plain_ms_8_flows=timing["fused_agg_infer"]["plain_ms_8"],
+             bound_ms=timing["fused_agg_infer"]["bound_ms"],
+             bound_us=timing["fused_agg_infer"]["bound_ms"] * 1e3,
+             bound_by=timing["fused_agg_infer"]["bound_by"],
              library_ms=None),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched")

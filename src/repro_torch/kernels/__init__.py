@@ -4,7 +4,8 @@ PyTorch version:
   tree_infer      dense level-order random-forest inference (B1,
                   csrc/forest_infer.cu)
   fused_pipeline  one-launch feature extraction + forest inference (B2,
-                  csrc/fused_pipeline.cu)
+                  csrc/fused_pipeline.cu), and its aggregate entry for the
+                  reuse path's refresh batches (B3, csrc/fused_agg.cu)
 
 `ops.py` holds the entry points that dispatch CUDA tensors to a kernel and
 CPU tensors to its plain version; `ref.py` the oracles and the straddle

@@ -18,21 +18,29 @@ CUDA tensors go to `fused_pipeline_call` (the kernel), CPU tensors to
 `fused_forest_infer_plain`, which decodes the table back to the plan, runs
 `emit_feature_columns` and the plain traversal — the reference's
 `_traverse` order, shared with `tree_infer.forest_infer_plain`.
+
+The aggregate entry (DESIGN.md §12) is the same pair for a refresh batch of
+the reuse path: `fused_agg_call` launches B3 (``csrc/fused_agg.cu``),
+which computes an incremental plan's columns from each flow's (53,)
+float32 aggregate row instead of its packet window;
+`fused_agg_infer_plain` runs the torch `emit_agg_features` and the plain
+traversal; `fused_agg_infer` picks by device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..traffic.extraction import emit_feature_columns
+from ..traffic.extraction import AGG_WIDTH, emit_agg_features, emit_feature_columns
 from ._build import check_tensor, launch
 from .tree_infer import MAX_CLASSES, MAX_DEPTH, forest_infer_plain, tree_blocking
 
 __all__ = ["encode_plan", "decode_plan", "fused_forest_infer",
            "fused_forest_infer_plain", "fused_pipeline_call",
+           "fused_agg_call", "fused_agg_infer", "fused_agg_infer_plain",
            "MAX_FEATURES", "MAX_WINDOW"]
 
-MAX_FEATURES = 128  # kMaxFeatures in csrc/fused_pipeline.cu
+MAX_FEATURES = 128  # kMaxFeatures in csrc/fused_pipeline.cu and fused_agg.cu
 MAX_WINDOW = 128    # kMaxWindow: the most packets a flow's window may hold
 
 # op-table codes, as the enums of csrc/fused_pipeline.cu number them
@@ -84,6 +92,23 @@ def decode_plan(table) -> tuple[tuple, ...]:
     return tuple(plan)
 
 
+def _check_forest(feature, threshold, leaf, forest_depth: int, dev) -> tuple:
+    """Check the forest tables a fused kernel takes; returns (T, K)."""
+    if feature.ndim != 2 or leaf.ndim != 3:
+        raise ValueError("expected feature (T, NI), leaf (T, NL, K)")
+    if not 0 <= forest_depth <= MAX_DEPTH:
+        raise ValueError(f"forest depth {forest_depth} outside [0, {MAX_DEPTH}]")
+    T, K = feature.shape[0], leaf.shape[2]
+    if T < 1 or not 1 <= K <= MAX_CLASSES:
+        raise ValueError(f"need >= 1 tree and 1..{MAX_CLASSES} classes, "
+                         f"got T={T}, K={K}")
+    ni = 2 ** forest_depth - 1
+    check_tensor("feature", feature, torch.int32, (T, ni), dev)
+    check_tensor("threshold", threshold, torch.float32, (T, ni), dev)
+    check_tensor("leaf", leaf, torch.float32, (T, ni + 1, K), dev)
+    return T, K
+
+
 def fused_forest_infer_plain(
     ts, size, direction, ttl, winsize, flags, flow_len, proto, s_port, d_port,
     feature, threshold, leaf, *, op_table, depth: int, forest_depth: int,
@@ -120,23 +145,16 @@ def fused_pipeline_call(
     not synchronise.
     """
     dev = ts.device
-    if ts.ndim != 2 or op_table.ndim != 2 or feature.ndim != 2 or leaf.ndim != 3:
-        raise ValueError("expected ts (N, P), op_table (F, 4), feature "
-                         "(T, NI), leaf (T, NL, K)")
+    if ts.ndim != 2 or op_table.ndim != 2:
+        raise ValueError("expected ts (N, P), op_table (F, 4)")
     N, P = ts.shape
     nf = op_table.shape[0]
-    T, K = feature.shape[0], leaf.shape[2]
     if not 1 <= nf <= MAX_FEATURES:
         raise ValueError(f"plan has {nf} columns; the kernel takes 1..{MAX_FEATURES}")
     if min(P, depth) > MAX_WINDOW:
         raise ValueError(f"packet window min(P={P}, depth={depth}) exceeds "
                          f"the kernel's {MAX_WINDOW}")
-    if not 0 <= forest_depth <= MAX_DEPTH:
-        raise ValueError(f"forest depth {forest_depth} outside [0, {MAX_DEPTH}]")
-    if T < 1 or not 1 <= K <= MAX_CLASSES:
-        raise ValueError(f"need >= 1 tree and 1..{MAX_CLASSES} classes, "
-                         f"got T={T}, K={K}")
-    ni = 2 ** forest_depth - 1
+    T, K = _check_forest(feature, threshold, leaf, forest_depth, dev)
     for name, t in (("ts", ts), ("size", size), ("ttl", ttl),
                     ("winsize", winsize)):
         check_tensor(name, t, torch.float32, (N, P), dev)
@@ -146,9 +164,6 @@ def fused_pipeline_call(
     for name, t in (("proto", proto), ("s_port", s_port), ("d_port", d_port)):
         check_tensor(name, t, torch.float32, (N,), dev)
     check_tensor("op_table", op_table, torch.int32, (nf, 4), dev)
-    check_tensor("feature", feature, torch.int32, (T, ni), dev)
-    check_tensor("threshold", threshold, torch.float32, (T, ni), dev)
-    check_tensor("leaf", leaf, torch.float32, (T, ni + 1, K), dev)
     if columns is not None:
         check_tensor("columns", columns, torch.float32, (N, nf), dev)
     out = torch.empty((N, K), dtype=torch.float32, device=dev)
@@ -181,4 +196,86 @@ def fused_forest_infer(
     return fn(ts, size, direction, ttl, winsize, flags, flow_len, proto,
               s_port, d_port, feature, threshold, leaf, op_table=op_table,
               depth=depth, forest_depth=forest_depth, block_t=block_t,
+              columns=columns)
+
+
+def fused_agg_infer_plain(
+    agg, meta, feature, threshold, leaf, *, op_table, forest_depth: int,
+    block_t: int = 8, columns: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The aggregate entry in torch ops: the torch `emit_agg_features`
+    over float32 (N, AGG_WIDTH) rows and (N, 3) meta (proto, s_port,
+    d_port), then the plain traversal. If `columns` is given, the (N, F)
+    columns are copied into it."""
+    x = torch.stack(emit_agg_features(
+        decode_plan(op_table), agg, proto=meta[:, 0], s_port=meta[:, 1],
+        d_port=meta[:, 2]), dim=1)
+    if columns is not None:
+        columns.copy_(x)
+    return forest_infer_plain(x, feature, threshold, leaf, forest_depth,
+                              block_t=block_t)
+
+
+def fused_agg_call(
+    agg, meta, feature, threshold, leaf, *, op_table, forest_depth: int,
+    block_t: int = 8, columns: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Launch the B3 CUDA kernel; returns (N, K) float32 probabilities.
+
+    Takes float32 `agg` (N, AGG_WIDTH) and `meta` (N, 3) = proto, s_port,
+    d_port, the forest tables as `forest_infer_kernel_call` takes them, and
+    the int32 (F, 4) `op_table` from `encode_plan` of an incremental plan
+    (no median), all contiguous on one CUDA device. Padding rows may be all
+    zero: they yield an all-zero feature row. `columns`, if given, is an
+    (N, F) float32 buffer that receives the kernel's own feature columns.
+    Launches on the current stream; its one wait is the read-back of the
+    op table for the median check (a refresh batch resolves at once
+    anyway).
+    """
+    dev = agg.device
+    if agg.ndim != 2 or op_table.ndim != 2:
+        raise ValueError("expected agg (N, AGG_WIDTH), op_table (F, 4)")
+    N = agg.shape[0]
+    nf = op_table.shape[0]
+    if not 1 <= nf <= MAX_FEATURES:
+        raise ValueError(f"plan has {nf} columns; the kernel takes 1..{MAX_FEATURES}")
+    stat = op_table[:, 3][op_table[:, 0] == _KINDS.index("stat")]
+    if bool((stat == _STATS.index("med")).any()):
+        raise ValueError("the plan has a median, which has no incremental "
+                         "form: the aggregate kernel takes incremental plans "
+                         "only")
+    T, K = _check_forest(feature, threshold, leaf, forest_depth, dev)
+    check_tensor("agg", agg, torch.float32, (N, AGG_WIDTH), dev)
+    check_tensor("meta", meta, torch.float32, (N, 3), dev)
+    check_tensor("op_table", op_table, torch.int32, (nf, 4), dev)
+    if columns is not None:
+        check_tensor("columns", columns, torch.float32, (N, nf), dev)
+    out = torch.empty((N, K), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out
+    bt, tp, rescale = tree_blocking(T, block_t)
+    launch("fused_agg_infer_launch", dev,
+           agg.data_ptr(), meta.data_ptr(), op_table.data_ptr(),
+           feature.data_ptr(), threshold.data_ptr(), leaf.data_ptr(),
+           out.data_ptr(), None if columns is None else columns.data_ptr(),
+           N, nf, forest_depth, T, K, bt, tp, rescale)
+    fused_agg_call.launches += 1
+    return out
+
+
+fused_agg_call.launches = 0
+
+
+def fused_agg_infer(
+    agg, proto, s_port, d_port, feature, threshold, leaf, *, op_table,
+    forest_depth: int, block_t: int = 8, columns: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Aggregate entry: (N, AGG_WIDTH) rows -> class probabilities, one
+    launch on CUDA tensors, the plain version on CPU tensors. `agg` is
+    rounded to float32 first, as the reference's ``agg.astype(float32)``
+    does; the per-flow meta are (N,) float32."""
+    meta = torch.stack([proto, s_port, d_port], dim=1)
+    fn = fused_agg_call if agg.is_cuda else fused_agg_infer_plain
+    return fn(agg.to(torch.float32), meta, feature, threshold, leaf,
+              op_table=op_table, forest_depth=forest_depth, block_t=block_t,
               columns=columns)

@@ -1,0 +1,58 @@
+"""Serving substrate of the port: the streaming traffic runtime.
+
+Port of `repro.serve`, the parts ported so far: the runtime (`runtime/`:
+online flow table with vectorized block ingest, micro-batched
+shape-bucketed dispatch staged in pinned arenas, drift-gated prediction
+reuse, offered-load replay with zero-loss throughput measurement, RSS-style
+sharding — DESIGN.md §6–§8, §12), the metrics registry, latency sketches
+and tracer of `obs/`, and `ServeSession`, whose attachments wait for
+ROADMAP A10 (the control plane, the rest of `obs/`, deploy). The
+multi-tenant pipeline comes with ROADMAP A9, the LM serving steps with
+A12.
+
+This module is the public serving namespace of the port: everything a
+serving consumer needs is re-exported here.
+"""
+from .obs import LatencyConfig, LatencyRecorder, LatencySketch, MetricsRegistry, Tracer
+from .runtime import (
+    BatchRecord,
+    FlowStatus,
+    FlowTable,
+    LatencyHistogram,
+    MicroBatchDispatcher,
+    PacketStream,
+    ReplayStats,
+    ReuseConfig,
+    RuntimeMetrics,
+    ServiceModel,
+    ShardedRuntime,
+    StreamingRuntime,
+    find_zero_loss_rate,
+    replay,
+    tuple_hash64,
+)
+from .session import ServeSession
+
+__all__ = sorted([
+    "BatchRecord",
+    "FlowStatus",
+    "FlowTable",
+    "LatencyConfig",
+    "LatencyHistogram",
+    "LatencyRecorder",
+    "LatencySketch",
+    "MetricsRegistry",
+    "MicroBatchDispatcher",
+    "PacketStream",
+    "ReplayStats",
+    "ReuseConfig",
+    "RuntimeMetrics",
+    "ServeSession",
+    "ServiceModel",
+    "ShardedRuntime",
+    "StreamingRuntime",
+    "Tracer",
+    "find_zero_loss_rate",
+    "replay",
+    "tuple_hash64",
+])

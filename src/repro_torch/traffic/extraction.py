@@ -33,7 +33,9 @@ __all__ = [
     "stats_plan",
     "emit_feature_columns",
     "plan_is_incremental",
+    "emit_agg_features",
     "agg_init",
+    "AGG_INIT",
     "AGG_WIDTH",
 ]
 
@@ -228,9 +230,15 @@ def emit_feature_columns(
 
 
 # ---------------------------------------------------------------------------
-# incremental aggregate state (DESIGN.md §12): the layout and the plan test
-# carry over now; the aggregate emitter comes with the reuse path
+# incremental aggregate state (DESIGN.md §12)
 # ---------------------------------------------------------------------------
+# The flow table keeps, per slot, a float64 row of AGG_WIDTH running
+# statistics: per direction d at offset AGG_DIR_STRIDE * d the packet count,
+# sum/min/max/M2 of bytes, winsize and ttl, count/sum/min/max/M2 of the
+# directional inter-arrival times and the first/last timestamp; then the
+# flow-wide ts min/max, the first SYN, SYN-ACK and ACK times and the eight
+# flag counters. Min-style cells start at +_BIG, max-style at -_BIG;
+# emission maps "never matched" back to the window emitter's 0.0-on-empty.
 
 AGG_DIR_STRIDE = 20
 AGG_CNT = 0
@@ -249,6 +257,8 @@ AGG_HS_SYNACK = 43
 AGG_HS_ACK = 44
 AGG_FLAGS = 45
 AGG_WIDTH = 53
+
+_DIR_OF = {"s": 0, "d": 1}
 
 
 def agg_init() -> np.ndarray:
@@ -271,6 +281,9 @@ def agg_init() -> np.ndarray:
     return v
 
 
+AGG_INIT = agg_init()
+
+
 def plan_is_incremental(plan: tuple[tuple, ...]) -> bool:
     """True iff every plan column is computable from the aggregate row.
 
@@ -280,6 +293,170 @@ def plan_is_incremental(plan: tuple[tuple, ...]) -> bool:
     return all(not (e[0] == "stat" and e[3] == "med") for e in plan)
 
 
+def emit_agg_features(plan: tuple[tuple, ...], agg, *, proto, s_port, d_port):
+    """The plan's feature columns over (rows, AGG_WIDTH) aggregates.
+
+    The incremental twin of `emit_feature_columns`: same plan, same
+    empty-mask semantics (0.0 when a direction/condition never matched),
+    but reading the flow table's running statistics instead of the raw
+    packet window. On numpy arrays (the host drift check, float64) it is
+    the reference's code; on torch tensors (float32) it is the plain
+    version of the aggregate kernel B3, which computes each column in the
+    same order of IEEE operations. Returns float32 (rows,) columns in plan
+    order. Raises on a non-incremental plan entry ("med").
+    """
+    if isinstance(agg, torch.Tensor):
+        return _emit_agg_torch(plan, agg, proto=proto, s_port=s_port,
+                               d_port=d_port)
+    xp = np
+
+    def col(i):
+        return agg[:, i]
+
+    def dcol(d, i):
+        return agg[:, AGG_DIR_STRIDE * d + i]
+
+    cnt = {k: dcol(v, AGG_CNT) for k, v in _DIR_OF.items()}
+    n_any = cnt["s"] + cnt["d"]
+    dur = xp.where(n_any > 0, col(AGG_TS_MAX) - col(AGG_TS_MIN), 0.0)
+
+    def fam_stat(d, fam, stat):
+        di = _DIR_OF[d]
+        if fam == "iat":
+            c = dcol(di, AGG_IAT_CNT)
+            cells = {"sum": AGG_IAT_SUM, "min": AGG_IAT_MIN,
+                     "max": AGG_IAT_MAX}
+            m2 = dcol(di, AGG_IAT_M2)
+        else:
+            c = cnt[d]
+            fb = AGG_FAM_BASE[fam]
+            cells = {"sum": fb, "min": fb + 1, "max": fb + 2}
+            m2 = dcol(di, fb + 3)
+        if stat == "sum":
+            return dcol(di, cells["sum"])
+        if stat == "mean":
+            return xp.where(
+                c > 0, dcol(di, cells["sum"]) / xp.maximum(c, 1.0), 0.0)
+        if stat in ("min", "max"):
+            return xp.where(c > 0, dcol(di, cells[stat]), 0.0)
+        if stat == "std":
+            var = m2 / xp.maximum(c, 1.0)
+            return xp.where(c > 0, xp.sqrt(xp.maximum(var, 0.0)), 0.0)
+        raise ValueError(f"stat {stat!r} has no incremental form")
+
+    def hs(i):
+        v = col(i)
+        return xp.where(v < _BIG / 2, v, 0.0)
+
+    meta = {"proto": proto, "s_port": s_port, "d_port": d_port}
+    cols = []
+    for entry in plan:
+        kind = entry[0]
+        if kind == "dur":
+            c = dur
+        elif kind == "meta":
+            c = meta[entry[1]]
+        elif kind == "load":
+            byt = dcol(_DIR_OF[entry[1]], AGG_FAM_BASE["bytes"])
+            c = xp.where(dur > 0, byt * 8.0 / xp.maximum(dur, 1e-9), 0.0)
+        elif kind == "pkt_cnt":
+            c = cnt[entry[1]]
+        elif kind == "handshake":
+            t_syn = hs(AGG_HS_SYN)
+            t_synack = hs(AGG_HS_SYNACK)
+            t_ack = hs(AGG_HS_ACK)
+            if entry[1] == "tcp_rtt":
+                c = xp.maximum(t_ack - t_syn, 0.0)
+            elif entry[1] == "syn_ack":
+                c = xp.maximum(t_synack - t_syn, 0.0)
+            else:
+                c = xp.maximum(t_ack - t_synack, 0.0)
+        elif kind == "flag_cnt":
+            c = col(AGG_FLAGS + entry[1])
+        else:  # ("stat", dir, family, stat)
+            _, d, fam, stat = entry
+            c = fam_stat(d, fam, stat)
+        cols.append(xp.asarray(c, xp.float32))
+    return cols
+
+
+def _emit_agg_torch(plan, agg, *, proto, s_port, d_port):
+    """`emit_agg_features` over a float32 (rows, AGG_WIDTH) tensor: the
+    reference's jnp path, op for op. The sentinels survive the float32
+    cast (3.4e38 is representable), so an unselected branch may hold
+    +-inf; every masked value is chosen by `torch.where`, never by a
+    multiply with a mask."""
+    if agg.dtype != torch.float32:
+        raise TypeError(f"agg: dtype {agg.dtype}, expected torch.float32 "
+                        "(round on the host, as the reference's float32 "
+                        "path does)")
+
+    def dcol(d, i):
+        return agg[:, AGG_DIR_STRIDE * d + i]
+
+    cnt = {k: dcol(v, AGG_CNT) for k, v in _DIR_OF.items()}
+    n_any = cnt["s"] + cnt["d"]
+    dur = torch.where(n_any > 0, agg[:, AGG_TS_MAX] - agg[:, AGG_TS_MIN], 0.0)
+
+    def fam_stat(d, fam, stat):
+        di = _DIR_OF[d]
+        if fam == "iat":
+            c = dcol(di, AGG_IAT_CNT)
+            cells = {"sum": AGG_IAT_SUM, "min": AGG_IAT_MIN,
+                     "max": AGG_IAT_MAX}
+            m2 = dcol(di, AGG_IAT_M2)
+        else:
+            c = cnt[d]
+            fb = AGG_FAM_BASE[fam]
+            cells = {"sum": fb, "min": fb + 1, "max": fb + 2}
+            m2 = dcol(di, fb + 3)
+        if stat == "sum":
+            return dcol(di, cells["sum"])
+        if stat == "mean":
+            return torch.where(
+                c > 0, dcol(di, cells["sum"]) / c.clamp(min=1.0), 0.0)
+        if stat in ("min", "max"):
+            return torch.where(c > 0, dcol(di, cells[stat]), 0.0)
+        if stat == "std":
+            var = m2 / c.clamp(min=1.0)
+            return torch.where(c > 0, torch.sqrt(var.clamp(min=0.0)), 0.0)
+        raise ValueError(f"stat {stat!r} has no incremental form")
+
+    def hs(i):
+        v = agg[:, i]
+        return torch.where(v < _BIG / 2, v, 0.0)
+
+    meta = {"proto": proto, "s_port": s_port, "d_port": d_port}
+    cols = []
+    for entry in plan:
+        kind = entry[0]
+        if kind == "dur":
+            c = dur
+        elif kind == "meta":
+            c = meta[entry[1]]
+        elif kind == "load":
+            byt = dcol(_DIR_OF[entry[1]], AGG_FAM_BASE["bytes"])
+            c = torch.where(dur > 0, byt * 8.0 / dur.clamp(min=1e-9), 0.0)
+        elif kind == "pkt_cnt":
+            c = cnt[entry[1]]
+        elif kind == "handshake":
+            t_syn, t_synack, t_ack = (hs(AGG_HS_SYN), hs(AGG_HS_SYNACK),
+                                      hs(AGG_HS_ACK))
+            if entry[1] == "tcp_rtt":
+                c = (t_ack - t_syn).clamp(min=0.0)
+            elif entry[1] == "syn_ack":
+                c = (t_synack - t_syn).clamp(min=0.0)
+            else:
+                c = (t_ack - t_synack).clamp(min=0.0)
+        elif kind == "flag_cnt":
+            c = agg[:, AGG_FLAGS + entry[1]]
+        else:  # ("stat", dir, family, stat)
+            _, d, fam, stat = entry
+            c = fam_stat(d, fam, stat)
+        cols.append(c.to(torch.float32))
+    return cols
+
+
 # ---------------------------------------------------------------------------
 # batch entry points
 # ---------------------------------------------------------------------------
@@ -287,9 +464,15 @@ def plan_is_incremental(plan: tuple[tuple, ...]) -> bool:
 def dataset_tensors(ds: TrafficDataset, device: torch.device) -> dict:
     """The batch's arrays as tensors on `device`, in the dtypes the kernels
     take: float32 packet fields, uint8 `direction` and `flags`, int32
-    `flow_len`, float32 per-flow metadata."""
+    `flow_len`, float32 per-flow metadata.
+
+    The copies are queued without waiting. From pageable memory CUDA reads
+    the source before the call returns; from pinned memory (the streaming
+    dispatcher's staging arenas) it reads it later, on the stream, so the
+    owner of pinned arrays must not overwrite them until the copies ran."""
     def put(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype)).to(device)
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype)).to(
+            device, non_blocking=True)
 
     out = {k: put(getattr(ds, k), np.float32)
            for k in ("ts", "size", "ttl", "winsize", "proto", "s_port", "d_port")}

@@ -1,7 +1,8 @@
 """The 67-candidate-feature registry and its shared-operation DAG.
 
-The port's own copy of the registry half of `repro.traffic.features`; the
-modeled-cost functions over it come with the profiler.
+The port's own copy of `repro.traffic.features`: the registry and the
+modeled-cost functions over it (the replay's `ServiceModel.modeled` reads
+them).
 
 Exactly the paper's Appendix A Table 3 feature set. Every feature declares
 the chain of per-packet *operations* it needs (parse Ethernet header, parse
@@ -26,6 +27,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
+
 __all__ = [
     "Op",
     "Feature",
@@ -33,6 +36,9 @@ __all__ = [
     "FEATURES",
     "FEATURE_NAMES",
     "MINI_FEATURE_NAMES",
+    "per_packet_ops",
+    "per_flow_ops_ns",
+    "modeled_extraction_cost_ns",
 ]
 
 
@@ -153,3 +159,49 @@ FEATURE_NAMES: tuple[str, ...] = tuple(FEATURES.keys())
 MINI_FEATURE_NAMES: tuple[str, ...] = (
     "dur", "s_load", "s_pkt_cnt", "s_bytes_sum", "s_bytes_mean", "s_iat_mean",
 )
+
+
+def per_packet_ops(feature_names: Sequence[str], dedup: bool = True) -> float:
+    """Summed per-packet op cost (ns) for a representation.
+
+    dedup=True counts each shared op once (the real pipeline); dedup=False
+    sums each feature's chain independently (the Fig.-8 NAIVE COST ablation).
+    """
+    if dedup:
+        ops: set[str] = set()
+        for f in feature_names:
+            ops.update(FEATURES[f].ops)
+        return sum(OPS[o].cost_ns for o in ops if not OPS[o].per_flow)
+    total = 0.0
+    for f in feature_names:
+        total += sum(OPS[o].cost_ns for o in FEATURES[f].ops if not OPS[o].per_flow)
+    return total
+
+
+def per_flow_ops_ns(feature_names: Sequence[str], dedup: bool = True) -> float:
+    """Per-flow (extract-time + per-flow op) cost, excluding sort terms."""
+    if dedup:
+        ops: set[str] = set()
+        for f in feature_names:
+            ops.update(FEATURES[f].ops)
+        base = sum(OPS[o].cost_ns for o in ops if OPS[o].per_flow)
+    else:
+        base = sum(
+            sum(OPS[o].cost_ns for o in FEATURES[f].ops if OPS[o].per_flow)
+            for f in feature_names
+        )
+    return base + sum(FEATURES[f].extract_cost_ns for f in feature_names)
+
+
+def modeled_extraction_cost_ns(
+    feature_names: Sequence[str],
+    depth: float,
+    dedup: bool = True,
+) -> float:
+    """Modeled per-flow extraction cost at connection depth `depth` (ns)."""
+    c = per_packet_ops(feature_names, dedup) * depth
+    c += per_flow_ops_ns(feature_names, dedup)
+    n_sort = sum(1 for f in feature_names if FEATURES[f].sorting)
+    if n_sort and depth > 1:
+        c += n_sort * 0.8 * depth * np.log2(max(depth, 2.0))
+    return float(c)

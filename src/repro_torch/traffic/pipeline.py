@@ -17,13 +17,18 @@ levels exist, as in the reference:
   the feature matrix is never written. The plan is encoded once, here, as
   the int32 op table the kernel interprets.
 
-On ``device="cpu"`` each kernel's plain PyTorch version runs instead. The
-incremental entry (`predict_agg`) comes with the reuse path.
+When the plan is incremental (no median), the pipeline also has the
+aggregate entry `predict_agg` of the reuse path (DESIGN.md §12): the fused
+pipeline launches B3 on the flows' aggregate rows; the two-launch pipeline
+computes the columns with the torch `emit_agg_features` and runs B1 (or
+the oracle) on them.
+
+On ``device="cpu"`` each kernel's plain PyTorch version runs instead.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -33,8 +38,14 @@ from ..core.forest import DenseForest
 from ..core.search_space import FeatureRep
 from ..device import resolve_device
 from ..kernels import ops, ref
-from ..kernels.fused_pipeline import encode_plan, fused_forest_infer
-from .extraction import dataset_tensors, extraction_fn, stats_plan
+from ..kernels.fused_pipeline import encode_plan, fused_agg_infer, fused_forest_infer
+from .extraction import (
+    dataset_tensors,
+    emit_agg_features,
+    extraction_fn,
+    plan_is_incremental,
+    stats_plan,
+)
 from .synth import TrafficDataset
 
 __all__ = ["ServingPipeline", "build_pipeline"]
@@ -47,18 +58,46 @@ class ServingPipeline:
     _fn: Callable
     device: torch.device
     fused: bool = False
+    _agg_fn: Optional[Callable] = None
 
     def __call__(self, ds: TrafficDataset) -> np.ndarray:
         """Predicted class ids for every flow in the batch."""
         return self.finalize(self.predict_async(ds))
 
+    @property
+    def supports_agg(self) -> bool:
+        """True when this pipeline has an incremental (aggregate-row)
+        inference entry — every feature of the plan is maintainable as a
+        running statistic (no median)."""
+        return self._agg_fn is not None
+
+    def predict_agg(self, agg, proto, s_port, d_port) -> torch.Tensor:
+        """Infer from per-flow aggregate rows (n, AGG_WIDTH) instead of the
+        packet window; resolves through `finalize` like any submission.
+
+        `agg` is the flow table's float64 block; it is rounded to float32
+        on the host before the copy, as the reference's float32 path
+        rounds it, and the columns are computed in float32 on the device.
+        The arrays are read before this returns (the copy is synchronous),
+        so the caller may reuse them at once."""
+        if self._agg_fn is None:
+            raise ValueError(
+                "pipeline has no incremental entry (plan not incremental)")
+        return self._agg_fn(*(
+            torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
+            for a in (agg, proto, s_port, d_port)))
+
     def predict_async(self, ds: TrafficDataset) -> torch.Tensor:
         """Submit the batch and return its (N, K) probabilities on the device.
 
-        The batch's arrays are copied to the device before this returns, so
-        the caller may overwrite them at once; the kernels are queued on
-        the current stream and the call does not wait for them. Only
-        `finalize` blocks.
+        The copies to the device and the kernels are queued on the current
+        stream and the call does not wait for them; only `finalize` blocks.
+        Where the batch's arrays are views of pinned host memory (the
+        streaming dispatcher's staging arenas), the copies are asynchronous
+        too: the caller must not overwrite those arrays until the copies
+        have run — the dispatcher waits on a CUDA event recorded after this
+        call before it reuses an arena. Arrays in pageable memory are read
+        before this returns.
         """
         return self._fn(ds)
 
@@ -113,9 +152,11 @@ def build_pipeline(
     dev = resolve_device(device)
     feat_t, thr_t, leaf_t = forest_tables(forest, dev)
     depth = forest.depth
+    plan = stats_plan(rep.features)
+    incremental = plan_is_incremental(plan)
 
     if fused:
-        op_table = torch.from_numpy(encode_plan(stats_plan(rep.features))).to(dev)
+        op_table = torch.from_numpy(encode_plan(plan)).to(dev)
         conn_depth = int(rep.depth)
 
         def run(ds: TrafficDataset) -> torch.Tensor:
@@ -126,7 +167,15 @@ def build_pipeline(
                 t["d_port"], feat_t, thr_t, leaf_t,
                 op_table=op_table, depth=conn_depth, forest_depth=depth)
 
-        return ServingPipeline(rep, forest, run, dev, fused=True)
+        run_agg = None
+        if incremental:
+            def run_agg(agg, proto, s_port, d_port) -> torch.Tensor:
+                return fused_agg_infer(
+                    agg, proto, s_port, d_port, feat_t, thr_t, leaf_t,
+                    op_table=op_table, forest_depth=depth)
+
+        return ServingPipeline(rep, forest, run, dev, fused=True,
+                               _agg_fn=run_agg)
 
     extract = extraction_fn(rep.features, rep.depth, max_pkts, device=dev)
     infer = ops.forest_infer if use_kernel else ref.forest_infer_ref
@@ -134,4 +183,11 @@ def build_pipeline(
     def run(ds: TrafficDataset) -> torch.Tensor:
         return infer(extract(ds), feat_t, thr_t, leaf_t, depth)
 
-    return ServingPipeline(rep, forest, run, dev)
+    run_agg = None
+    if incremental:
+        def run_agg(agg, proto, s_port, d_port) -> torch.Tensor:
+            x = torch.stack(emit_agg_features(
+                plan, agg, proto=proto, s_port=s_port, d_port=d_port), dim=1)
+            return infer(x, feat_t, thr_t, leaf_t, depth)
+
+    return ServingPipeline(rep, forest, run, dev, _agg_fn=run_agg)

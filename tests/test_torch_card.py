@@ -15,6 +15,8 @@ from repro_torch.convert import forest_from_numpy, forest_tables
 from repro_torch.core.search_space import FeatureRep
 from repro_torch.kernels.fused_pipeline import (
     encode_plan,
+    fused_agg_call,
+    fused_agg_infer_plain,
     fused_forest_infer_plain,
     fused_pipeline_call,
 )
@@ -22,8 +24,9 @@ from repro_torch.kernels.tree_infer import forest_infer_kernel_call, forest_infe
 from repro_torch.traffic.extraction import dataset_tensors, extract_features, stats_plan
 from repro_torch.traffic.features import FEATURE_NAMES
 from repro_torch.traffic.models import train_traffic_model
+from repro_torch.serve import runtime as prt
 from repro_torch.traffic.pipeline import build_pipeline
-from repro_torch.traffic.synth import make_dataset
+from repro_torch.traffic.synth import make_dataset, make_scenario_dataset
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +105,89 @@ def test_pipeline_on_card_matches_cpu(cuda):  # noqa: F811
         np.testing.assert_array_equal(gpu(ds), cpu(ds))
     assert forest_infer_kernel_call.launches > n0
     assert fused_pipeline_call.launches > f0
+
+
+def _agg_rows(n_pkts=6000):
+    """float64 aggregate rows and float32 meta of the live flows of a reuse
+    table after `n_pkts` packets of a zipf trace."""
+    ds = make_scenario_dataset("app-class", "zipf", n_flows=120, max_pkts=400,
+                               seed=3)
+    s = prt.PacketStream.from_dataset(ds, seed=0)
+    tbl = prt.FlowTable(512, 8, reuse=True, refresh_every=64, agg_buffer=256)
+    f = s.fid[:n_pkts]
+    tbl.observe_batch(s.key[f], s.base_t[:n_pkts], s.rel_ts32[:n_pkts],
+                      s.size[:n_pkts], s.direction[:n_pkts], s.ttl[:n_pkts],
+                      s.winsize[:n_pkts], s.flags_byte[:n_pkts], s.proto[f],
+                      s.s_port[f], s.d_port[f], f, s.fin[:n_pkts])
+    tbl.flush_agg()
+    live = np.flatnonzero(tbl.ctrl["state"] != 0)
+    meta = np.stack([tbl.proto[live], tbl.s_port[live], tbl.d_port[live]], 1)
+    return tbl.agg[live], meta
+
+
+@pytest.mark.parametrize("n", [1, 8, 37, 4096])
+def test_agg_kernel_matches_plain(cuda, n):  # noqa: F811
+    agg, meta = _agg_rows()
+    idx = np.arange(n) % len(agg)
+    a = torch.from_numpy(agg[idx].astype(np.float32)).to(cuda)
+    m = torch.from_numpy(meta[idx]).to(cuda)
+    a[-1:] = 0.0                  # a padding row, as the dispatcher pads
+    m[-1:] = 0.0
+    plan = stats_plan(tuple(f for f in FEATURE_NAMES if not f.endswith("_med")))
+    op_table = torch.from_numpy(encode_plan(plan)).to(cuda)
+    R = np.random.default_rng(n)
+    forest = _random_forest(R, 25, 8, 7, len(plan))
+    tables = forest_tables(forest, cuda)
+    outs = []
+    for fn in (fused_agg_call, fused_agg_infer_plain):
+        cols = torch.empty((n, len(plan)), device=cuda)
+        p = fn(a, m, *tables, op_table=op_table, forest_depth=forest.depth,
+               columns=cols)
+        outs.append((p.cpu().numpy(), cols.cpu().numpy()))
+    (pk, xk), (pp, xp) = outs
+    np.testing.assert_allclose(xk, xp, rtol=1e-5, atol=1e-6)
+    assert (xk[-1] == 0).all()
+    assert_straddle_parity(pp, pk, xp, xk, forest)
+
+
+def test_pinned_arenas_replay_matches_cpu(cuda):  # noqa: F811
+    """A replay whose window lets one batch be in flight: the staging
+    arenas are pinned, each carries the event the dispatcher waits on, and
+    the predictions, first and refreshed, are the CPU pipeline's."""
+    ds = make_scenario_dataset("app-class", "zipf", n_flows=120, max_pkts=400,
+                               seed=3)
+    rep = FeatureRep(tuple(f for f in FEATURE_NAMES if not f.endswith("_med")),
+                     depth=8)
+    X = extract_features(ds, rep.features, rep.depth, device="cpu")
+    forest, _ = train_traffic_model(X, ds.label, model="rf-fast", seed=0)
+    stream = prt.PacketStream.from_dataset(ds, seed=0)
+    svc = prt.ServiceModel(pkt_accum_ns=800.0, pkt_track_ns=200.0,
+                           bucket_ns={8: 3e4, 16: 4e4}, pkt_frozen_ns=100.0)
+    n0 = fused_agg_call.launches
+    out = {}
+    for device in ("cpu", "cuda"):
+        pipe = build_pipeline(rep, forest, rep.depth, fused=True, device=device)
+        made = []
+
+        def mk(pipe=pipe, made=made):
+            made.append(prt.StreamingRuntime(
+                pipe, capacity=512, max_batch=16, flush_timeout_s=2e-4,
+                max_pending=1, reuse=prt.ReuseConfig(drift_threshold=0.0,
+                                                     refresh_every=64)))
+            return made[-1]
+
+        st = prt.replay(stream, mk, stream.base_pps * 3, svc,
+                        ring_capacity=stream.n_events // 6)
+        disp = made[0].dispatcher
+        arenas = [a for ring in disp._arenas.values() for a in ring]
+        assert arenas and all(len(r) == 2 for r in disp._arenas.values())
+        if device == "cuda":
+            assert all(a.copied is not None and a.copied.query()
+                       and all(t.is_pinned() for t in a.pinned)
+                       for a in arenas)
+        else:
+            assert all(a.copied is None and not a.pinned for a in arenas)
+        out[device] = ({k: int(v) for k, v in st.predictions.items()},
+                       {k: int(v) for k, v in disp.live_predictions.items()})
+    assert fused_agg_call.launches > n0
+    assert out["cuda"] == out["cpu"]
