@@ -13,7 +13,12 @@ Phases, each printing one JSON line:
    and two forests trained on the CPU with the port's numpy trainer: the
    one `train_traffic_model(model="rf")` selects, and 25 trees of depth 10.
    Then (`stream_data`) the stream phase's deployment below, and the
-   aggregate rows of a flow table that ingested its whole trace.
+   aggregate rows of a flow table that ingested its whole trace; then
+   (`multitenant_data`) the two multi-tenant deployments B4 is checked on:
+   "wide", three tenants over the iot-class set (the 67 features at depths
+   50 and 16 and the 59 incremental features at 50, an `rf` forest each:
+   131 merged columns, 84 probability lanes), and "fleet", the
+   multitenant phase's four tenants.
 4. kernels vs plain: each kernel against its plain PyTorch version on the
    card, on the same inputs: the forest traversal (B1) at the main-path
    shape and a ragged one, the fused extract+infer kernel (B2) for plans
@@ -23,6 +28,10 @@ Phases, each printing one JSON line:
    of a flow table that ingested the stream phase's trace, for the
    59-feature incremental plan and one plan per op family, at 8, 777 and
    4096 flows; then its time at 8 and 4096 flows.
+   The multi-forest kernel (B4) on both multi-tenant deployments at 4096
+   and 32 flows: its merged columns bitwise equal to the plain ones, no
+   flow straddled, and every tenant's lane bitwise equal to solo B2 on
+   that tenant's own plan and forest; then its time at 4096 and 32 flows.
 5. main path: `build_pipeline(..., fused=True)` and `fused=False` on the
    card for both forests, warmed on buckets 1..128, serving 16
    micro-batches of 128 flows, one batch of 4096 and the held-out split,
@@ -39,6 +48,25 @@ Phases, each printing one JSON line:
    predicts bitwise as the reuse-off replay, and its refreshed predictions
    agree with the same replay on the two-launch pipeline (torch emission
    + B1) for all but 1% of refreshed flows.
+7. multitenant: the JAX package's multi-tenant A/B at full size
+   (benchmarks/bench_runtime.py `run_multitenant_gate(tenants=4)`): the
+   zipf app-class trace of 500 flows of up to 160 packets, four tenants
+   with `tree-fast` forests. The shared arm is one 4-shard fleet over the
+   fused `MultiTenantPipeline` (B4); the independent arm four 1-shard
+   fleets over the tenants' fused solo pipelines (B2), its rate the
+   slowest tenant's. Each arm: service constants measured on the card,
+   the zero-loss rate by 8 bisection steps, the launch counters set to 0
+   just before and read just after. Then parity under fixed clock
+   constants: each tenant's lane of the shared fleet bitwise equal to its
+   solo fleet, the unfused shared fleet (torch merged extraction + B1)
+   differing from the fused one on at most 1% of flows.
+8. cotune: `examples/tune_multitenant.py` steps 1 and 2 on the port (the
+   zipf app-class set of 240 flows, three feature pools): each tenant
+   tuned alone, then the joint space under shared and independent billing
+   (`CatoOptimizer(batch_size=4).run(24)` each); the shared run's knee
+   served on the card through B4 with the classes of the CPU plain
+   pipeline; one replayed-throughput measurement of tenant 0's knee on
+   the card, which launches B2.
 
 Probabilities of pipelines whose feature columns agree only to float32
 rounding are compared by the straddle rule
@@ -52,6 +80,7 @@ when any check fails, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -70,6 +99,25 @@ MAX_STRADDLED = 0.01
 KERNEL_REPS, PLAIN_REPS = 30, 5
 # the stream phase's trace and search (benchmarks/bench_runtime.py, reuse A/B)
 STREAM_FLOWS, STREAM_PKTS, BISECT_ITERS = 600, 4000, 6
+# the multitenant phase: the JAX package's multi-tenant A/B at full size
+# (benchmarks/bench_runtime.py `run_multitenant_gate(tenants=4)`)
+MT_FLOWS, MT_PKTS, MT_BISECT = 500, 160, 8
+MT_TENANTS = (
+    (("s_bytes_mean", "s_iat_mean", "s_load", "proto"), 8),
+    (("s_bytes_mean", "s_iat_mean", "s_load", "dur", "s_bytes_max"), 12),
+    (("s_bytes_mean", "s_iat_mean", "dur", "d_pkt_cnt"), 8),
+    (("s_bytes_mean", "s_load", "ack_cnt", "psh_cnt"), 8),
+)
+# its parity replays' fixed clock constants
+MT_SERVICE = dict(pkt_accum_ns=800.0, pkt_track_ns=200.0,
+                  bucket_ns={8: 3e4, 16: 4e4, 32: 6e4, 64: 1e5},
+                  gather_ns_per_flow=200.0, source="synthetic")
+# the cotune phase (examples/tune_multitenant.py): a shared core of
+# features and a specialty pair per tenant
+_CORE = ("s_bytes_mean", "s_iat_mean", "s_load", "dur")
+CO_POOLS = (_CORE + ("proto", "ack_cnt"), _CORE + ("s_bytes_max", "psh_cnt"),
+            _CORE + ("d_pkt_cnt", "d_iat_std"))
+CO_ITERS, CO_SOLO = 24, 16
 # the drift gate's configurations per op family of the incremental plan
 AGG_PLANS = (
     ("dur", "proto", "s_port", "d_port"),
@@ -225,6 +273,366 @@ def table_rows(stream, depth: int) -> tuple[np.ndarray, np.ndarray]:
     return tbl.agg[live], meta
 
 
+def merged_of(reps):
+    """The merged plan of N tenants and each tenant's column map."""
+    from repro_torch.traffic.extraction import merge_stats_plans, stats_plan
+
+    plans = [stats_plan(r.features) for r in reps]
+    merged, cols = merge_stats_plans(plans, [r.depth for r in reps])
+    return plans, merged, cols
+
+
+def b4_check(config: str, ds, reps, forests, dev, flush) -> dict:
+    """B4 against its plain version and against solo B2 on one
+    configuration, at 4096 and 32 flows; then its times and bound."""
+    from repro_torch.convert import forest_tables, multi_forest_tables
+    from repro_torch.kernels.fused_pipeline import (
+        encode_merged_plan,
+        encode_plan,
+        fused_multi_forest_call,
+        fused_multi_forest_infer_plain,
+        fused_pipeline_call,
+    )
+    from repro_torch.traffic.extraction import dataset_tensors
+
+    plans, merged, cols = merged_of(reps)
+    tables = multi_forest_tables(forests, cols, dev)[:5]
+    op = torch.from_numpy(encode_merged_plan(merged)).to(dev)
+    kw = dict(op_table=op, depth=max(r.depth for r in reps),
+              n_out=sum(f.n_out for f in forests))
+    solo = [(forest_tables(f, dev), torch.from_numpy(encode_plan(p)).to(dev))
+            for f, p in zip(forests, plans)]
+    cases, out = [], dict(max_abs_err=0.0, straddled=0, argmax_mismatches=0)
+    packets = {}
+    for n in (4096, 32):
+        batch = ds.take(np.arange(n) % ds.n_flows)
+        t = dataset_tensors(batch, dev)
+        pk = packets[n] = [t[k] for k in (
+            "ts", "size", "direction", "ttl", "winsize", "flags", "flow_len",
+            "proto", "s_port", "d_port")]
+        res = {}
+        for side, fn in (("kernel", fused_multi_forest_call),
+                         ("plain", fused_multi_forest_infer_plain)):
+            c = torch.empty((n, len(merged)), device=dev)
+            res[side] = (fn(*pk, *tables, columns=c, **kw), c)
+        lanes = [fused_pipeline_call(*pk, *tabs, op_table=o, depth=r.depth,
+                                     forest_depth=f.depth)
+                 for (tabs, o), r, f in zip(solo, reps, forests)]
+        torch.cuda.synchronize()
+        (pk_, xk), (pp, xp) = ((p.cpu().numpy(), c.cpu().numpy())
+                               for p, c in res.values())
+        check(np.array_equal(xk, xp), f"B4 {config} N={n}: merged columns "
+              "differ from the plain columns")
+        lo, lanes_bitwise = 0, True
+        for t_i, (f, c, lane) in enumerate(zip(forests, cols, lanes)):
+            hi = lo + f.n_out
+            r = straddle_compare(pp[:, lo:hi], pk_[:, lo:hi], xp[:, list(c)],
+                                 xk[:, list(c)], f,
+                                 f"B4 {config} N={n} tenant {t_i}")
+            check(r["straddled"] == 0, f"B4 {config} N={n} tenant {t_i}: "
+                  f"{r['straddled']} straddled flows")
+            same = bool(np.array_equal(pk_[:, lo:hi], lane.cpu().numpy()))
+            check(same, f"B4 {config} N={n} tenant {t_i}: lane differs from "
+                  "solo B2")
+            lanes_bitwise &= same
+            out["max_abs_err"] = max(out["max_abs_err"], r["max_abs_err"])
+            out["argmax_mismatches"] += r["argmax_mismatches"]
+            lo = hi
+        cases.append(dict(config=config, N=n, merged_columns=len(merged),
+                          tenants=len(reps), k_sum=kw["n_out"],
+                          columns_bitwise=True, straddled=0,
+                          lanes_bitwise_vs_solo_b2=lanes_bitwise))
+        if n == 4096:
+            x_plain, batch_4096 = xp, batch
+    # the bound, from this run's data: the packets each flow holds up to
+    # the union depth, its metadata, the op table and spec, the forest
+    # entries each tenant visits, and the (N, sum K) output
+    N, P = batch_4096.n_flows, batch_4096.max_pkts
+    u = max(r.depth for r in reps)
+    L = np.minimum(np.minimum(batch_4096.flow_len, u), P)
+    n_bytes = (int(L.sum()) * (4 * 4 + 1 + 8) + N * 16 + op.numel() * 4
+               + tables[3].numel() * 4 + tables[4].numel() * 4
+               + 4 * N * kw["n_out"])
+    n_ops = N * sum(f.n_trees * (2 * f.depth + f.n_out) for f in forests)
+    for d in sorted({d for _, d in merged}):
+        dd = min(d, P) if d else 1
+        n_col = sum(1 for _, dm in merged if dm == d)
+        n_ops += int(np.minimum(batch_4096.flow_len, dd).sum()) * n_col
+    for f, c in zip(forests, cols):
+        _, nodes, leaves = forest_touch(x_plain[:, list(c)], f)
+        n_bytes += 8 * nodes + 4 * f.n_out * leaves
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    timing = dict(
+        ms=time_ms(lambda: fused_multi_forest_call(*packets[4096], *tables,
+                                                   **kw), KERNEL_REPS, flush),
+        plain_ms=time_ms(lambda: fused_multi_forest_infer_plain(
+            *packets[4096], *tables, **kw), PLAIN_REPS, flush),
+        ms_32=time_ms(lambda: fused_multi_forest_call(*packets[32], *tables,
+                                                      **kw), KERNEL_REPS, flush),
+        plain_ms_32=time_ms(lambda: fused_multi_forest_infer_plain(
+            *packets[32], *tables, **kw), PLAIN_REPS, flush),
+        # the same flows through solo B2 once per tenant, for comparison
+        solo_b2_sum_ms=sum(time_ms(
+            lambda tabs=tabs, o=o, r=r, f=f: fused_pipeline_call(
+                *packets[4096], *tabs, op_table=o, depth=r.depth,
+                forest_depth=f.depth), KERNEL_REPS, flush)
+            for (tabs, o), r, f in zip(solo, reps, forests)),
+        bytes=n_bytes, ops=n_ops, bound_ms=bound_ms, bound_by=bound_by,
+        shape=dict(N=N, P=P, F=len(merged), tenants=len(reps),
+                   k_sum=kw["n_out"], union_depth=u,
+                   forests=[dict(trees=f.n_trees, depth=f.depth,
+                                 classes=f.n_out) for f in forests]))
+    return dict(cases=cases, timing=timing, **out)
+
+
+def reset_launches(*fns) -> None:
+    torch.cuda.synchronize()
+    for fn in fns:
+        fn.launches = 0
+
+
+def multitenant_phase(ds_m, reps, forests, counters) -> dict:
+    """The JAX package's multi-tenant A/B at full size on the card: one
+    4-shard fleet over the fused multi-tenant pipeline (B4) against four
+    1-shard fleets over the tenants' fused solo pipelines (B2)."""
+    from repro_torch.serve.runtime import (
+        PacketStream,
+        ServiceModel,
+        ShardedRuntime,
+        find_zero_loss_rate,
+        replay,
+    )
+    from repro_torch.traffic.multi_tenant import build_multi_tenant_pipeline
+    from repro_torch.traffic.pipeline import build_pipeline
+
+    stream = PacketStream.from_dataset(ds_m, seed=0)
+    ring = max(64, min(6144, stream.n_events // 6))
+    n_t = len(reps)
+    mt = build_multi_tenant_pipeline(reps, forests, fused=True)
+    solos = [build_pipeline(r, f, max_pkts=r.depth, fused=True)
+             for r, f in zip(reps, forests)]
+
+    def fleet(pipe, shards):
+        def make(execute):
+            return ShardedRuntime(pipe, n_shards=shards, capacity=2048,
+                                  max_batch=32, flush_timeout_s=2e-4,
+                                  execute=execute)
+        return make
+
+    def arm_row(pps, st, svc, launches, seconds) -> dict:
+        return dict(zero_loss_pps=pps, zero_loss_gbps=st.offered_gbps,
+                    drops=st.drops, latency_p50_s=st.latency_p50_s,
+                    latency_p99_s=st.latency_p99_s,
+                    stage_seconds=st.stage_seconds,
+                    load_imbalance=st.load_imbalance,
+                    flows_predicted=st.metrics.flows_predicted,
+                    batches=st.metrics.batches,
+                    service=dict(pkt_accum_ns=svc.pkt_accum_ns,
+                                 pkt_track_ns=svc.pkt_track_ns,
+                                 bucket_ns=svc.bucket_ns,
+                                 gather_ns_per_flow=svc.gather_ns_per_flow),
+                    launches=launches, seconds=seconds)
+
+    arms = {}
+    # shared: one fleet, every tenant from one flow table and one launch
+    ta = time.perf_counter()
+    make = fleet(mt, n_t)
+    svc = ServiceModel.measure(make(True), stream, n_pkt_sample=16000, reps=5)
+    reset_launches(*counters.values())
+    pps, st = find_zero_loss_rate(stream, make, svc, iters=MT_BISECT,
+                                  ring_capacity=ring)
+    torch.cuda.synchronize()
+    n_launch = {k: fn.launches for k, fn in counters.items()}
+    arms["shared"] = arm_row(pps, st, svc, n_launch, time.perf_counter() - ta)
+    arms["shared"].update(shards=n_t,
+                          tenant_predictions=dict(st.metrics.tenant_predictions))
+    emit("multitenant", arm="shared", **arms["shared"])
+    check(st.drops == 0, f"shared arm: {st.drops} drops at its rate")
+    check(len(st.predictions) == ds_m.n_flows,
+          f"shared arm: {len(st.predictions)} flows predicted")
+    check(n_launch["fused_multi_forest_infer"] > 0
+          and n_launch["fused_forest_infer"] == 0,
+          f"shared arm launches {n_launch}")
+
+    # independent: one 1-shard fleet per tenant, each offered the whole
+    # stream; the arm's rate is the slowest tenant's
+    ta = time.perf_counter()
+    makes = [fleet(p, 1) for p in solos]
+    svcs = [ServiceModel.measure(m(True), stream, n_pkt_sample=16000, reps=5)
+            for m in makes]
+    reset_launches(*counters.values())
+    per = []
+    for t_i, (m, sv) in enumerate(zip(makes, svcs)):
+        pps_t, st_t = find_zero_loss_rate(stream, m, sv, iters=MT_BISECT,
+                                          ring_capacity=ring)
+        per.append((pps_t, st_t, sv))
+    torch.cuda.synchronize()
+    n_launch = {k: fn.launches for k, fn in counters.items()}
+    slow = min(range(n_t), key=lambda i: per[i][0])
+    arms["independent"] = arm_row(*per[slow], n_launch,
+                                  time.perf_counter() - ta)
+    arms["independent"].update(
+        shards=1, fleets=n_t, slowest_tenant=slow,
+        drops=sum(st_t.drops for _, st_t, _ in per),
+        per_tenant=[dict(zero_loss_pps=p_, zero_loss_gbps=s_.offered_gbps,
+                         drops=s_.drops, latency_p50_s=s_.latency_p50_s,
+                         latency_p99_s=s_.latency_p99_s,
+                         stage_seconds=s_.stage_seconds)
+                    for p_, s_, _ in per])
+    emit("multitenant", arm="independent", **arms["independent"])
+    check(arms["independent"]["drops"] == 0, "independent arm: drops at the "
+          "reported rates")
+    check(n_launch["fused_forest_infer"] > 0
+          and n_launch["fused_multi_forest_infer"] == 0,
+          f"independent arm launches {n_launch}")
+
+    # parity: executing replays at the stream's base rate, under the
+    # reference's synthetic clock constants
+    tp = time.perf_counter()
+    syn = ServiceModel(**MT_SERVICE)
+
+    def run(pipe, shards):
+        return replay(stream, lambda: fleet(pipe, shards)(True),
+                      stream.base_pps, syn, ring_capacity=ring)
+
+    sh = run(mt, n_t)
+    keys = sorted(sh.predictions)
+    lanes_ok = []
+    for t_i, p in enumerate(solos):
+        so = run(p, 1)
+        lanes_ok.append(keys == sorted(so.predictions) and np.array_equal(
+            np.asarray([sh.predictions[k][t_i] for k in keys]),
+            np.asarray([so.predictions[k] for k in keys])))
+    check(all(lanes_ok), f"shared fused lanes vs solo fleets: {lanes_ok}")
+    unf = run(build_multi_tenant_pipeline(reps, forests, fused=False), n_t)
+    check(sorted(unf.predictions) == keys, "unfused fleet predicted other flows")
+    differ = sum(int(not np.array_equal(unf.predictions[k], sh.predictions[k]))
+                 for k in keys)
+    check(differ <= MAX_STRADDLED * len(keys),
+          f"{differ} of {len(keys)} flows differ between the fused and "
+          "unfused shared fleets")
+    parity = dict(flows=len(keys), lanes_bitwise_vs_solo=lanes_ok,
+                  unfused_flows_differ=differ,
+                  seconds=time.perf_counter() - tp)
+    emit("multitenant_parity", **parity)
+    ratio = arms["shared"]["zero_loss_pps"] / arms["independent"]["zero_loss_pps"]
+    _, merged, _ = merged_of(reps)
+    summary = dict(flows=ds_m.n_flows, events=stream.n_events,
+                   base_pps=stream.base_pps, ring_capacity=ring,
+                   bisect_iters=MT_BISECT, tenants=n_t,
+                   merged_columns=len(merged),
+                   solo_columns=sum(len(r.features) for r in reps),
+                   shared_over_independent_pps=ratio)
+    emit("multitenant_summary", **summary)
+    return dict(arms=arms, parity=parity, **summary)
+
+
+def cotune_phase(counters) -> dict:
+    """`examples/tune_multitenant.py` steps 1 and 2 on the port: the
+    tenants tuned alone, then jointly under shared and independent
+    billing; the shared run's knee served on the card; one replayed
+    measurement of tenant 0's knee."""
+    from repro_torch.core import CatoOptimizer, knee_index, pareto_mask
+    from repro_torch.core.search_space import SearchSpace
+    from repro_torch.traffic import TrafficProfiler
+    from repro_torch.traffic.multi_tenant import (
+        MultiTenantProfiler,
+        MultiTenantSpace,
+        build_multi_tenant_pipeline,
+    )
+    from repro_torch.traffic.synth import make_scenario_dataset
+
+    t0 = time.perf_counter()
+    ds = make_scenario_dataset("app-class", "zipf", n_flows=240, max_pkts=64,
+                               seed=0)
+    spaces = [SearchSpace(pool, max_depth=12) for pool in CO_POOLS]
+    profs = [TrafficProfiler(ds, pool, model="tree-fast", cost_mode="modeled",
+                             seed=0, device="cuda") for pool in CO_POOLS]
+    # 1. each tenant alone: its front and knee
+    solo = []
+    for t_i, (space, prof) in enumerate(zip(spaces, profs)):
+        res = CatoOptimizer(space, prof, seed=t_i, batch_size=4).run(CO_SOLO)
+        front = res.pareto_observations()
+        k = front[knee_index(np.array([o.objectives for o in front]))]
+        solo.append(dict(front=len(front), knee_features=len(k.x.features),
+                         knee_depth=k.x.depth, knee_f1=k.perf,
+                         knee_cost_us=k.cost))
+    # 2. jointly, shared and independent billing, rescored under both
+    joint = MultiTenantSpace(tuple(spaces))
+    shared_prof = MultiTenantProfiler(profs, shared=True)
+    indep_prof = MultiTenantProfiler(profs, shared=False)
+    res_sh = CatoOptimizer(joint, shared_prof, seed=0, batch_size=4).run(CO_ITERS)
+    res_in = CatoOptimizer(joint, indep_prof, seed=0, batch_size=4).run(CO_ITERS)
+    xs = list({o.x.key(): o.x for o in
+               res_sh.observations + res_in.observations}.values())
+    rows = [shared_prof(x) for x in xs]
+    perf = np.array([r.perf for r in rows])
+    cost_sh = np.array([r.aux["cost_shared_us"] for r in rows])
+    cost_in = np.array([r.aux["cost_independent_us"] for r in rows])
+    on_sh = pareto_mask(np.stack([cost_sh, -perf], axis=1))
+    on_in = pareto_mask(np.stack([cost_in, -perf], axis=1))
+    disc = np.array([r.aux["overlap_discount"] for r in rows])
+    moved = int((on_sh != on_in).sum())
+    check(moved > 0, "the union-plan discount changed no Pareto-optimal "
+          "configuration")
+
+    # the shared run's knee, served on the card through B4
+    front = res_sh.pareto_observations()
+    knee = front[knee_index(np.array([o.objectives for o in front]))]
+    forests = [p.perf_f1(r)[1] for p, r in zip(profs, knee.x.reps)]
+    test = profs[0].test_ds
+    gpu = build_multi_tenant_pipeline(knee.x.reps, forests, fused=True)
+    cpu = build_multi_tenant_pipeline(knee.x.reps, forests, fused=True,
+                                      device="cpu")
+    gpu.warm([1, 8, 32])
+    reset_launches(*counters.values())
+    cls_gpu = gpu(test)
+    torch.cuda.synchronize()
+    serve_launches = {k: fn.launches for k, fn in counters.items()}
+    cls_cpu = cpu(test)
+    check(np.array_equal(cls_gpu, cls_cpu), "the knee's classes on the card "
+          "differ from the CPU plain pipeline's")
+    check(serve_launches["fused_multi_forest_infer"] > 0,
+          "the knee was not served through B4")
+
+    # one replayed measurement of tenant 0's knee, clock constants timed
+    # on the card's machine
+    tr = time.perf_counter()
+    prof_r = TrafficProfiler(ds, CO_POOLS[0], model="tree-fast",
+                             cost_metric="throughput_replayed",
+                             cost_mode="measured", bisect_iters=6, seed=0,
+                             device="cuda")
+    reset_launches(*counters.values())
+    r0 = prof_r(knee.x.reps[0])
+    torch.cuda.synchronize()
+    replay_launches = {k: fn.launches for k, fn in counters.items()}
+    check(math.isfinite(r0.cost) and r0.cost < 0, f"replayed cost {r0.cost}")
+    check(replay_launches["fused_forest_infer"] > 0,
+          "the replayed fidelity did not launch B2")
+    out = dict(
+        flows=ds.n_flows, max_pkts=ds.max_pkts, pools=len(CO_POOLS),
+        solo=solo, joint_space_size=joint.size, joint_dim=joint.dim,
+        observations={"shared": len(res_sh.observations),
+                      "independent": len(res_in.observations)},
+        distinct_configs=len(xs),
+        pareto={"shared_billed": int(on_sh.sum()),
+                "independent_billed": int(on_in.sum())},
+        front_membership_changed=moved,
+        overlap_discount={"mean": float(disc.mean()), "max": float(disc.max())},
+        knee=dict(tenants=[dict(features=list(r.features), depth=r.depth)
+                           for r in knee.x.reps],
+                  cost_us=knee.cost, perf=knee.perf,
+                  merged_columns=len(gpu.merged),
+                  served_flows=test.n_flows,
+                  classes_equal_cpu=True, launches=serve_launches),
+        replayed=dict(tenant=0, cost=r0.cost, gbps=-r0.cost, f1=r0.perf,
+                      launches=replay_launches,
+                      seconds=time.perf_counter() - tr),
+        seconds=time.perf_counter() - t0)
+    emit("cotune", **out)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -248,6 +656,7 @@ def main() -> None:
         fused_agg_call,
         fused_agg_infer_plain,
         fused_forest_infer_plain,
+        fused_multi_forest_call,
         fused_pipeline_call,
     )
     from repro_torch.kernels.tree_infer import (
@@ -327,6 +736,45 @@ def main() -> None:
          seconds=time.perf_counter() - t0)
     check(forest_s.n_trees == 25 and len(agg_rows) >= 64,
           "stream deployment shape")
+
+    # the two multi-tenant deployments B4 is checked on: "wide", three
+    # tenants over the iot-class set (the registry at depths 50 and 16, the
+    # 59 incremental features at 50, one `rf` forest each), and "fleet",
+    # the multitenant phase's four tenants with their tree-fast forests
+    t0 = time.perf_counter()
+    reps_w = [rep, FeatureRep(tuple(FEATURE_NAMES), depth=16),
+              FeatureRep(inc_names, depth=conn_depth)]
+    forests_w = [rf]
+    for r in reps_w[1:]:
+        x_r = extract_features(train, r.features, r.depth, device="cpu")
+        forests_w.append(train_traffic_model(x_r, train.label, model="rf",
+                                             seed=0)[0])
+    ds_m = make_scenario_dataset("app-class", "zipf", n_flows=MT_FLOWS,
+                                 max_pkts=MT_PKTS, seed=3)
+    reps_m = [FeatureRep(f, depth=d) for f, d in MT_TENANTS]
+    forests_m = [train_traffic_model(
+        extract_features(ds_m, r.features, r.depth, device="cpu"), ds_m.label,
+        model="tree-fast", seed=t)[0] for t, r in enumerate(reps_m)]
+    _, merged_w, _ = merged_of(reps_w)
+    _, merged_m, _ = merged_of(reps_m)
+    emit("multitenant_data",
+         wide=dict(flows=ds.n_flows, max_pkts=ds.max_pkts,
+                   tenants=[dict(features=len(r.features), depth=r.depth,
+                                 trees=f.n_trees, forest_depth=f.depth,
+                                 classes=f.n_out)
+                            for r, f in zip(reps_w, forests_w)],
+                   merged_columns=len(merged_w),
+                   k_sum=sum(f.n_out for f in forests_w)),
+         fleet=dict(flows=ds_m.n_flows, max_pkts=ds_m.max_pkts,
+                    tenants=[dict(features=len(r.features), depth=r.depth,
+                                  trees=f.n_trees, forest_depth=f.depth,
+                                  classes=f.n_out)
+                             for r, f in zip(reps_m, forests_m)],
+                    merged_columns=len(merged_m),
+                    k_sum=sum(f.n_out for f in forests_m)),
+         seconds=time.perf_counter() - t0)
+    check(len(merged_w) == 131 and sum(f.n_out for f in forests_w) == 84,
+          "the wide B4 configuration: 131 merged columns, 84 lanes")
 
     # 4. kernels vs plain, on the card ---------------------------------------
     t0 = time.perf_counter()
@@ -526,6 +974,18 @@ def main() -> None:
     emit("kernel_times", shape=dict(N=N, F=67, T=T, D=D, K=K, P=big.max_pkts,
                                     conn_depth=conn_depth),
          reps=dict(kernel=KERNEL_REPS, plain=PLAIN_REPS), timing=timing,
+         seconds=time.perf_counter() - t0)
+
+    # B4: merged columns bitwise equal to the plain ones, probabilities by
+    # the straddle rule with no flow straddled, every lane bitwise equal to
+    # solo B2; then its times at 4096 and 32 flows
+    t0 = time.perf_counter()
+    b4 = {"wide": b4_check("wide", ds, reps_w, forests_w, dev, flush),
+          "fleet": b4_check("fleet", ds_m, reps_m, forests_m, dev, flush)}
+    emit("kernel_check", kernel="fused_multi_forest_infer",
+         cases=b4["wide"]["cases"] + b4["fleet"]["cases"])
+    emit("kernel_times_b4", timing={k: v["timing"] for k, v in b4.items()},
+         reps=dict(kernel=KERNEL_REPS, plain=PLAIN_REPS),
          seconds=time.perf_counter() - t0)
 
     # 5. main path, serving ---------------------------------------------------
@@ -738,6 +1198,15 @@ def main() -> None:
          shards=4, max_batch=8, ring_capacity=ring, bisect_iters=BISECT_ITERS,
          reuse_on_off_pps_ratio=ratio, seconds=time.perf_counter() - t0)
 
+    # 7. multitenant: one shared fleet against independent fleets ----------
+    t0 = time.perf_counter()
+    counters["fused_multi_forest_infer"] = fused_multi_forest_call
+    mt = multitenant_phase(ds_m, reps_m, forests_m, counters)
+    emit("multitenant_seconds", seconds=time.perf_counter() - t0)
+
+    # 8. cotune: CATO's joint loop on the port ------------------------------
+    co = cotune_phase(counters)
+
     kernels = [
         dict(name="forest_infer", route="cuda",
              source="src/repro_torch/csrc/forest_infer.cu",
@@ -778,6 +1247,27 @@ def main() -> None:
              bound_ms=timing["fused_agg_infer"]["bound_ms"],
              bound_us=timing["fused_agg_infer"]["bound_ms"] * 1e3,
              bound_by=timing["fused_agg_infer"]["bound_by"],
+             library_ms=None),
+        dict(name="fused_multi_forest_infer", route="cuda",
+             source="src/repro_torch/csrc/fused_multi.cu",
+             replaces="src/repro/kernels/fused_pipeline.py:383",
+             launches=mt["arms"]["shared"]["launches"][
+                 "fused_multi_forest_infer"],
+             cotune_launches=co["knee"]["launches"]["fused_multi_forest_infer"],
+             max_abs_err=max(v["max_abs_err"] for v in b4.values()),
+             straddled=0,
+             argmax_mismatches=sum(v["argmax_mismatches"] for v in b4.values()),
+             ms=b4["wide"]["timing"]["ms"],
+             plain_ms=b4["wide"]["timing"]["plain_ms"],
+             ms_32_flows=b4["wide"]["timing"]["ms_32"],
+             plain_ms_32_flows=b4["wide"]["timing"]["plain_ms_32"],
+             bound_ms=b4["wide"]["timing"]["bound_ms"],
+             bound_us=b4["wide"]["timing"]["bound_ms"] * 1e3,
+             bound_by=b4["wide"]["timing"]["bound_by"],
+             fleet_ms=b4["fleet"]["timing"]["ms"],
+             fleet_plain_ms=b4["fleet"]["timing"]["plain_ms"],
+             fleet_ms_32_flows=b4["fleet"]["timing"]["ms_32"],
+             fleet_bound_ms=b4["fleet"]["timing"]["bound_ms"],
              library_ms=None),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched")

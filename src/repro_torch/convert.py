@@ -5,6 +5,8 @@ forest in the dense level-order layout) and builds the port's
 `DenseForest`, checking shapes, dtypes and feature ids on the way in.
 `forest_tables` makes the forest's device tensors; `build_pipeline` calls
 it once per pipeline, so no call on the serving path copies the forest.
+`multi_forest_tables` does the same for a multi-tenant fleet: the tenants'
+forests stacked for the kernel B4, with its per-tenant spec table.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 from .core.forest import DenseForest
 from .device import resolve_device
 
-__all__ = ["forest_from_numpy", "forest_tables"]
+__all__ = ["forest_from_numpy", "forest_tables", "multi_forest_tables"]
 
 
 def forest_from_numpy(feature, threshold, leaf, depth: int, n_features: int,
@@ -51,3 +53,38 @@ def forest_tables(forest: DenseForest, device: str | torch.device = "cuda"
     return (torch.from_numpy(checked.feature).to(dev),
             torch.from_numpy(checked.threshold).to(dev),
             torch.from_numpy(checked.leaf).to(dev))
+
+
+def multi_forest_tables(forests, tenant_cols, device: str | torch.device = "cuda"):
+    """The stacked tables of N tenants' forests on `device`, for B4.
+
+    Checks each forest as `forest_tables` does (against its own plan's
+    width, ``len(tenant_cols[t])``), stacks them with
+    `repro_torch.kernels.fused_pipeline.stack_multi_forests` and returns
+    ``(feature, threshold, leaf, spec, rescale, tenants)``: the stacked
+    int32/float32/float32 tables, the int32 (N, 7) spec table (tree offset,
+    trees, padded trees, depth, tree block, classes, lane offset, as
+    `SPEC_FIELDS` names them), the float32 (N,) rescales, all on `device`,
+    and the reference's static per-tenant spec tuple."""
+    from .kernels.fused_pipeline import SPEC_FIELDS, stack_multi_forests
+    from .kernels.tree_infer import MAX_CLASSES, MAX_DEPTH
+
+    forests = [forest_from_numpy(f.feature, f.threshold, f.leaf, f.depth,
+                                 len(cols))
+               for f, cols in zip(forests, tenant_cols)]
+    for f in forests:
+        if f.depth > MAX_DEPTH or f.n_out > MAX_CLASSES:
+            raise ValueError(f"forest of depth {f.depth} with {f.n_out} "
+                             f"classes: the kernels take depth <= {MAX_DEPTH}"
+                             f" and <= {MAX_CLASSES} classes")
+    feature, threshold, leaf, tenants = stack_multi_forests(forests,
+                                                            tenant_cols)
+    rows, lane = [], 0
+    for f, (off, tp, fd, bt, _, _, k, _) in zip(forests, tenants):
+        rows.append((off, f.n_trees, tp, fd, bt, k, lane))
+        lane += k
+    dev = resolve_device(device)
+    spec = torch.tensor(rows, dtype=torch.int32).reshape(-1, len(SPEC_FIELDS))
+    rescale = torch.tensor([t[7] for t in tenants], dtype=torch.float32)
+    return (feature.to(dev), threshold.to(dev), leaf.to(dev), spec.to(dev),
+            rescale.to(dev), tenants)

@@ -1,11 +1,11 @@
 """Histogram-based decision trees and random forests (numpy training).
 
-The port's own copy of the serving half of `repro.core.forest`: the
-trainer and the numpy inference oracle, seeded exactly as the original so
-both packages grow identical forests from one seed. The traffic-analysis
-models (decision tree for app-class, random forest for iot-class, as in the
-paper's §4) are trained here; the optimizer's surrogate helpers come with
-the rest of `core`.
+The port's own copy of `repro.core.forest`: the trainer, the numpy
+inference oracle and the surrogate helpers (`train_tree`,
+`forest_predict_value`, `forest_predict_per_tree`), seeded exactly as the
+original so both packages grow identical forests from one seed. It backs
+the traffic-analysis models (decision tree for app-class, random forest for
+iot-class, as in the paper's §4) and the optimizer's regression surrogate.
 
 There is no sklearn in this environment, so training is implemented here:
 level-wise (breadth-first) greedy splitting on quantile-binned features,
@@ -31,8 +31,11 @@ import numpy as np
 __all__ = [
     "DenseForest",
     "train_forest",
+    "train_tree",
     "forest_apply_np",
     "forest_predict_class",
+    "forest_predict_value",
+    "forest_predict_per_tree",
 ]
 
 
@@ -243,6 +246,31 @@ def _grow_tree(
     return feat_arr, thr_arr, leaf_arr
 
 
+def train_tree(
+    X: np.ndarray,
+    y: np.ndarray,
+    *,
+    max_depth: int = 8,
+    min_samples_leaf: int = 1,
+    n_bins: int = 32,
+    classification: bool = True,
+    rng: Optional[np.random.Generator] = None,
+) -> DenseForest:
+    """Train a single decision tree (no bootstrap, all features)."""
+    return train_forest(
+        X,
+        y,
+        n_trees=1,
+        max_depth=max_depth,
+        min_samples_leaf=min_samples_leaf,
+        n_bins=n_bins,
+        classification=classification,
+        bootstrap=False,
+        max_features=None,
+        rng=rng,
+    )
+
+
 def train_forest(
     X: np.ndarray,
     y: np.ndarray,
@@ -335,3 +363,23 @@ def forest_predict_class(forest: DenseForest, X: np.ndarray) -> np.ndarray:
     probs = forest_apply_np(forest, X)
     idx = probs.argmax(axis=1)
     return forest.classes[idx] if forest.classes is not None else idx
+
+
+def forest_predict_value(forest: DenseForest, X: np.ndarray) -> np.ndarray:
+    return forest_apply_np(forest, X)[:, 0]
+
+
+def forest_predict_per_tree(forest: DenseForest, X: np.ndarray) -> np.ndarray:
+    """Per-tree regression predictions, (n_trees, n). Surrogate uncertainty."""
+    X = np.asarray(X, dtype=np.float32)
+    n = X.shape[0]
+    out = np.empty((forest.n_trees, n), dtype=np.float32)
+    for t in range(forest.n_trees):
+        node = np.zeros(n, dtype=np.int64)
+        for _ in range(forest.depth):
+            f = forest.feature[t][node]
+            th = forest.threshold[t][node]
+            node = 2 * node + 1 + (X[np.arange(n), f] > th)
+        leaf = node - (2 ** forest.depth - 1)
+        out[t] = forest.leaf[t][leaf, 0]
+    return out

@@ -1,5 +1,6 @@
-// Dense level-order forest traversal shared by forest_infer.cu (B1) and
-// fused_pipeline.cu (B2): the counterpart of `_traverse` in
+// Dense level-order forest traversal shared by forest_infer.cu (B1),
+// fused_pipeline.cu (B2), fused_agg.cu (B3) and fused_multi.cu (B4): the
+// counterpart of `_traverse` in
 // src/repro/kernels/fused_pipeline.py and of `_tree_kernel` in
 // src/repro/kernels/tree_infer.py, for one flow per thread.
 //
@@ -23,20 +24,27 @@ namespace cato {
 constexpr int kThreads = 32;      // flows per block, one flow per thread
 constexpr int kMaxClasses = 64;   // K; the wrappers raise above it
 
-// xrow: this flow's F feature values (global memory for B1, a per-thread
-// array for B2). The node tables (T, 2^D - 1) and the leaf table
-// (T, 2^D, K) stay in global memory and are read through the read-only
-// cache: at T=25, D=10, K=28 the leaves alone are 2.9 MB, far above the
-// 227 KB of shared memory a block may use and far below the 50 MB of L2.
-__device__ __forceinline__ void traverse_forest(
+// xrow: this flow's feature values (global memory for B1, a per-thread
+// array for B2, B3 and B4). The node tables and the leaf table stay in
+// global memory and are read through the read-only cache: at T=25, D=10,
+// K=28 the leaves alone are 2.9 MB, far above the 227 KB of shared memory
+// a block may use and far below the 50 MB of L2.
+//
+// Strides: tree t's internal nodes start at t * node_stride in `feature`
+// and `threshold`; its leaf j's K payloads start at
+// t * leaf_tree_stride + j * class_stride in `leaf`. A forest on its own
+// (B1, B2, B3) is dense: node_stride = 2^D - 1, class_stride = K,
+// leaf_tree_stride = 2^D * K (`traverse_forest`). B4's tenant-stacked
+// tables pad every tenant to the fleet's widest node, leaf and class axes.
+__device__ __forceinline__ void traverse_forest_strided(
     const float* xrow,
     const int* __restrict__ feature,
     const float* __restrict__ threshold,
     const float* __restrict__ leaf,
     int T, int depth, int K, int block_t, int n_trees_padded, float rescale,
-    float* __restrict__ out_row) {
+    float* __restrict__ out_row,
+    int node_stride, int leaf_tree_stride, int class_stride) {
   const int n_internal = (1 << depth) - 1;
-  const int n_leaf = 1 << depth;
   const float n_pad = static_cast<float>(n_trees_padded);
   float acc[kMaxClasses];
   float votes[kMaxClasses];
@@ -45,21 +53,34 @@ __device__ __forceinline__ void traverse_forest(
     const int j1 = min(j0 + block_t, T);
     for (int k = 0; k < K; ++k) votes[k] = 0.0f;
     for (int t = j0; t < j1; ++t) {
-      const int* ft = feature + static_cast<size_t>(t) * n_internal;
-      const float* tt = threshold + static_cast<size_t>(t) * n_internal;
+      const int* ft = feature + static_cast<size_t>(t) * node_stride;
+      const float* tt = threshold + static_cast<size_t>(t) * node_stride;
       int node = 0;
       for (int d = 0; d < depth; ++d) {
         const int f = __ldg(ft + node);
         const float th = __ldg(tt + node);
         node = 2 * node + 1 + (xrow[f] > th ? 1 : 0);
       }
-      const float* lt =
-          leaf + (static_cast<size_t>(t) * n_leaf + (node - n_internal)) * K;
+      const float* lt = leaf + static_cast<size_t>(t) * leaf_tree_stride +
+                        static_cast<size_t>(node - n_internal) * class_stride;
       for (int k = 0; k < K; ++k) votes[k] += __ldg(lt + k);
     }
     for (int k = 0; k < K; ++k) acc[k] += votes[k] / n_pad;
   }
   for (int k = 0; k < K; ++k) out_row[k] = acc[k] * rescale;
+}
+
+// One dense forest: feature/threshold (T, 2^D - 1), leaf (T, 2^D, K).
+__device__ __forceinline__ void traverse_forest(
+    const float* xrow,
+    const int* __restrict__ feature,
+    const float* __restrict__ threshold,
+    const float* __restrict__ leaf,
+    int T, int depth, int K, int block_t, int n_trees_padded, float rescale,
+    float* __restrict__ out_row) {
+  traverse_forest_strided(xrow, feature, threshold, leaf, T, depth, K,
+                          block_t, n_trees_padded, rescale, out_row,
+                          (1 << depth) - 1, (1 << depth) * K, K);
 }
 
 }  // namespace cato

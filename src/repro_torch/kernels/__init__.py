@@ -4,8 +4,10 @@ PyTorch version:
   tree_infer      dense level-order random-forest inference (B1,
                   csrc/forest_infer.cu)
   fused_pipeline  one-launch feature extraction + forest inference (B2,
-                  csrc/fused_pipeline.cu), and its aggregate entry for the
-                  reuse path's refresh batches (B3, csrc/fused_agg.cu)
+                  csrc/fused_pipeline.cu), its aggregate entry for the
+                  reuse path's refresh batches (B3, csrc/fused_agg.cu), and
+                  its multi-tenant entry, a merged plan and every tenant's
+                  forest in one launch (B4, csrc/fused_multi.cu)
 
 `ops.py` holds the entry points that dispatch CUDA tensors to a kernel and
 CPU tensors to its plain version; `ref.py` the oracles and the straddle

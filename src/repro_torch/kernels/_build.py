@@ -28,8 +28,9 @@ __all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "build_library", "check_tensor",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("forest_infer.cu", "fused_pipeline.cu", "fused_agg.cu")
-HEADERS = ("forest_common.cuh",)
+SOURCES = ("forest_infer.cu", "fused_pipeline.cu", "fused_agg.cu",
+           "fused_multi.cu")
+HEADERS = ("forest_common.cuh", "plan_columns.cuh")
 # --fmad=false: no multiply and add is contracted into one rounding, so
 # the kernels round as their plain versions do (the one fused multiply-add
 # they use, std's, is an explicit fmaf that the plain version mirrors)
@@ -48,6 +49,8 @@ _SIGNATURES = {
         [_VOID] * 16 + [_INT] * 9 + [_FLOAT, _VOID]),
     "fused_agg_infer_launch": (
         [_VOID] * 8 + [_INT] * 7 + [_FLOAT, _VOID]),
+    "fused_multi_forest_launch": (
+        [_VOID] * 18 + [_INT] * 9 + [_VOID]),
 }
 
 

@@ -25,23 +25,50 @@ which computes an incremental plan's columns from each flow's (53,)
 float32 aggregate row instead of its packet window;
 `fused_agg_infer_plain` runs the torch `emit_agg_features` and the plain
 traversal; `fused_agg_infer` picks by device.
+
+The multi-tenant entry (DESIGN.md §15) serves N tenants in one launch:
+`fused_multi_forest_call` launches B4 (``csrc/fused_multi.cu``), which
+computes a merged plan's columns once per flow, each depth group over its
+own window slice, then walks every tenant's forest, stacked on the tree
+axis by `stack_multi_forests`, into the tenant's own output lanes.
+`fused_multi_forest_infer_plain` runs the torch `emit_merged_columns` and
+the plain traversal per tenant; `fused_multi_forest_infer` picks by device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..traffic.extraction import AGG_WIDTH, emit_agg_features, emit_feature_columns
+from ..traffic.extraction import (
+    AGG_WIDTH,
+    emit_agg_features,
+    emit_feature_columns,
+    emit_merged_columns,
+)
 from ._build import check_tensor, launch
-from .tree_infer import MAX_CLASSES, MAX_DEPTH, forest_infer_plain, tree_blocking
+from .tree_infer import (
+    MAX_CLASSES,
+    MAX_DEPTH,
+    forest_infer_plain,
+    pad_forest_blocks,
+    tree_blocking,
+)
 
 __all__ = ["encode_plan", "decode_plan", "fused_forest_infer",
            "fused_forest_infer_plain", "fused_pipeline_call",
            "fused_agg_call", "fused_agg_infer", "fused_agg_infer_plain",
-           "MAX_FEATURES", "MAX_WINDOW"]
+           "encode_merged_plan", "decode_merged_plan", "stack_multi_forests",
+           "fused_multi_forest_call", "fused_multi_forest_infer",
+           "fused_multi_forest_infer_plain", "MAX_FEATURES",
+           "MAX_MERGED_COLUMNS", "MAX_WINDOW", "SPEC_FIELDS"]
 
 MAX_FEATURES = 128  # kMaxFeatures in csrc/fused_pipeline.cu and fused_agg.cu
+MAX_MERGED_COLUMNS = 256  # kMaxMergedColumns in csrc/fused_multi.cu
 MAX_WINDOW = 128    # kMaxWindow: the most packets a flow's window may hold
+# B4's per-tenant spec row (csrc/fused_multi.cu `Spec`): tree offset, trees,
+# padded trees, forest depth, tree block, classes, lane offset
+SPEC_FIELDS = ("offset", "trees", "trees_padded", "depth", "block_t",
+               "classes", "lane")
 
 # op-table codes, as the enums of csrc/fused_pipeline.cu number them
 _KINDS = ("dur", "meta", "load", "pkt_cnt", "handshake", "flag_cnt", "stat")
@@ -279,3 +306,185 @@ def fused_agg_infer(
     return fn(agg.to(torch.float32), meta, feature, threshold, leaf,
               op_table=op_table, forest_depth=forest_depth, block_t=block_t,
               columns=columns)
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant entry (DESIGN.md §15): kernel B4
+# ---------------------------------------------------------------------------
+
+
+def encode_merged_plan(merged: tuple[tuple, ...]) -> np.ndarray:
+    """The (F, 5) int32 op table of a merged plan: `encode_plan`'s four
+    fields and each column's connection depth (0 for meta columns)."""
+    table = encode_plan(tuple(e for e, _ in merged))
+    depths = np.asarray([int(d) for _, d in merged], np.int32)
+    return np.concatenate([table, depths[:, None]], axis=1)
+
+
+def decode_merged_plan(table) -> tuple[tuple, ...]:
+    """Inverse of `encode_merged_plan` (takes the array or a tensor)."""
+    t = torch.as_tensor(table)
+    return tuple(zip(decode_plan(t[:, :4]), t[:, 4].tolist()))
+
+
+def stack_multi_forests(forests, tenant_cols, *, block_t: int = 8):
+    """Stack N tenants' forests into tenant-stacked node tables.
+
+    Port of the reference's host-side `stack_multi_forests`, over the
+    port's `pad_forest_blocks`: each forest is padded with pass-through
+    trees to a multiple of its own block ``min(block_t, T)`` (the solo
+    recipe, so each tenant's sums run as in a solo launch), its node
+    feature ids are remapped through ``tenant_cols[t]`` into merged-column
+    ids, and node, leaf and class axes are zero-padded to the fleet maxima.
+    Returns CPU tensors ``(feature int32 (ΣT_pad, NI), threshold float32
+    (ΣT_pad, NI), leaf float32 (ΣT_pad, NL, K_max))`` and the reference's
+    per-tenant spec tuple ``(offset, n_padded, forest_depth, block_t,
+    n_internal, n_leaf, n_out, rescale)``.
+    """
+    ni_max = max(int(f.feature.shape[1]) for f in forests)
+    nl_max = max(int(f.leaf.shape[1]) for f in forests)
+    k_max = max(int(f.leaf.shape[2]) for f in forests)
+    feats, thrs, leafs, tenants = [], [], [], []
+    off = 0
+    for f, cols in zip(forests, tenant_cols):
+        T, ni = f.feature.shape
+        nl, k = f.leaf.shape[1], f.leaf.shape[2]
+        bt = min(block_t, int(T))
+        remap = torch.as_tensor(np.asarray(cols, np.int32)[
+            np.asarray(f.feature, np.int64)])
+        feat, thr, leaf, rem_t = pad_forest_blocks(
+            remap, torch.as_tensor(np.asarray(f.threshold, np.float32)),
+            torch.as_tensor(np.asarray(f.leaf, np.float32)), bt)
+        tp = int(T) + rem_t
+        feats.append(torch.nn.functional.pad(feat, (0, ni_max - ni)))
+        thrs.append(torch.nn.functional.pad(thr, (0, ni_max - ni)))
+        leafs.append(torch.nn.functional.pad(
+            leaf, (0, k_max - k, 0, nl_max - nl)))
+        tenants.append((off, tp, int(f.depth), bt, int(ni), int(nl), int(k),
+                        (tp / T) if rem_t else 1.0))
+        off += tp
+    return (torch.cat(feats), torch.cat(thrs), torch.cat(leafs),
+            tuple(tenants))
+
+
+def fused_multi_forest_infer_plain(
+    ts, size, direction, ttl, winsize, flags, flow_len, proto, s_port, d_port,
+    feature, threshold, leaf, spec, rescale, *, op_table, depth: int,
+    n_out: int, columns: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The multi-tenant entry in torch ops: the merged plan's columns by
+    `emit_merged_columns`, then each tenant's slice of the stacked tables
+    by the plain traversal, into its lanes. Takes what
+    `fused_multi_forest_call` takes, on any device; if `columns` is given,
+    the (N, F) merged columns are copied into it."""
+    merged = decode_merged_plan(op_table)
+    if max(d for _, d in merged) > depth:
+        raise ValueError(f"the op table holds a depth above depth={depth}")
+    x = torch.stack(emit_merged_columns(
+        merged, ts=ts, size=size, direction=direction, ttl=ttl,
+        winsize=winsize, flags=flags, flow_len=flow_len, proto=proto,
+        s_port=s_port, d_port=d_port), dim=1)
+    if columns is not None:
+        columns.copy_(x)
+    out = torch.zeros((ts.shape[0], n_out), dtype=torch.float32,
+                      device=ts.device)
+    for row, r in zip(torch.as_tensor(spec).tolist(),
+                      torch.as_tensor(rescale).tolist()):
+        s = dict(zip(SPEC_FIELDS, row))
+        o, tp, fd, k = s["offset"], s["trees_padded"], s["depth"], s["classes"]
+        # the padded trees are walked, as the reference walks them: their
+        # zero leaves add +0.0 to the block sums
+        p = forest_infer_plain(
+            x, feature[o:o + tp, :2 ** fd - 1],
+            threshold[o:o + tp, :2 ** fd - 1], leaf[o:o + tp, :2 ** fd, :k],
+            fd, block_t=s["block_t"])
+        out[:, s["lane"]:s["lane"] + k] = p * r
+    return out
+
+
+def fused_multi_forest_call(
+    ts, size, direction, ttl, winsize, flags, flow_len, proto, s_port, d_port,
+    feature, threshold, leaf, spec, rescale, *, op_table, depth: int,
+    n_out: int, columns: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Launch the B4 CUDA kernel; returns (N, n_out) float32 probability
+    lanes, tenant t's in its lane slice.
+
+    Takes the packet tensors as `fused_pipeline_call` does; the stacked
+    tables and the int32 (n_tenants, 7) `spec` and float32 (n_tenants,)
+    `rescale` from `repro_torch.convert.multi_forest_tables`; the int32
+    (F, 5) `op_table` from `encode_merged_plan`; `depth`, the merged plan's
+    largest connection depth, and `n_out`, the sum of the tenants' class
+    counts. All contiguous on one CUDA device. F may be at most
+    MAX_MERGED_COLUMNS and ``min(P, depth)`` at most MAX_WINDOW. The spec
+    is checked once, where the tables are made, not per call (that would
+    read the card back). `columns`, if given, is an (N, F) float32 buffer
+    that receives the kernel's own merged columns. Launches on the current
+    stream and does not synchronise.
+    """
+    dev = ts.device
+    if (ts.ndim != 2 or op_table.ndim != 2 or feature.ndim != 2
+            or leaf.ndim != 3 or spec.ndim != 2):
+        raise ValueError("expected ts (N, P), op_table (F, 5), feature "
+                         "(ΣT, NI), leaf (ΣT, NL, K), spec (n_tenants, 7)")
+    N, P = ts.shape
+    nf = op_table.shape[0]
+    if not 1 <= nf <= MAX_MERGED_COLUMNS:
+        raise ValueError(f"merged plan has {nf} columns; the kernel takes "
+                         f"1..{MAX_MERGED_COLUMNS}")
+    if min(P, depth) > MAX_WINDOW:
+        raise ValueError(f"packet window min(P={P}, depth={depth}) exceeds "
+                         f"the kernel's {MAX_WINDOW}")
+    TP, NI = feature.shape
+    NL, K = leaf.shape[1], leaf.shape[2]
+    nt = spec.shape[0]
+    if TP < 1 or nt < 1 or not 1 <= K <= MAX_CLASSES or n_out < 1:
+        raise ValueError(f"need >= 1 tree and tenant, 1..{MAX_CLASSES} "
+                         f"classes a tenant and n_out >= 1, got ΣT={TP}, "
+                         f"tenants={nt}, K={K}, n_out={n_out}")
+    for name, t in (("ts", ts), ("size", size), ("ttl", ttl),
+                    ("winsize", winsize)):
+        check_tensor(name, t, torch.float32, (N, P), dev)
+    check_tensor("direction", direction, torch.uint8, (N, P), dev)
+    check_tensor("flags", flags, torch.uint8, (N, P, 8), dev)
+    check_tensor("flow_len", flow_len, torch.int32, (N,), dev)
+    for name, t in (("proto", proto), ("s_port", s_port), ("d_port", d_port)):
+        check_tensor(name, t, torch.float32, (N,), dev)
+    check_tensor("op_table", op_table, torch.int32, (nf, 5), dev)
+    check_tensor("spec", spec, torch.int32, (nt, len(SPEC_FIELDS)), dev)
+    check_tensor("rescale", rescale, torch.float32, (nt,), dev)
+    check_tensor("feature", feature, torch.int32, (TP, NI), dev)
+    check_tensor("threshold", threshold, torch.float32, (TP, NI), dev)
+    check_tensor("leaf", leaf, torch.float32, (TP, NL, K), dev)
+    if columns is not None:
+        check_tensor("columns", columns, torch.float32, (N, nf), dev)
+    out = torch.empty((N, n_out), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out
+    launch("fused_multi_forest_launch", dev,
+           ts.data_ptr(), size.data_ptr(), direction.data_ptr(),
+           ttl.data_ptr(), winsize.data_ptr(), flags.data_ptr(),
+           flow_len.data_ptr(), proto.data_ptr(), s_port.data_ptr(),
+           d_port.data_ptr(), op_table.data_ptr(), spec.data_ptr(),
+           rescale.data_ptr(), feature.data_ptr(), threshold.data_ptr(),
+           leaf.data_ptr(), out.data_ptr(),
+           None if columns is None else columns.data_ptr(),
+           N, P, nf, depth, nt, NI, NL, K, n_out)
+    fused_multi_forest_call.launches += 1
+    return out
+
+
+fused_multi_forest_call.launches = 0
+
+
+def fused_multi_forest_infer(
+    ts, size, direction, ttl, winsize, flags, flow_len, proto, s_port, d_port,
+    feature, threshold, leaf, spec, rescale, *, op_table, depth: int,
+    n_out: int, columns: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Multi-tenant fused entry: packets -> stacked per-tenant probability
+    lanes, one launch on CUDA tensors, the plain version on CPU tensors."""
+    fn = fused_multi_forest_call if ts.is_cuda else fused_multi_forest_infer_plain
+    return fn(ts, size, direction, ttl, winsize, flags, flow_len, proto,
+              s_port, d_port, feature, threshold, leaf, spec, rescale,
+              op_table=op_table, depth=depth, n_out=n_out, columns=columns)

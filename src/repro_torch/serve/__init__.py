@@ -4,11 +4,11 @@ Port of `repro.serve`, the parts ported so far: the runtime (`runtime/`:
 online flow table with vectorized block ingest, micro-batched
 shape-bucketed dispatch staged in pinned arenas, drift-gated prediction
 reuse, offered-load replay with zero-loss throughput measurement, RSS-style
-sharding — DESIGN.md §6–§8, §12), the metrics registry, latency sketches
-and tracer of `obs/`, and `ServeSession`, whose attachments wait for
-ROADMAP A10 (the control plane, the rest of `obs/`, deploy). The
-multi-tenant pipeline comes with ROADMAP A9, the LM serving steps with
-A12.
+sharding — DESIGN.md §6–§8, §12), the multi-tenant pipeline it serves
+(`MultiTenantPipeline`, `build_multi_tenant_pipeline`, DESIGN.md §15), the
+metrics registry, latency sketches and tracer of `obs/`, and
+`ServeSession`, whose attachments wait for ROADMAP A10 (the control plane,
+the rest of `obs/`, deploy). The LM serving steps wait for A12.
 
 This module is the public serving namespace of the port: everything a
 serving consumer needs is re-exported here.
@@ -20,6 +20,7 @@ from .runtime import (
     FlowTable,
     LatencyHistogram,
     MicroBatchDispatcher,
+    MultiTenantPipeline,
     PacketStream,
     ReplayStats,
     ReuseConfig,
@@ -27,6 +28,7 @@ from .runtime import (
     ServiceModel,
     ShardedRuntime,
     StreamingRuntime,
+    build_multi_tenant_pipeline,
     find_zero_loss_rate,
     replay,
     tuple_hash64,
@@ -43,6 +45,7 @@ __all__ = sorted([
     "LatencySketch",
     "MetricsRegistry",
     "MicroBatchDispatcher",
+    "MultiTenantPipeline",
     "PacketStream",
     "ReplayStats",
     "ReuseConfig",
@@ -52,6 +55,7 @@ __all__ = sorted([
     "ShardedRuntime",
     "StreamingRuntime",
     "Tracer",
+    "build_multi_tenant_pipeline",
     "find_zero_loss_rate",
     "replay",
     "tuple_hash64",

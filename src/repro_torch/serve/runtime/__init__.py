@@ -17,8 +17,7 @@ from their aggregate rows through the kernel B3.
 
 Horizontal scale is `ShardedRuntime` (DESIGN.md §8): n independent host
 workers behind RSS-style symmetric 5-tuple steering, sharing one pipeline
-on one card. The multi-tenant pipeline the reference re-exports here comes
-with the multi-tenant slice (ROADMAP A9).
+on one card.
 """
 from .dispatch import (
     BatchRecord,
@@ -44,6 +43,14 @@ from .replay import (
 )
 from .shard import AggregateMetrics, ShardedRuntime, steer_flows, stream_buckets
 
+# multi-tenant white-box serving (DESIGN.md §15): the shared pipeline is
+# built by the traffic layer but served by this runtime, so the runtime
+# namespace re-exports it alongside the single-tenant machinery
+from ...traffic.multi_tenant import (  # noqa: E402
+    MultiTenantPipeline,
+    build_multi_tenant_pipeline,
+)
+
 __all__ = [
     "AggregateMetrics",
     "BatchRecord",
@@ -51,6 +58,7 @@ __all__ = [
     "FlowTable",
     "LatencyHistogram",
     "MicroBatchDispatcher",
+    "MultiTenantPipeline",
     "PacketStream",
     "ReplayStats",
     "ReuseConfig",
@@ -58,6 +66,7 @@ __all__ = [
     "ServiceModel",
     "ShardedRuntime",
     "StreamingRuntime",
+    "build_multi_tenant_pipeline",
     "find_zero_loss_rate",
     "move_slot",
     "next_bucket",

@@ -10,6 +10,11 @@ execution paths consume it:
 - the fused CUDA kernel (`repro_torch.kernels.fused_pipeline`) interprets
   the same plan, encoded once as a small int32 op table, inside one launch.
 
+A multi-tenant fleet merges its tenants' plans into one (`merge_stats_plans`,
+DESIGN.md §15): `emit_merged_columns` emits each depth group of the merged
+plan over its own window slice, and the multi-forest kernel B4 interprets
+the same merged plan.
+
 All statistics are masked segmented reductions, written op for op as the
 reference writes them. Sums run in packet order (`_seq_sum`), as the fused
 kernel runs them, so the two are bitwise equal; against the reference the
@@ -32,6 +37,10 @@ __all__ = [
     "extraction_fn",
     "stats_plan",
     "emit_feature_columns",
+    "merge_stats_plans",
+    "emit_merged_columns",
+    "emit_merged_agg_features",
+    "merged_plan_is_incremental",
     "plan_is_incremental",
     "emit_agg_features",
     "agg_init",
@@ -227,6 +236,97 @@ def emit_feature_columns(
             c = _STATS[stat](v, m)
         cols.append(c.to(torch.float32))
     return cols
+
+
+# ---------------------------------------------------------------------------
+# merged multi-tenant plans (DESIGN.md §15)
+# ---------------------------------------------------------------------------
+# N tenants' stats plans union into one merged plan, extracted once per
+# flow; each tenant reads its column subset through a static index map. A
+# merged column is identified by the (op descriptor, connection depth)
+# pair: two tenants at the same depth share every common op, while meta
+# columns (proto/ports), which no window mask touches, share across all
+# depths (stored with depth 0).
+
+
+def merge_stats_plans(
+    plans: Sequence[tuple[tuple, ...]], depths: Sequence[int]
+) -> tuple[tuple[tuple, ...], tuple[tuple[int, ...], ...]]:
+    """Union-dedup N tenants' static plans into one merged plan.
+
+    Returns ``(merged, tenant_cols)``: ``merged`` is a hashable tuple of
+    ``(entry, depth)`` pairs in first-seen order, and ``tenant_cols[t][i]``
+    is the merged column that holds position ``i`` of tenant t's own plan.
+    """
+    if len(plans) != len(depths):
+        raise ValueError("plans and depths must align")
+    merged: list[tuple[tuple, int]] = []
+    where: dict[tuple[tuple, int], int] = {}
+    tenant_cols: list[tuple[int, ...]] = []
+    for plan, depth in zip(plans, depths):
+        cols = []
+        for entry in plan:
+            key = (entry, 0 if entry[0] == "meta" else int(depth))
+            if key not in where:
+                where[key] = len(merged)
+                merged.append(key)
+            cols.append(where[key])
+        tenant_cols.append(tuple(cols))
+    return tuple(merged), tuple(tenant_cols)
+
+
+def emit_merged_columns(
+    merged: tuple[tuple, ...],
+    *,
+    ts, size, direction, ttl, winsize, flags, flow_len, proto, s_port, d_port,
+) -> list[torch.Tensor]:
+    """A merged plan's columns over (rows, P) packet tensors.
+
+    One `emit_feature_columns` call per distinct connection depth, with the
+    packet window sliced to that depth first (``dd = min(d, P)``, 1 for the
+    depth-0 meta group): a depth-n group reduces over exactly the (rows, n)
+    tensors a solo tenant's table would hold, so every merged column is
+    bitwise its solo twin even when the shared table is wider. Returns
+    float32 (rows,) columns in merged-plan order.
+    """
+    groups: dict[int, list[int]] = {}
+    for i, (_, d) in enumerate(merged):
+        groups.setdefault(int(d), []).append(i)
+    out: list = [None] * len(merged)
+    for d, idxs in sorted(groups.items()):
+        plan = tuple(merged[i][0] for i in idxs)
+        dd = min(d, ts.shape[1]) if d else 1
+        cols = emit_feature_columns(
+            plan,
+            ts=ts[:, :dd], size=size[:, :dd], direction=direction[:, :dd],
+            ttl=ttl[:, :dd], winsize=winsize[:, :dd], flags=flags[:, :dd, :],
+            flow_len=flow_len, proto=proto, s_port=s_port, d_port=d_port,
+            depth=dd,
+        )
+        for i, c in zip(idxs, cols):
+            out[i] = c
+    return out
+
+
+def emit_merged_agg_features(merged: tuple[tuple, ...], agg, *,
+                             proto, s_port, d_port):
+    """Aggregate twin of `emit_merged_columns` (DESIGN.md §12 + §15).
+
+    Running statistics cover the flow's whole lifetime, which connection
+    depth never clips, so a merged column's aggregate form is its solo
+    `emit_agg_features` column: one emitter call over the deduplicated
+    entries. Numpy float64 rows take the reference's path, a float32 tensor
+    the torch path, as `emit_agg_features` does. Returns columns in
+    merged-plan order.
+    """
+    return emit_agg_features(
+        tuple(e for e, _ in merged), agg,
+        proto=proto, s_port=s_port, d_port=d_port)
+
+
+def merged_plan_is_incremental(merged: tuple[tuple, ...]) -> bool:
+    """True iff every merged column has an incremental (aggregate) form."""
+    return plan_is_incremental(tuple(e for e, _ in merged))
 
 
 # ---------------------------------------------------------------------------

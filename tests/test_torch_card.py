@@ -11,20 +11,31 @@ import pytest
 import torch
 
 from _torch_parity import PROB_ATOL, assert_straddle_parity, cuda  # noqa: F401
-from repro_torch.convert import forest_from_numpy, forest_tables
+from repro_torch.convert import forest_from_numpy, forest_tables, multi_forest_tables
 from repro_torch.core.search_space import FeatureRep
 from repro_torch.kernels.fused_pipeline import (
+    MAX_MERGED_COLUMNS,
+    MAX_WINDOW,
+    encode_merged_plan,
     encode_plan,
     fused_agg_call,
     fused_agg_infer_plain,
     fused_forest_infer_plain,
+    fused_multi_forest_call,
+    fused_multi_forest_infer_plain,
     fused_pipeline_call,
 )
 from repro_torch.kernels.tree_infer import forest_infer_kernel_call, forest_infer_plain
-from repro_torch.traffic.extraction import dataset_tensors, extract_features, stats_plan
+from repro_torch.traffic.extraction import (
+    dataset_tensors,
+    extract_features,
+    merge_stats_plans,
+    stats_plan,
+)
 from repro_torch.traffic.features import FEATURE_NAMES
 from repro_torch.traffic.models import train_traffic_model
 from repro_torch.serve import runtime as prt
+from repro_torch.traffic.multi_tenant import build_multi_tenant_pipeline
 from repro_torch.traffic.pipeline import build_pipeline
 from repro_torch.traffic.synth import make_dataset, make_scenario_dataset
 
@@ -191,3 +202,106 @@ def test_pinned_arenas_replay_matches_cpu(cuda):  # noqa: F811
                        {k: int(v) for k, v in disp.live_predictions.items()})
     assert fused_agg_call.launches > n0
     assert out["cuda"] == out["cpu"]
+
+
+# the reference's multi-tenant fixture (tests/test_multi_tenant.py)
+MT_TENANTS = ((("s_bytes_mean", "s_iat_mean", "proto", "s_load"), 8),
+              (("s_bytes_mean", "s_bytes_max", "dur", "d_load"), 12),
+              (("s_iat_mean", "s_load", "d_pkt_cnt", "ack_cnt"), 8))
+
+
+def _multi_case(case):
+    """The 3-tenant fixture, or the 131-column case: the registry at depths
+    50 and 16 and the 59 incremental features at 50."""
+    if case == "tenants":
+        ds = make_scenario_dataset("app-class", "zipf", n_flows=100,
+                                   max_pkts=48, seed=5)
+        reps = [FeatureRep(f, d) for f, d in MT_TENANTS]
+        model = "tree-fast"
+    else:
+        ds = make_dataset("iot-class", n_flows=600, max_pkts=128, seed=0)
+        inc = tuple(f for f in FEATURE_NAMES if not f.endswith("_med"))
+        reps = [FeatureRep(FEATURE_NAMES, 50), FeatureRep(FEATURE_NAMES, 16),
+                FeatureRep(inc, 50)]
+        model = "rf-fast"
+    forests = [train_traffic_model(
+        extract_features(ds, r.features, r.depth, device="cpu"), ds.label,
+        model=model, seed=t)[0] for t, r in enumerate(reps)]
+    return ds, reps, forests
+
+
+@pytest.mark.parametrize("case", ["tenants", "wide"])
+def test_multi_kernel_matches_plain_and_solo(cuda, case):  # noqa: F811
+    ds, reps, forests = _multi_case(case)
+    plans = [stats_plan(r.features) for r in reps]
+    merged, cols = merge_stats_plans(plans, [r.depth for r in reps])
+    if case == "wide":
+        assert len(merged) == 131
+    tables = multi_forest_tables(forests, cols, cuda)[:5]
+    op_table = torch.from_numpy(encode_merged_plan(merged)).to(cuda)
+    kw = dict(op_table=op_table, depth=max(r.depth for r in reps),
+              n_out=sum(f.n_out for f in forests))
+    packets = _packets(ds, cuda)
+    outs = []
+    for fn in (fused_multi_forest_call, fused_multi_forest_infer_plain):
+        c = torch.empty((ds.n_flows, len(merged)), device=cuda)
+        p = fn(*packets, *tables, columns=c, **kw)
+        outs.append((p.cpu().numpy(), c.cpu().numpy()))
+    (pk, xk), (pp, xp) = outs
+    np.testing.assert_array_equal(xk, xp)
+    lo = 0
+    for plan, r, f, c in zip(plans, reps, forests, cols):
+        hi = lo + f.n_out
+        assert assert_straddle_parity(pp[:, lo:hi], pk[:, lo:hi],
+                                      xp[:, list(c)], xk[:, list(c)], f) == 0
+        # the lane is B2 run alone on the tenant's own plan and forest
+        solo = fused_pipeline_call(
+            *packets, *forest_tables(f, cuda),
+            op_table=torch.from_numpy(encode_plan(plan)).to(cuda),
+            depth=r.depth, forest_depth=f.depth)
+        np.testing.assert_array_equal(pk[:, lo:hi], solo.cpu().numpy())
+        lo = hi
+
+
+def test_multi_pipeline_on_card_matches_cpu(cuda):  # noqa: F811
+    ds, reps, forests = _multi_case("tenants")
+    n0 = fused_multi_forest_call.launches
+    cpu = build_multi_tenant_pipeline(reps, forests, fused=True, device="cpu")
+    gpu = build_multi_tenant_pipeline(reps, forests, fused=True)
+    gpu.warm([1, 8])
+    np.testing.assert_array_equal(gpu.probabilities(ds), cpu.probabilities(ds))
+    np.testing.assert_array_equal(gpu(ds), cpu(ds))
+    assert fused_multi_forest_call.launches == n0 + 4
+
+
+def _multi_args(dev, N=2, P=4, F=3, K=2):
+    f32, u8 = torch.zeros((N, P), device=dev), torch.zeros(
+        (N, P), dtype=torch.uint8, device=dev)
+    per_flow = [torch.zeros(N, dtype=torch.int32, device=dev)] + [
+        torch.zeros(N, device=dev)] * 3
+    tables = [torch.zeros((1, 1), dtype=torch.int32, device=dev),
+              torch.zeros((1, 1), device=dev), torch.zeros((1, 2, K), device=dev),
+              torch.tensor([[0, 1, 1, 1, 1, K, 0]], dtype=torch.int32, device=dev),
+              torch.ones(1, device=dev)]
+    op = torch.zeros((F, 5), dtype=torch.int32, device=dev)
+    return ([f32, f32, u8, f32, f32, torch.zeros((N, P, 8), dtype=torch.uint8,
+                                                 device=dev), *per_flow, *tables],
+            dict(op_table=op, depth=P, n_out=K))
+
+
+def test_multi_kernel_refuses_what_it_does_not_take(cuda):  # noqa: F811
+    args, kw = _multi_args(cuda)
+    fused_multi_forest_call(*args, **kw)        # the base case launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_multi_forest_call(*_multi_args("cpu")[0], **kw)
+    with pytest.raises(ValueError, match="columns"):
+        fused_multi_forest_call(*_multi_args(cuda, F=MAX_MERGED_COLUMNS + 1)[0],
+                                **{**kw, "op_table": torch.zeros(
+                                    (MAX_MERGED_COLUMNS + 1, 5),
+                                    dtype=torch.int32, device=cuda)})
+    wide, kw_w = _multi_args(cuda, P=MAX_WINDOW + 1)
+    with pytest.raises(ValueError, match="exceeds"):
+        fused_multi_forest_call(*wide, **kw_w)
+    with pytest.raises(ValueError, match="shape"):
+        fused_multi_forest_call(*args, **{**kw, "op_table": kw["op_table"][:, :4]
+                                          .contiguous()})

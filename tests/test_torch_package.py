@@ -13,10 +13,17 @@ import torch
 from repro_torch.core.forest import train_forest
 from repro_torch.core.search_space import FeatureRep
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_pipeline import MAX_WINDOW, fused_pipeline_call
+from repro_torch.kernels.fused_pipeline import (
+    MAX_WINDOW,
+    fused_multi_forest_call,
+    fused_multi_forest_infer,
+    fused_pipeline_call,
+)
 from repro_torch.kernels.tree_infer import forest_infer_kernel_call
 from repro_torch.traffic.extraction import extract_features
+from repro_torch.traffic.multi_tenant import build_multi_tenant_pipeline
 from repro_torch.traffic.pipeline import build_pipeline
+from repro_torch.traffic.profiler import TrafficProfiler
 from repro_torch.traffic.synth import make_dataset
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -32,9 +39,25 @@ def _modules():
     return out
 
 
+# modules the scans below must cover (every module of the package is scanned)
+SLICE_MODULES = (
+    "repro_torch.traffic.pipeline",
+    "repro_torch.traffic.multi_tenant",
+    "repro_torch.traffic.profiler",
+    "repro_torch.traffic.backends",
+    "repro_torch.core.acquisition",
+    "repro_torch.core.evaluator",
+    "repro_torch.core.mutual_info",
+    "repro_torch.core.optimizer",
+    "repro_torch.core.pareto",
+    "repro_torch.core.priors",
+    "repro_torch.core.surrogate",
+)
+
+
 def test_imports_with_jax_blocked():
     mods = _modules()
-    assert "repro_torch.traffic.pipeline" in mods
+    assert set(SLICE_MODULES) <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"for m in {mods!r}:\n"
@@ -58,6 +81,12 @@ def _imported_roots(path: pathlib.Path):
             yield node.module.split(".")[0]
 
 
+def test_import_scan_covers_the_slice():
+    scanned = {str(p.relative_to(PKG.parent).with_suffix("")).replace("/", ".")
+               for p in PKG.rglob("*.py")}
+    assert set(SLICE_MODULES) <= scanned
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
@@ -79,7 +108,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
         build_pipeline(rep, forest, ds.max_pkts, fused=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         extract_features(ds, rep.features, rep.depth)
+    for fused in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_multi_tenant_pipeline([rep, rep], [forest, forest],
+                                        fused=fused)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrafficProfiler(ds, rep.features)
     build_pipeline(rep, forest, ds.max_pkts, device="cpu")
+    build_multi_tenant_pipeline([rep, rep], [forest, forest], fused=True,
+                                device="cpu")
+    TrafficProfiler(ds, rep.features, device="cpu")
 
 
 def test_kernel_wrappers_take_only_cuda_tensors():
@@ -91,6 +129,21 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         forest_infer_kernel_call(x, feature, threshold, leaf, 2)
     # the dispatcher sends CPU tensors to the plain version
     assert ops.forest_infer(x, feature, threshold, leaf, 2).shape == (4, 5)
+
+    # B4: one tenant of one depth-1 tree, a 3-column merged plan
+    N, P, K = 2, 4, 2
+    f32, u8 = torch.zeros((N, P)), torch.zeros((N, P), dtype=torch.uint8)
+    args = [f32, f32, u8, f32, f32, torch.zeros((N, P, 8), dtype=torch.uint8),
+            torch.zeros(N, dtype=torch.int32), torch.zeros(N), torch.zeros(N),
+            torch.zeros(N), torch.zeros((1, 1), dtype=torch.int32),
+            torch.zeros((1, 1)), torch.zeros((1, 2, K)),
+            torch.tensor([[0, 1, 1, 1, 1, K, 0]], dtype=torch.int32),
+            torch.ones(1)]
+    kw = dict(op_table=torch.zeros((3, 5), dtype=torch.int32), depth=P,
+              n_out=K)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_multi_forest_call(*args, **kw)
+    assert fused_multi_forest_infer(*args, **kw).shape == (N, K)
 
 
 def test_fused_wrapper_states_its_window():
