@@ -32,6 +32,19 @@ Phases, each printing one JSON line:
    and 32 flows: its merged columns bitwise equal to the plain ones, no
    flow straddled, and every tenant's lane bitwise equal to solo B2 on
    that tenant's own plan and forest; then its time at 4096 and 32 flows.
+   The LM kernels (`lm_kernel_check`, `lm_kernel_times`): flash attention
+   (B6) at qwen3-8b's prefill shape (B 2, 32 q heads, 8 kv heads, T 2048,
+   D 128) and zamba2-1.2b's (32 and 32 heads, D 64) in bf16, causal, and
+   at a ragged Tq != Tk in float32, causal and not; decode attention (B7)
+   at (B 8, 32 q heads, 8 kv heads, S 4096, D 128) in bf16 with random
+   lengths in [1, S], at zamba2-1.2b's served batch (B 8, 32 and 32 heads,
+   S 168, D 64, every length 159) in bf16, and at S = 300 in float32;
+   the Mamba scan (B8) at
+   zamba2-1.2b's prefill shape (B 2, T 2048, 64 heads of P 64, S 64) in
+   bf16 and at a ragged T with S 16 in float32, y and the final state;
+   then each one's time at the main-path shapes beside its plain version,
+   one PyTorch call computing the same function (scaled_dot_product_
+   attention for B6 and B7; the port never calls it) and its bound.
 5. main path: `build_pipeline(..., fused=True)` and `fused=False` on the
    card for both forests, warmed on buckets 1..128, serving 16
    micro-batches of 128 flows, one batch of 4096 and the held-out split,
@@ -67,6 +80,18 @@ Phases, each printing one JSON line:
    served on the card through B4 with the classes of the CPU plain
    pipeline; one replayed-throughput measurement of tenant 0's knee on
    the card, which launches B2.
+9. lm_serve: LM serving through `make_prefill` and `make_serve_step` for
+   qwen3-8b and zamba2-1.2b at full width in bf16, weights drawn on the
+   card from seed 0: a prefill of B 2 x T 2048, held against the same
+   prefill with B6-B8's plain versions swapped in (argmax equal on >= 99%
+   of positions, logit gaps bounded); a served batch of 8 (127 prompt
+   tokens teacher-forced, 32 greedy), with the launch counters set to 0
+   just before the prefills and read just after the served batch; then 4
+   decode steps held against the plain path step by step from the same
+   cache (logit gaps bounded), a torch.profiler breakdown of a prefill and
+   4 decode steps, and a float32 copy at 4 layers whose decode reproduces
+   its prefill (atol = rtol = 2e-3) and whose decode on the plain path
+   reproduces the kernel path's (atol = rtol = 1e-4, argmax equal).
 
 Probabilities of pipelines whose feature columns agree only to float32
 rounding are compared by the straddle rule
@@ -79,6 +104,8 @@ when any check fails, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -94,6 +121,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: 80 GB of HBM3 at 3.35 TB/s
 FP32_OPS_PER_S = 67e12     # H100 SXM: float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12    # H100 SXM: bf16 on the tensor cores, dense
 PROB_ATOL = 1e-6
 MAX_STRADDLED = 0.01
 KERNEL_REPS, PLAIN_REPS = 30, 5
@@ -129,6 +157,45 @@ AGG_PLANS = (
     ("s_winsize_mean", "d_winsize_std", "s_ttl_min", "d_ttl_max",
      "d_winsize_sum", "s_ttl_std"),
 )
+
+
+# the lm_serve phase: both LM families the port serves, at full width
+LM_ARCHS = ("qwen3-8b", "zamba2-1.2b")
+LM_PREFILL_B, LM_PREFILL_T, LM_PREFILL_REPS = 2, 2048, 3
+LM_SERVE_B, LM_PROMPT, LM_GEN = 8, 128, 32
+LM_DECODE_CHECK = 4            # decode steps held against the plain path
+LM_PROFILE_STEPS = 4           # traced decode steps after those
+LM_CACHE_LEN = LM_PROMPT + LM_GEN + LM_DECODE_CHECK + LM_PROFILE_STEPS
+LM_F32_LAYERS, LM_F32_T = 4, 32
+# kernel-path prefill logits against the plain path's, both bf16: the two
+# differ only where a float32 sum in B6 or B8 rounds to the other bf16
+# neighbour, which then travels through the layers; logits of a random
+# model are ~N(0, 1) (|max| ~ 5, a bf16 ulp 0.016-0.031 there)
+LM_ARGMAX_MIN, LM_LOGIT_MAX_ERR, LM_LOGIT_MEAN_ERR = 0.99, 1.0, 0.02
+# the float32 4-layer copies: decode against the prefill (the reference's
+# own invariant, tests/test_models.py) and decode on the kernel path
+# against the plain path, where orders of summation differ by ~1e-6
+LM_F32_DECODE_TOL, LM_F32_PLAIN_TOL = 2e-3, 1e-4
+# the LM kernels against their plain versions (tests/test_kernels.py's)
+LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SCAN_TOL_F32 = 3e-4
+# their cases: B6 (B, Hq, Hkv, Tq, Tk, D) with the causal flags checked,
+# B7 (B, Hq, Hkv, S, D) with every length or None for lengths drawn in
+# [1, S], B8 (B, T, H, P, S). The qwen3-8b and zamba2-1.2b cases are the
+# main path's shapes (B7's zamba2 case the served batch's cache, at the
+# length of its last served step); the first two B6 cases and the first
+# B7 and B8 case are also timed
+LM_B6_CASES = (
+    ("qwen3-8b", (2, 32, 8, 2048, 2048, 128), torch.bfloat16, (True,)),
+    ("zamba2-1.2b", (2, 32, 32, 2048, 2048, 64), torch.bfloat16, (True,)),
+    ("ragged", (2, 8, 2, 200, 328, 128), torch.float32, (True, False)))
+LM_B7_CASES = (
+    ("qwen3-8b", (8, 32, 8, 4096, 128), torch.bfloat16, None),
+    ("zamba2-1.2b", (LM_SERVE_B, 32, 32, LM_CACHE_LEN, 64), torch.bfloat16,
+     LM_PROMPT + LM_GEN - 1),
+    ("ragged", (4, 32, 8, 300, 128), torch.float32, None))
+LM_B8_CASES = (("zamba2-1.2b", (2, 2048, 64, 64, 64), torch.bfloat16),
+               ("ragged", (2, 1000, 8, 64, 16), torch.float32))
 
 
 def check(ok: bool, what: str) -> None:
@@ -213,8 +280,9 @@ def device_profile(fn, n: int) -> dict:
                 top=[dict(name=k, count=c, ms=ms) for k, c, ms in rows[:5]])
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -633,6 +701,346 @@ def cotune_phase(counters) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Run the model path on the plain versions of B6-B8, on the card: the
+    dispatchers in `repro_torch.kernels.ops`, which the layers call, are
+    swapped for the plain functions while the block runs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.mamba_scan import mamba_scan_plain
+
+    saved = ops.flash_attention, ops.decode_attention, ops.mamba_scan
+    ops.flash_attention = flash_attention_plain
+    ops.decode_attention = decode_attention_plain
+    ops.mamba_scan = mamba_scan_plain
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention, ops.mamba_scan = saved
+
+
+def ops_rate(dtype: torch.dtype) -> float:
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+
+
+def lm_kernel_phase(dev, flush) -> dict:
+    """B6, B7 and B8 against their plain versions on the card, then their
+    times at the main-path shapes. Inputs: normal draws on the card from
+    seed 14, scaled as tests/test_kernels.py scales them."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_kernel_call,
+        decode_attention_plain,
+    )
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_kernel_call,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.mamba_scan import (
+        mamba_scan_kernel_call,
+        mamba_scan_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def randn(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    # B6: (B, Hq, Hkv, Tq, Tk, D)
+    fa_inputs, cases = {}, []
+    for name, (B, Hq, Hkv, Tq, Tk, D), dtype, causals in LM_B6_CASES:
+        q = randn((B, Hq, Tq, D), dtype)
+        k, v = randn((B, Hkv, Tk, D), dtype), randn((B, Hkv, Tk, D), dtype)
+        fa_inputs[name] = (q, k, v)
+        for causal in causals:
+            e = err(flash_attention_kernel_call(q, k, v, causal=causal),
+                    flash_attention_plain(q, k, v, causal=causal))
+            cases.append(dict(kernel="flash_attention", case=name,
+                              shape=[B, Hq, Hkv, Tq, Tk, D], causal=causal,
+                              dtype=str(dtype), max_abs_err=e,
+                              tol=LM_TOL[dtype]))
+            check(e <= LM_TOL[dtype], f"B6 {cases[-1]}")
+    # B7: (B, Hq, Hkv, S, D), lengths in [1, S]
+    da_inputs = {}
+    for name, (B, Hq, Hkv, S, D), dtype, length in LM_B7_CASES:
+        q = randn((B, Hq, D), dtype)
+        kc, vc = randn((B, S, Hkv, D), dtype), randn((B, S, Hkv, D), dtype)
+        if length is None:
+            lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            lens[-1] = S
+        else:
+            lens = torch.full((B,), length, device=dev, dtype=torch.int32)
+        da_inputs[name] = (q, kc, vc, lens)
+        e = err(decode_attention_kernel_call(q, kc, vc, lens),
+                decode_attention_plain(q, kc, vc, lens))
+        cases.append(dict(kernel="decode_attention", case=name,
+                          shape=[B, Hq, Hkv, S, D], lengths=lens.tolist(),
+                          dtype=str(dtype), max_abs_err=e, tol=LM_TOL[dtype]))
+        check(e <= LM_TOL[dtype], f"B7 {cases[-1]}")
+    # B8: (B, T, H, P, S)
+    ms_inputs = {}
+    for name, (B, T, H, P, S), dtype in LM_B8_CASES:
+        x = randn((B, T, H, P), dtype, 0.5)
+        dt = randn((B, T, H), scale=0.1).abs() + 0.01
+        A = -randn((H,)).abs() - 0.1
+        Bm, Cm = randn((B, T, S), dtype, 0.3), randn((B, T, S), dtype, 0.3)
+        ms_inputs[name] = (x, dt, A, Bm, Cm)
+        y, h = mamba_scan_kernel_call(x, dt, A, Bm, Cm)
+        y_p, h_p = mamba_scan_plain(x, dt, A, Bm, Cm)
+        tol = LM_TOL[dtype] if dtype == torch.bfloat16 else SCAN_TOL_F32
+        e_y, e_h = err(y, y_p), err(h, h_p)
+        cases.append(dict(kernel="mamba_scan", case=name, shape=[B, T, H, P, S],
+                          chunk=128, dtype=str(dtype), max_abs_err=e_y,
+                          state_max_abs_err=e_h, tol=tol, state_tol=SCAN_TOL_F32))
+        check(e_y <= tol and e_h <= SCAN_TOL_F32, f"B8 {cases[-1]}")
+    torch.cuda.synchronize()
+    for c in cases:
+        emit("lm_kernel_check", **c)
+
+    # times at the main-path shapes, with bounds from these inputs
+    timing = {}
+    for name in ("qwen3-8b", "zamba2-1.2b"):
+        q, k, v = fa_inputs[name]
+        B, Hq, T, D = q.shape
+        pairs = T * (T + 1) // 2              # causal, Tq = Tk
+        t = dict(
+            ms=time_ms(lambda: flash_attention_kernel_call(q, k, v),
+                       KERNEL_REPS, flush),
+            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v),
+                             PLAIN_REPS, flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), KERNEL_REPS, flush),
+            bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
+            ops=4 * D * pairs * B * Hq, shape=list(q.shape) + [k.shape[1]])
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
+                                             ops_rate(q.dtype))
+        timing[f"flash_attention/{name}"] = t
+    q, kc, vc, lens = da_inputs["qwen3-8b"]
+    B, Hq, D = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+    n_valid = int(lens.sum())
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    t = dict(
+        ms=time_ms(lambda: decode_attention_kernel_call(q, kc, vc, lens),
+                   KERNEL_REPS, flush),
+        plain_ms=time_ms(lambda: decode_attention_plain(q, kc, vc, lens),
+                         PLAIN_REPS, flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True), KERNEL_REPS, flush),
+        # q and out, the valid K and V rows, the lengths
+        bytes=2 * (2 * q.numel() + 2 * n_valid * Hkv * D) + 4 * B,
+        ops=4 * D * Hq * n_valid, shape=[B, Hq, Hkv, S, D],
+        valid_positions=n_valid)
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"], ops_rate(q.dtype))
+    timing["decode_attention/qwen3-8b"] = t
+    x, dt, A, Bm, Cm = ms_inputs["zamba2-1.2b"]
+    B, T, H, P = x.shape
+    S, c = Bm.shape[-1], 128
+    tri = c * (c + 1) // 2
+    per_chunk = tri * 2 * S + tri * 2 * P + 4 * c * P * S
+    t = dict(
+        ms=time_ms(lambda: mamba_scan_kernel_call(x, dt, A, Bm, Cm),
+                   KERNEL_REPS, flush),
+        plain_ms=time_ms(lambda: mamba_scan_plain(x, dt, A, Bm, Cm),
+                         PLAIN_REPS, flush),
+        library_ms=None,
+        # x and y, dt, A, Bm and Cm, the final state
+        bytes=2 * 2 * x.numel() + 4 * dt.numel() + 4 * H + 2 * 2 * Bm.numel()
+        + 4 * B * H * P * S,
+        ops=B * H * (T // c) * per_chunk, shape=[B, T, H, P, S], chunk=c)
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"], ops_rate(x.dtype))
+    timing["mamba_scan/zamba2-1.2b"] = t
+    return dict(cases=cases, timing=timing)
+
+
+def lm_serve_phase(dev) -> dict:
+    """The LM serving path of both models at full width (see phase 9)."""
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import decode_attention_kernel_call
+    from repro_torch.kernels.flash_attention import flash_attention_kernel_call
+    from repro_torch.kernels.mamba_scan import mamba_scan_kernel_call
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+    from repro_torch.serve import make_prefill, make_serve_step
+
+    counters = {"flash_attention": flash_attention_kernel_call,
+                "decode_attention": decode_attention_kernel_call,
+                "mamba_scan": mamba_scan_kernel_call}
+    out = {}
+    for arch in LM_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = configs.get(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        gen = torch.Generator(device=dev).manual_seed(0)
+        toks = torch.randint(0, cfg.vocab_size, (LM_PREFILL_B, LM_PREFILL_T),
+                             generator=gen, device=dev)
+        prefill = make_prefill(cfg)
+        with plain_kernels():
+            ref = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+
+        # the counted run: prefills, then the served batch
+        reset_launches(*counters.values())
+        times = []
+        for _ in range(LM_PREFILL_REPS):
+            t0 = time.perf_counter()
+            logits = prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        step = make_serve_step(cfg)
+        cache = init_cache(cfg, LM_SERVE_B, LM_CACHE_LEN)
+        prompt = torch.randint(0, cfg.vocab_size, (LM_SERVE_B, LM_PROMPT),
+                               generator=gen, device=dev, dtype=torch.int32)
+        t0 = time.perf_counter()
+        tok = prompt[:, 0]
+        for i in range(1, LM_PROMPT):
+            _, cache = step(params, cache, tok)
+            tok = prompt[:, i]
+        torch.cuda.synchronize()
+        prompt_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        generated = []
+        for _ in range(LM_GEN):
+            tok, cache = step(params, cache, tok)
+            generated.append(tok)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+
+        # checks: kernel path against the plain path, the served tokens
+        diff = (logits.float() - ref.float()).abs()
+        max_err, mean_err = float(diff.max()), float(diff.mean())
+        del diff
+        agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+        gen_t = torch.stack(generated, 1)
+        finite = bool(torch.isfinite(logits).all())
+        served_pos = int(cache["pos"][0])
+
+        # decode on the kernel path against the plain path: each step from
+        # the same cache (the served batch's, copied for the plain step),
+        # fed the kernel path's greedy token
+        got, want = [], []
+        for _ in range(LM_DECODE_CHECK):
+            plain_cache = {k: v.clone() for k, v in cache.items()}
+            with plain_kernels():
+                want.append(decode_step(params, plain_cache, tok, cfg)[0])
+            del plain_cache
+            step_logits, cache = decode_step(params, cache, tok, cfg)
+            got.append(step_logits)
+            tok = step_logits.argmax(-1).to(torch.int32)
+        got, want = torch.stack(got).float(), torch.stack(want).float()
+        d_gap = (got - want).abs()
+        decode_vs_plain = dict(
+            steps=LM_DECODE_CHECK, max_abs_err=float(d_gap.max()),
+            mean_abs_err=float(d_gap.mean()),
+            argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                               .float().mean()),
+            finite=bool(torch.isfinite(got).all()))
+        del got, want, d_gap
+        res = dict(
+            arch=arch, params=n_params, dtype=cfg.dtype, layers=cfg.n_layers,
+            init_s=init_s,
+            prefill=dict(batch=LM_PREFILL_B, seq=LM_PREFILL_T,
+                         first_ms=times[0] * 1e3,
+                         ms=statistics.median(times[1:]) * 1e3,
+                         tokens_per_s=LM_PREFILL_B * LM_PREFILL_T
+                         / statistics.median(times[1:])),
+            vs_plain=dict(max_abs_err=max_err, mean_abs_err=mean_err,
+                          argmax_agree=agree, max_abs_logit=float(
+                              ref.float().abs().max())),
+            decode_vs_plain=decode_vs_plain,
+            serve=dict(batch=LM_SERVE_B, prompt=LM_PROMPT, generated=LM_GEN,
+                       prompt_ms_per_step=prompt_s * 1e3 / (LM_PROMPT - 1),
+                       decode_ms_per_step=gen_s * 1e3 / LM_GEN,
+                       decode_tokens_per_s=LM_SERVE_B * LM_GEN / gen_s,
+                       first_tokens=gen_t[0, :8].tolist()),
+            launches=launches, peak_gb=peak / 1e9)
+        check(finite and logits.shape == (LM_PREFILL_B, LM_PREFILL_T,
+                                          cfg.vocab_size), f"{arch} logits")
+        check(agree >= LM_ARGMAX_MIN and max_err <= LM_LOGIT_MAX_ERR
+              and mean_err <= LM_LOGIT_MEAN_ERR, f"{arch} kernel vs plain "
+              f"prefill: {res['vs_plain']}")
+        check(bool(((gen_t >= 0) & (gen_t < cfg.vocab_size)).all())
+              and served_pos == LM_PROMPT + LM_GEN - 1,
+              f"{arch} served tokens")
+        # B7's plain version is a one-pass softmax: in bf16 it rounds some
+        # attention outputs to the neighbouring value, as a one-pass B6 did
+        # in prefill, so near-tied argmaxes may move; the logit gaps are
+        # held here and the argmaxes in the float32 check below
+        check(decode_vs_plain["finite"]
+              and decode_vs_plain["max_abs_err"] <= LM_LOGIT_MAX_ERR
+              and decode_vs_plain["mean_abs_err"] <= LM_LOGIT_MEAN_ERR,
+              f"{arch} kernel vs plain decode: {decode_vs_plain}")
+        want = ["flash_attention", "decode_attention"] + (
+            ["mamba_scan"] if cfg.family == "hybrid" else [])
+        check(all(launches[k] > 0 for k in want), f"{arch} launches {launches}")
+
+        # where the card's time goes: one prefill, and 4 decode steps
+        res["profile"] = dict(
+            prefill=device_profile(lambda: prefill(params, {"tokens": toks}), 1),
+            decode=device_profile(lambda: step(params, cache, tok),
+                                  LM_PROFILE_STEPS))
+        del params, logits, ref, cache
+        torch.cuda.empty_cache()
+
+        # float32 at full width, 4 layers: decode reproduces the prefill,
+        # and the decode on the plain path reproduces the kernel path's
+        cfg32 = dataclasses.replace(cfg, n_layers=LM_F32_LAYERS, dtype="float32")
+        p32 = init_params(cfg32, seed=1)
+        toks32 = torch.randint(0, cfg.vocab_size, (2, LM_F32_T), generator=gen,
+                               device=dev)
+        full = forward(p32, {"tokens": toks32}, cfg32)
+
+        def decode_all():
+            c = init_cache(cfg32, 2, LM_F32_T + 1)
+            return torch.stack([decode_step(p32, c, toks32[:, t], cfg32)[0]
+                                for t in range(LM_F32_T)], 1)
+
+        dec = decode_all()
+        with plain_kernels():
+            dec_plain = decode_all()
+
+        def gaps(a, b, tol):
+            gap = (a - b).abs()
+            return dict(max_abs_err=float(gap.max()),
+                        max_excess_over_rtol=float((gap - tol * b.abs()).max()),
+                        argmax_agree=float((a.argmax(-1) == b.argmax(-1))
+                                           .float().mean()))
+
+        vs_fwd = gaps(dec, full, LM_F32_DECODE_TOL)
+        vs_plain32 = gaps(dec, dec_plain, LM_F32_PLAIN_TOL)
+        res["f32_decode_vs_forward"] = dict(layers=LM_F32_LAYERS, seq=LM_F32_T,
+                                            **vs_fwd)
+        res["f32_decode_vs_plain"] = dict(layers=LM_F32_LAYERS, seq=LM_F32_T,
+                                          **vs_plain32)
+        check(vs_fwd["max_excess_over_rtol"] <= LM_F32_DECODE_TOL,
+              f"{arch} float32 decode vs forward {res['f32_decode_vs_forward']}")
+        check(vs_plain32["max_excess_over_rtol"] <= LM_F32_PLAIN_TOL
+              and vs_plain32["argmax_agree"] >= LM_ARGMAX_MIN,
+              f"{arch} float32 decode, kernel vs plain path "
+              f"{res['f32_decode_vs_plain']}")
+        del p32, full, dec, dec_plain
+        torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t_arch
+        emit("lm_serve", **res)
+        out[arch] = res
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -988,6 +1396,13 @@ def main() -> None:
          reps=dict(kernel=KERNEL_REPS, plain=PLAIN_REPS),
          seconds=time.perf_counter() - t0)
 
+    # B6-B8 against their plain versions, then their times
+    t0 = time.perf_counter()
+    lm = lm_kernel_phase(dev, flush)
+    emit("lm_kernel_times", timing=lm["timing"],
+         reps=dict(kernel=KERNEL_REPS, plain=PLAIN_REPS),
+         seconds=time.perf_counter() - t0)
+
     # 5. main path, serving ---------------------------------------------------
     t0 = time.perf_counter()
     buckets = [2 ** i for i in range(8)]                    # 1 .. 128
@@ -1207,6 +1622,30 @@ def main() -> None:
     # 8. cotune: CATO's joint loop on the port ------------------------------
     co = cotune_phase(counters)
 
+    # 9. lm_serve: the LM serving path at full width -------------------------
+    t0 = time.perf_counter()
+    lm_serve = lm_serve_phase(dev)
+    emit("lm_serve_seconds", seconds=time.perf_counter() - t0)
+
+    def lm_entry(name, source, replaces, main_case, extra_case=None):
+        t = lm["timing"][f"{name}/{main_case}"]
+        entry = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(r["launches"][name] for r in lm_serve.values()),
+            launches_by_model={a: r["launches"][name]
+                               for a, r in lm_serve.items()},
+            max_abs_err=max(c["max_abs_err"] for c in lm["cases"]
+                            if c["kernel"] == name),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            shape=t["shape"])
+        if extra_case:
+            e = lm["timing"][f"{name}/{extra_case}"]
+            entry[extra_case] = {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms",
+                                                   "shape")}
+        return entry
+
     kernels = [
         dict(name="forest_infer", route="cuda",
              source="src/repro_torch/csrc/forest_infer.cu",
@@ -1269,6 +1708,13 @@ def main() -> None:
              fleet_ms_32_flows=b4["fleet"]["timing"]["ms_32"],
              fleet_bound_ms=b4["fleet"]["timing"]["bound_ms"],
              library_ms=None),
+        lm_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:83", "qwen3-8b",
+                 "zamba2-1.2b"),
+        lm_entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+                 "src/repro/kernels/decode_attention.py:70", "qwen3-8b"),
+        lm_entry("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
+                 "src/repro/kernels/mamba_scan.py:78", "zamba2-1.2b"),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched")
     emit("total", seconds=time.perf_counter() - t_start)

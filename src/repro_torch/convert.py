@@ -7,6 +7,11 @@ forest in the dense level-order layout) and builds the port's
 it once per pipeline, so no call on the serving path copies the forest.
 `multi_forest_tables` does the same for a multi-tenant fleet: the tenants'
 forests stacked for the kernel B4, with its per-tenant spec table.
+
+`lm_params_from_numpy` loads a reference LM's parameter pytree (nested
+dicts of numpy arrays, layers stacked on a leading axis) into the port's
+`repro_torch.models.zoo.LM`, and `lm_cache_from_numpy` a reference decode
+cache, checking every key, shape and dtype on the way in.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import torch
 from .core.forest import DenseForest
 from .device import resolve_device
 
-__all__ = ["forest_from_numpy", "forest_tables", "multi_forest_tables"]
+__all__ = ["forest_from_numpy", "forest_tables", "lm_cache_from_numpy",
+           "lm_params_from_numpy", "multi_forest_tables"]
 
 
 def forest_from_numpy(feature, threshold, leaf, depth: int, n_features: int,
@@ -88,3 +94,86 @@ def multi_forest_tables(forests, tenant_cols, device: str | torch.device = "cuda
     rescale = torch.tensor([t[7] for t in tenants], dtype=torch.float32)
     return (feature.to(dev), threshold.to(dev), leaf.to(dev), spec.to(dev),
             rescale.to(dev), tenants)
+
+
+def _tensor(a, name: str, like: torch.Tensor) -> torch.Tensor:
+    """A copy of numpy array `a` as a tensor of `like`'s shape, dtype and
+    device; raises on any mismatch. bfloat16 arrays (ml_dtypes) go across
+    by their bits."""
+    a = np.asarray(a)
+    if tuple(a.shape) != tuple(like.shape):
+        raise ValueError(f"{name}: shape {a.shape}, expected "
+                         f"{tuple(like.shape)}")
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a, copy=True).view(np.int16)).view(
+            torch.bfloat16)
+    elif a.dtype.name in ("float32", "int32"):
+        t = torch.from_numpy(np.array(a, copy=True))
+    else:
+        t = None
+    if t is None or t.dtype != like.dtype:
+        raise TypeError(f"{name}: dtype {a.dtype}, expected {like.dtype}")
+    return t.to(like.device)
+
+
+def _load_module(module: torch.nn.Module, tree: dict, name: str) -> None:
+    """Copy `tree` into `module`, key for attribute. A `ModuleList` takes a
+    subtree whose arrays are stacked on a leading layer axis."""
+    if not isinstance(tree, dict):
+        raise TypeError(f"{name}: expected a dict, got {type(tree).__name__}")
+    params = dict(module.named_parameters(recurse=False))
+    children = dict(module.named_children())
+    if set(tree) != set(params) | set(children):
+        raise ValueError(f"{name}: keys {sorted(tree)}, expected "
+                         f"{sorted(set(params) | set(children))}")
+    for key, value in tree.items():
+        path = f"{name}.{key}" if name else key
+        if key in params:
+            params[key].copy_(_tensor(value, path, params[key]))
+        elif isinstance(children[key], torch.nn.ModuleList):
+            layers = children[key]
+            for i, layer in enumerate(layers):
+                _load_module(layer, _layer(value, i, len(layers), path),
+                             f"{path}[{i}]")
+        else:
+            _load_module(children[key], value, path)
+
+
+def _layer(tree, i: int, n: int, name: str):
+    """Layer i of a pytree stacked on a leading axis of length n."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i, n, f"{name}.{k}") for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.ndim == 0 or a.shape[0] != n:
+        raise ValueError(f"{name}: leading axis {a.shape[:1]}, expected {n} "
+                         "stacked layers")
+    return a[i]
+
+
+def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda"):
+    """The port's LM of `cfg` on `device`, loaded from the reference's
+    parameter pytree (`repro.models.init_params`, converted leaf by leaf to
+    numpy). Every key, shape and dtype is checked against the port's
+    modules."""
+    from .models.zoo import LM
+
+    dev = resolve_device(device)
+    model = LM(cfg, dev)
+    with torch.no_grad():
+        _load_module(model, tree, "")
+    return model
+
+
+def lm_cache_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda"
+                        ) -> dict:
+    """The port's decode cache on `device` from the reference's
+    (`repro.models.init_cache` or a `decode_step` result, as numpy), with
+    every key, shape and dtype checked against `init_cache`'s."""
+    from .models.zoo import init_cache
+
+    kv = tree["k"] if cfg.family == "dense" else tree["attn_k"]
+    want = init_cache(cfg, int(np.shape(tree["pos"])[0]), int(np.shape(kv)[2]),
+                      device)
+    if set(tree) != set(want):
+        raise ValueError(f"cache keys {sorted(tree)}, expected {sorted(want)}")
+    return {k: _tensor(v, k, want[k]) for k, v in tree.items()}

@@ -8,6 +8,13 @@ PyTorch version:
                   reuse path's refresh batches (B3, csrc/fused_agg.cu), and
                   its multi-tenant entry, a merged plan and every tenant's
                   forest in one launch (B4, csrc/fused_multi.cu)
+  flash_attention GQA prefill attention with an online softmax (B6,
+                  csrc/flash_attention.cu)
+  decode_attention
+                  one-token GQA attention against a KV cache (B7,
+                  csrc/decode_attention.cu)
+  mamba_scan      the chunked Mamba-2 / SSD scan, y and the final state
+                  (B8, csrc/mamba_scan.cu)
 
 `ops.py` holds the entry points that dispatch CUDA tensors to a kernel and
 CPU tensors to its plain version; `ref.py` the oracles and the straddle

@@ -29,11 +29,13 @@ __all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "build_library", "check_tensor",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("forest_infer.cu", "fused_pipeline.cu", "fused_agg.cu",
-           "fused_multi.cu")
-HEADERS = ("forest_common.cuh", "plan_columns.cuh")
+           "fused_multi.cu", "flash_attention.cu", "decode_attention.cu",
+           "mamba_scan.cu")
+HEADERS = ("forest_common.cuh", "plan_columns.cuh", "lm_common.cuh")
 # --fmad=false: no multiply and add is contracted into one rounding, so
-# the kernels round as their plain versions do (the one fused multiply-add
-# they use, std's, is an explicit fmaf that the plain version mirrors)
+# the forest kernels round as their plain versions do (the one fused
+# multiply-add they use, std's, is an explicit fmaf that the plain version
+# mirrors); the LM kernels' dot products are explicit fmaf chains
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 LIB_NAME = "libcato_kernels.so"
@@ -51,6 +53,12 @@ _SIGNATURES = {
         [_VOID] * 8 + [_INT] * 7 + [_FLOAT, _VOID]),
     "fused_multi_forest_launch": (
         [_VOID] * 18 + [_INT] * 9 + [_VOID]),
+    "flash_attention_launch": (
+        [_VOID] * 4 + [_INT] * 8 + [_FLOAT, _VOID]),
+    "decode_attention_launch": (
+        [_VOID] * 5 + [_INT] * 6 + [_FLOAT, _VOID]),
+    "mamba_scan_launch": (
+        [_VOID] * 7 + [_INT] * 7 + [_VOID]),
 }
 
 

@@ -9,9 +9,12 @@ from __future__ import annotations
 
 import torch
 
+from .decode_attention import decode_attention_kernel_call, decode_attention_plain
+from .flash_attention import flash_attention_kernel_call, flash_attention_plain
+from .mamba_scan import mamba_scan_kernel_call, mamba_scan_plain
 from .tree_infer import forest_infer_kernel_call, forest_infer_plain
 
-__all__ = ["forest_infer"]
+__all__ = ["decode_attention", "flash_attention", "forest_infer", "mamba_scan"]
 
 
 def forest_infer(x, feature, threshold, leaf, depth: int, *,
@@ -22,3 +25,31 @@ def forest_infer(x, feature, threshold, leaf, depth: int, *,
                                         block_t=block_t)
     return forest_infer_plain(x, feature, threshold, leaf, depth,
                               block_t=block_t)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """GQA attention, q (B, Hq, Tq, D), k/v (B, Hkv, Tk, D) -> q's shape.
+    Any Tq and Tk: ragged edges are masked, not padded."""
+    if q.is_cuda:
+        return flash_attention_kernel_call(q, k, v, causal=causal, scale=scale)
+    return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *,
+                     scale: float | None = None) -> torch.Tensor:
+    """One-token GQA attention, q (B, Hq, D) against (B, S, Hkv, D) caches
+    valid below ``lengths`` (B,) -> (B, Hq, D)."""
+    if q.is_cuda:
+        return decode_attention_kernel_call(q, k_cache, v_cache, lengths,
+                                            scale=scale)
+    return decode_attention_plain(q, k_cache, v_cache, lengths, scale=scale)
+
+
+def mamba_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """Chunked SSD scan -> (y (B, T, H, P), final state (B, H, P, S)).
+    Unlike the reference's, which returns y only, this returns the state
+    too, and takes any T."""
+    if x.is_cuda:
+        return mamba_scan_kernel_call(x, dt, A, Bm, Cm, chunk=chunk)
+    return mamba_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)

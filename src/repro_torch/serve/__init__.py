@@ -8,7 +8,8 @@ sharding — DESIGN.md §6–§8, §12), the multi-tenant pipeline it serves
 (`MultiTenantPipeline`, `build_multi_tenant_pipeline`, DESIGN.md §15), the
 metrics registry, latency sketches and tracer of `obs/`, and
 `ServeSession`, whose attachments wait for ROADMAP A10 (the control plane,
-the rest of `obs/`, deploy). The LM serving steps wait for A12.
+the rest of `obs/`, deploy), and the LM serving steps (`serve_step.py`:
+`make_prefill`, `make_serve_step`) for the dense and hybrid families.
 
 This module is the public serving namespace of the port: everything a
 serving consumer needs is re-exported here.
@@ -33,6 +34,7 @@ from .runtime import (
     replay,
     tuple_hash64,
 )
+from .serve_step import make_prefill, make_serve_step
 from .session import ServeSession
 
 __all__ = sorted([
@@ -57,6 +59,8 @@ __all__ = sorted([
     "Tracer",
     "build_multi_tenant_pipeline",
     "find_zero_loss_rate",
+    "make_prefill",
+    "make_serve_step",
     "replay",
     "tuple_hash64",
 ])

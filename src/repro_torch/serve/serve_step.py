@@ -1,0 +1,49 @@
+"""Serving steps of the LM side: prefill (full-sequence forward) and
+per-token decode.
+
+Port of `repro.serve.serve_step`. `serve_step` advances every sequence in
+the batch by one token (greedy, or sampled at a temperature) against the
+decode cache, which it updates in place; `prefill` runs the full-sequence
+forward. Both run on `device` (default the card) and move the tokens they
+are given there.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..device import resolve_device
+from ..models import decode_step, forward
+from ..models.config import ModelConfig
+
+__all__ = ["make_prefill", "make_serve_step"]
+
+
+def make_serve_step(cfg: ModelConfig, temperature: float = 0.0,
+                    device: str | torch.device = "cuda"):
+    """``serve_step(params, cache, tokens, generator=None) -> (next (B,)
+    int32, cache)``. Greedy (first maximum, as `jnp.argmax`) unless
+    `temperature` > 0 and a `torch.Generator` is given; sampling draws from
+    torch's generator, so its tokens are not the reference's."""
+    dev = resolve_device(device)
+
+    def serve_step(params, cache, tokens: torch.Tensor,
+                   generator: torch.Generator | None = None):
+        logits, cache = decode_step(params, cache, tokens.to(dev), cfg)
+        if temperature > 0.0 and generator is not None:
+            probs = torch.softmax(logits.float() / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        else:
+            nxt = logits.argmax(dim=-1)
+        return nxt.to(torch.int32), cache
+
+    return serve_step
+
+
+def make_prefill(cfg: ModelConfig, device: str | torch.device = "cuda"):
+    """``prefill(params, batch) -> logits (B, T, V)`` for ``batch["tokens"]``."""
+    dev = resolve_device(device)
+
+    def prefill(params, batch: dict):
+        return forward(params, {"tokens": batch["tokens"].to(dev)}, cfg)
+
+    return prefill

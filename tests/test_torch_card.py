@@ -25,6 +25,15 @@ from repro_torch.kernels.fused_pipeline import (
     fused_multi_forest_infer_plain,
     fused_pipeline_call,
 )
+from repro_torch.kernels.decode_attention import (
+    decode_attention_kernel_call,
+    decode_attention_plain,
+)
+from repro_torch.kernels.flash_attention import (
+    flash_attention_kernel_call,
+    flash_attention_plain,
+)
+from repro_torch.kernels.mamba_scan import mamba_scan_kernel_call, mamba_scan_plain
 from repro_torch.kernels.tree_infer import forest_infer_kernel_call, forest_infer_plain
 from repro_torch.traffic.extraction import (
     dataset_tensors,
@@ -305,3 +314,78 @@ def test_multi_kernel_refuses_what_it_does_not_take(cuda):  # noqa: F811
     with pytest.raises(ValueError, match="shape"):
         fused_multi_forest_call(*args, **{**kw, "op_table": kw["op_table"][:, :4]
                                           .contiguous()})
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels: B6, B7 and B8 against their plain versions on the same
+# inputs; tolerances those of tests/test_kernels.py (float32 2e-5, 3e-4 for
+# the scan; bfloat16 2e-2, one rounding of outputs of magnitude ~1)
+# ---------------------------------------------------------------------------
+
+def _randn(R, shape, dev, dtype=torch.float32, scale=1.0):
+    a = (R.standard_normal(shape) * scale).astype(np.float32)
+    return torch.from_numpy(a).to(device=dev, dtype=dtype)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D", [
+    (2, 4, 2, 256, 256, 64), (1, 8, 1, 128, 256, 128), (1, 2, 2, 200, 200, 32),
+    (2, 4, 2, 192, 256, 128), (1, 2, 1, 300, 37, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Tq, Tk, D,  # noqa: F811
+                                              causal, dtype):
+    R = np.random.default_rng(Tq * Tk + D)
+    q = _randn(R, (B, Hq, Tq, D), cuda, dtype)
+    k = _randn(R, (B, Hkv, Tk, D), cuda, dtype)
+    v = _randn(R, (B, Hkv, Tk, D), cuda, dtype)
+    n0 = flash_attention_kernel_call.launches
+    got = flash_attention_kernel_call(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel_call.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [
+    (2, 4, 2, 256, 64), (3, 8, 8, 512, 32), (1, 16, 2, 300, 64),
+    (4, 32, 8, 300, 128), (2, 9, 1, 77, 128), (8, 32, 32, 168, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(cuda, B, Hq, Hkv, S, D,  # noqa: F811
+                                               dtype):
+    R = np.random.default_rng(S * D + Hq)
+    q = _randn(R, (B, Hq, D), cuda, dtype)
+    kc = _randn(R, (B, S, Hkv, D), cuda, dtype)
+    vc = _randn(R, (B, S, Hkv, D), cuda, dtype)
+    lens = R.integers(1, S + 1, B)
+    if B > 1:
+        lens[0] = 0       # an empty sequence gives 0
+    lens = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+    got = decode_attention_kernel_call(q, kc, vc, lens)
+    want = decode_attention_plain(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    if B > 1:
+        assert torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("B,T,H,P,S,chunk", [
+    (1, 128, 2, 16, 8, 32), (2, 256, 4, 32, 16, 64), (1, 192, 1, 64, 4, 64),
+    (2, 200, 3, 64, 16, 64), (2, 300, 4, 64, 64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernel_matches_plain(cuda, B, T, H, P, S, chunk,  # noqa: F811
+                                         dtype):
+    R = np.random.default_rng(T * H + S)
+    x = _randn(R, (B, T, H, P), cuda, dtype, 0.5)
+    dt = (_randn(R, (B, T, H), cuda, scale=0.1).abs() + 0.01).contiguous()
+    A = (-_randn(R, (H,), cuda).abs() - 0.1).contiguous()
+    Bm = _randn(R, (B, T, S), cuda, dtype, 0.3)
+    Cm = _randn(R, (B, T, S), cuda, dtype, 0.3)
+    y, h = mamba_scan_kernel_call(x, dt, A, Bm, Cm, chunk=chunk)
+    y_want, h_want = mamba_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 3e-4
+    torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(h, h_want, atol=3e-4, rtol=0)

@@ -1,0 +1,222 @@
+"""The LM kernels' plain versions (B6 flash attention, B7 decode attention,
+B8 Mamba scan) against the JAX package: its Pallas kernels in interpret
+mode at `tests/test_kernels.py`'s sweep shapes and tolerances, and its jnp
+oracles at ragged shapes the Pallas wrappers do not take."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models.ssm import chunked_ssd as j_chunked_ssd
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.decode_attention import (
+    decode_attention_kernel_call,
+    decode_attention_plain,
+)
+from repro_torch.kernels.flash_attention import (
+    flash_attention_kernel_call,
+    flash_attention_plain,
+)
+from repro_torch.kernels.mamba_scan import mamba_scan_kernel_call, mamba_scan_plain
+from repro_torch.models.ssm import chunked_ssd
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(R, shape, dtype="float32", scale=1.0):
+    a = (R.standard_normal(shape) * scale).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+def _mamba_inputs(R, B, T, H, P, S):
+    x = _pair(R, (B, T, H, P), scale=0.5)
+    dt_np = (np.abs(R.standard_normal((B, T, H)) * 0.1) + 0.01).astype(np.float32)
+    A_np = (-np.abs(R.standard_normal(H)) - 0.1).astype(np.float32)
+    Bm = _pair(R, (B, T, S), scale=0.3)
+    Cm = _pair(R, (B, T, S), scale=0.3)
+    return (x, (jnp.asarray(dt_np), torch.from_numpy(dt_np)),
+            (jnp.asarray(A_np), torch.from_numpy(A_np)), Bm, Cm)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D", [
+    (1, 2, 2, 128, 128, 32),
+    (2, 4, 2, 256, 256, 64),
+    (1, 8, 1, 128, 256, 64),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas(B, Hq, Hkv, Tq, Tk, D, causal,
+                                              dtype):
+    R = np.random.default_rng(B * 100 + Tq + D)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(R, (B, h, t, D), dtype) for h, t in
+                                    ((Hq, Tq), (Hkv, Tk), (Hkv, Tk)))
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                block_k=64)
+    got = flash_attention_plain(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol)
+
+
+@pytest.mark.parametrize("Tq,Tk,causal", [
+    (192, 256, True),    # chunked prefill: a causal offset of 64
+    (200, 200, True),    # ragged: no block multiple
+    (200, 200, False),
+    (37, 300, True),
+    (300, 37, False),
+])
+def test_flash_attention_plain_matches_oracle_ragged(Tq, Tk, causal):
+    R = np.random.default_rng(Tq * Tk)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(R, (2, h, t, 64)) for h, t in
+                                    ((4, Tq), (2, Tk), (2, Tk)))
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal)
+    got = flash_attention_plain(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+    # the port's own oracle agrees with the reference's
+    np.testing.assert_allclose(_np(tref.flash_attention_ref(tq, tk, tv,
+                                                            causal=causal)),
+                               _np(want), atol=2e-5)
+
+
+def test_flash_attention_row_without_keys_is_zero():
+    """Causal with Tq > Tk: the first Tq - Tk rows see no key. The kernel's
+    guard gives 0 there (the jnp oracle gives NaN); every other row agrees
+    with the oracle."""
+    R = np.random.default_rng(5)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(R, (1, 2, t, 32)) for t in (48, 40, 40))
+    got = _np(flash_attention_plain(tq, tk, tv, causal=True))
+    assert np.all(got[:, :, :8] == 0)
+    want = _np(jref.flash_attention_ref(jq, jk, jv, causal=True))
+    np.testing.assert_allclose(got[:, :, 8:], want[:, :, 8:], atol=2e-5)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,bs", [
+    (2, 4, 2, 256, 64, 128),
+    (3, 8, 8, 512, 32, 256),   # MHA
+    (1, 16, 2, 300, 64, 128),  # padding path of the reference
+])
+def test_decode_attention_plain_matches_pallas(B, Hq, Hkv, S, D, bs):
+    R = np.random.default_rng(S + D)
+    jq, tq = _pair(R, (B, Hq, D))
+    jk, tk = _pair(R, (B, S, Hkv, D))
+    jv, tv = _pair(R, (B, S, Hkv, D))
+    lens = R.integers(1, S + 1, B).astype(np.int32)
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(lens), block_s=bs)
+    got = decode_attention_plain(tq, tk, tv, torch.from_numpy(lens))
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_matches_oracle_ragged(dtype):
+    R = np.random.default_rng(300)
+    B, Hq, Hkv, S, D = 4, 8, 2, 300, 128
+    jq, tq = _pair(R, (B, Hq, D), dtype)
+    jk, tk = _pair(R, (B, S, Hkv, D), dtype)
+    jv, tv = _pair(R, (B, S, Hkv, D), dtype)
+    lens = np.array([1, 299, 300, 17], np.int32)
+    want = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens))
+    got = decode_attention_plain(tq, tk, tv, torch.from_numpy(lens))
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol)
+    np.testing.assert_allclose(
+        _np(tref.decode_attention_ref(tq, tk, tv, torch.from_numpy(lens))),
+        _np(want), atol=tol)
+    # a sequence of length 0 gives 0 (the oracle gives NaN)
+    zero = decode_attention_plain(tq, tk, tv, torch.zeros(B, dtype=torch.int32))
+    assert torch.all(zero == 0)
+
+
+@pytest.mark.parametrize("B,T,H,P,S,chunk", [
+    (1, 128, 2, 16, 8, 32),
+    (2, 256, 4, 32, 16, 64),
+    (1, 192, 1, 64, 4, 64),
+])
+def test_mamba_scan_plain_matches_pallas(B, T, H, P, S, chunk):
+    R = np.random.default_rng(T + P)
+    (jx, tx), (jdt, tdt), (jA, tA), (jB, tB), (jC, tC) = _mamba_inputs(
+        R, B, T, H, P, S)
+    want = jops.mamba_scan(jx, jdt, jA, jB, jC, chunk=chunk)
+    y, h = mamba_scan_plain(tx, tdt, tA, tB, tC, chunk=chunk)
+    np.testing.assert_allclose(_np(y), _np(want), atol=3e-4)
+    # the final state: the reference's model-side chunked SSD keeps it
+    _, h_want = j_chunked_ssd(jx, jdt * jA, jdt, jB[:, :, None], jC[:, :, None],
+                              chunk=chunk)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_want), atol=3e-4)
+
+
+@pytest.mark.parametrize("T,chunk", [(200, 64), (77, 128), (130, 128)])
+def test_mamba_scan_plain_matches_oracle_ragged(T, chunk):
+    """Any T: a ragged last chunk acts as zero padding (the reference's
+    `ops.mamba_scan` pads; its raw kernel and `chunked_ssd` refuse)."""
+    R = np.random.default_rng(T)
+    (jx, tx), (jdt, tdt), (jA, tA), (jB, tB), (jC, tC) = _mamba_inputs(
+        R, 2, T, 3, 16, 8)
+    want = jref.mamba_scan_ref(jx, jdt, jA, jB, jC)
+    y, h = mamba_scan_plain(tx, tdt, tA, tB, tC, chunk=chunk)
+    np.testing.assert_allclose(_np(y), _np(want), atol=3e-4)
+    np.testing.assert_allclose(_np(tref.mamba_scan_ref(tx, tdt, tA, tB, tC)),
+                               _np(want), atol=3e-4)
+    # the final state is the sequential recurrence's after step T
+    _, h_whole = mamba_scan_plain(tx, tdt, tA, tB, tC, chunk=T)
+    np.testing.assert_allclose(h.numpy(), h_whole.numpy(), atol=3e-4)
+    if T > chunk:   # the model-side form keeps the reference's assertion
+        with pytest.raises(ValueError, match="multiple"):
+            chunked_ssd(tx, tdt * tA, tdt, tB[:, :, None], tC[:, :, None],
+                        chunk=chunk)
+
+
+@pytest.mark.parametrize("G", [1, 3])
+def test_chunked_ssd_matches_reference(G):
+    """The port's copy of the model-side chunked SSD, shared (G = 1, the
+    Mamba-2 form) and per-head (G = H, the mLSTM form) keys."""
+    R = np.random.default_rng(G)
+    B, T, H, P, S = 2, 128, 3, 16, 8
+    jx, tx = _pair(R, (B, T, H, P), scale=0.5)
+    ld = (-np.abs(R.standard_normal((B, T, H))) * 0.1).astype(np.float32)
+    sc = R.random((B, T, H)).astype(np.float32)
+    jB, tB = _pair(R, (B, T, G, S), scale=0.3)
+    jC, tC = _pair(R, (B, T, G, S), scale=0.3)
+    yw, hw = j_chunked_ssd(jx, jnp.asarray(ld), jnp.asarray(sc), jB, jC, chunk=32)
+    y, h = chunked_ssd(tx, torch.from_numpy(ld), torch.from_numpy(sc), tB, tC,
+                       chunk=32)
+    np.testing.assert_allclose(_np(y), _np(yw), atol=3e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(hw), atol=3e-5)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """The dispatchers send CPU tensors to the plain versions: no launch is
+    counted, and the kernel calls refuse CPU tensors."""
+    R = np.random.default_rng(0)
+    _, q = _pair(R, (1, 2, 16, 32))
+    _, k = _pair(R, (1, 1, 16, 32))
+    counters = (flash_attention_kernel_call, decode_attention_kernel_call,
+                mamba_scan_kernel_call)
+    before = [f.launches for f in counters]
+    torch.testing.assert_close(ops.flash_attention(q, k, k),
+                               flash_attention_plain(q, k, k), rtol=0, atol=0)
+    lens = torch.tensor([5], dtype=torch.int32)
+    qd, kc = q[:, :, 0].contiguous(), k.transpose(1, 2).contiguous()
+    torch.testing.assert_close(ops.decode_attention(qd, kc, kc, lens),
+                               decode_attention_plain(qd, kc, kc, lens),
+                               rtol=0, atol=0)
+    (_, x), (_, dt), (_, A), (_, Bm), (_, Cm) = _mamba_inputs(R, 1, 40, 2, 8, 4)
+    y, h = ops.mamba_scan(x, dt, A, Bm, Cm, chunk=16)
+    y2, h2 = mamba_scan_plain(x, dt, A, Bm, Cm, chunk=16)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert [f.launches for f in counters] == before == [0, 0, 0]
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_kernel_call(q, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_kernel_call(qd, kc, kc, lens)
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan_kernel_call(x, dt, A, Bm, Cm, chunk=16)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core.forest import train_forest
 from repro_torch.core.search_space import FeatureRep
 from repro_torch.kernels import ops
@@ -19,7 +20,12 @@ from repro_torch.kernels.fused_pipeline import (
     fused_multi_forest_infer,
     fused_pipeline_call,
 )
+from repro_torch.kernels.decode_attention import decode_attention_kernel_call
+from repro_torch.kernels.flash_attention import flash_attention_kernel_call
+from repro_torch.kernels.mamba_scan import mamba_scan_kernel_call
 from repro_torch.kernels.tree_infer import forest_infer_kernel_call
+from repro_torch.models import init_cache, init_params
+from repro_torch.serve import make_prefill, make_serve_step
 from repro_torch.traffic.extraction import extract_features
 from repro_torch.traffic.multi_tenant import build_multi_tenant_pipeline
 from repro_torch.traffic.pipeline import build_pipeline
@@ -52,6 +58,17 @@ SLICE_MODULES = (
     "repro_torch.core.pareto",
     "repro_torch.core.priors",
     "repro_torch.core.surrogate",
+    "repro_torch.configs.qwen3_8b",
+    "repro_torch.configs.zamba2_1_2b",
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.decode_attention",
+    "repro_torch.kernels.mamba_scan",
+    "repro_torch.models.config",
+    "repro_torch.models.layers",
+    "repro_torch.models.transformer",
+    "repro_torch.models.ssm",
+    "repro_torch.models.zoo",
+    "repro_torch.serve.serve_step",
 )
 
 
@@ -158,3 +175,53 @@ def test_fused_wrapper_states_its_window():
             torch.zeros((1, 1)), torch.zeros((1, 2, 3)),
             op_table=torch.zeros((1, 4), dtype=torch.int32), depth=P,
             forest_depth=1)
+
+
+def test_lm_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("qwen3-8b", "zamba2-1.2b"):
+        cfg = configs.get_reduced(arch)
+        for make in (lambda **kw: init_params(cfg, 0, **kw),
+                     lambda **kw: init_cache(cfg, 2, 8, **kw),
+                     lambda **kw: make_prefill(cfg, **kw),
+                     lambda **kw: make_serve_step(cfg, **kw)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+            make(device="cpu")
+
+
+def test_lm_wrappers_refuse_what_they_cannot_take():
+    """Each LM kernel wrapper checks head size, dtype, group size and
+    shared memory before it checks the device: what the kernel cannot take
+    raises the same on a CPU tensor as on a CUDA one, and a CPU tensor it
+    could take raises for being on the CPU."""
+    def t(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype)
+
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention_kernel_call(t(1, 2, 8, 48), t(1, 1, 8, 48), t(1, 1, 8, 48))
+    with pytest.raises(TypeError, match="float16"):
+        flash_attention_kernel_call(*(t(1, 2, 8, 64, dtype=torch.float16),) * 3)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_attention_kernel_call(t(1, 3, 8, 64), t(1, 2, 8, 64), t(1, 2, 8, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_kernel_call(t(1, 2, 8, 64), t(1, 1, 8, 64), t(1, 1, 8, 64))
+
+    lens = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 16"):
+        decode_attention_kernel_call(t(1, 32, 64), t(1, 8, 1, 64), t(1, 8, 1, 64),
+                                     lens)
+    with pytest.raises(ValueError, match="head dim 96"):
+        decode_attention_kernel_call(t(1, 2, 96), t(1, 8, 1, 96), t(1, 8, 1, 96),
+                                     lens)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_kernel_call(t(1, 2, 64), t(1, 8, 1, 64), t(1, 8, 1, 64),
+                                     lens)
+
+    B, T, H = 1, 256, 2
+    with pytest.raises(ValueError, match="shared memory"):   # S = 128, c = 128
+        mamba_scan_kernel_call(t(B, T, H, 64), t(B, T, H), t(H), t(B, T, 128),
+                               t(B, T, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan_kernel_call(t(B, T, H, 64), t(B, T, H), t(H), t(B, T, 64),
+                               t(B, T, 64))
