@@ -45,6 +45,17 @@ Phases, each printing one JSON line:
    then each one's time at the main-path shapes beside its plain version,
    one PyTorch call computing the same function (scaled_dot_product_
    attention for B6 and B7; the port never calls it) and its bound.
+   The flow statistics kernel (B5) through `ops.flow_stats`, bitwise
+   against its plain version, on the main path's two windows (packet
+   sizes of the iot-class set, 4000 x 128, masked by each flow's valid
+   packets, with bool, uint8 and int32 masks; the stream phase's trace
+   padded to 600 x 4000), on ragged shapes (73 x 17, 5 x 8, 256 x 12,
+   1000 x 128) and on an all-empty mask; then its time at the two windows
+   beside its plain version and the five masked torch reductions that
+   compute the same function (`torch_ops_ms`; no single PyTorch call does,
+   so `library_ms` is null). B5's path comes first: the entry point on
+   the two windows, counted, held against the plain version run on the
+   CPU.
 5. main path: `build_pipeline(..., fused=True)` and `fused=False` on the
    card for both forests, warmed on buckets 1..128, serving 16
    micro-batches of 128 flows, one batch of 4096 and the held-out split,
@@ -80,7 +91,35 @@ Phases, each printing one JSON line:
    served on the card through B4 with the classes of the CPU plain
    pipeline; one replayed-throughput measurement of tenant 0's knee on
    the card, which launches B2.
-9. lm_serve: LM serving through `make_prefill` and `make_serve_step` for
+9. control: the JAX package's control-plane skew gate at full size
+   (benchmarks/bench_runtime.py `--scenario zipf --shards 4`: the zipf
+   app-class trace of 1000 flows of up to 256 packets) with
+   examples/serve_control.py's acts, on a 4-shard fleet of fused pipelines
+   (B2) under service constants measured on the card: the zero-loss rate
+   by 8 bisection steps of the static fleet and of one under the control
+   plane (`ControlConfig(interval_pkts=512, imbalance_trigger=1.04)`),
+   0 drops in both and the dynamic imbalance at most the static one; the
+   dynamic search's final replay carries an `Observability` bundle
+   (tracer, drift, latency sketches, SLO, exporter) whose Prometheus text
+   must check clean; a mid-replay hot-swap onto a second configuration
+   built through `BundlePoint.build` on the card and armed by `make_swap`
+   (0 drops, every flow predicted exactly once, post-swap flows equal to
+   the new pipeline's own replay); elastic scale-out at twice and scale-in
+   at 1/40 of the static fleet's rate under `HeadroomPolicy`; a
+   multi-tenant bundle of both configurations compiled on the card by
+   `compile_multi_tenant` (B4) and hot-swapped by `make_swap` onto the
+   bundle with the lanes in the other order (0 drops, every flow answered
+   once for both tenants). B2's and B4's launch counters are set to 0
+   before the first search and read after the last replay.
+10. selftune: examples/selftune_fleet.py at the size of the JAX package's
+   self-tune gate (the drift app-class trace of 600 flows of up to 32
+   packets, 2 shards, the example's clock constants): a fleet frozen on a
+   stale knee against one whose `ReoptimizerPolicy` re-tunes with
+   `cato_retuner` (modeled fidelity, budget 4) on a shadow profiler on the
+   card, compiles the new front there and hot-swaps its knee: exactly one
+   episode, 0 drops, every flow predicted once, and the post-drift
+   macro-F1 above the frozen fleet's.
+11. lm_serve: LM serving through `make_prefill` and `make_serve_step` for
    qwen3-8b and zamba2-1.2b at full width in bf16, weights drawn on the
    card from seed 0: a prefill of B 2 x T 2048, held against the same
    prefill with B6-B8's plain versions swapped in (argmax equal on >= 99%
@@ -157,6 +196,20 @@ AGG_PLANS = (
     ("s_winsize_mean", "d_winsize_std", "s_ttl_min", "d_ttl_max",
      "d_winsize_sum", "s_ttl_std"),
 )
+
+
+# B5's ragged and edge cases beside the main path's two windows
+B5_RAGGED = ((73, 17), (5, 8), (256, 12), (1000, 128))
+B5_OPS_PER_ELEMENT = 8    # count add, v*m and add, v*v, *m and add, min, max
+# the control phase: the JAX package's control-plane skew gate at full size
+# (benchmarks/bench_runtime.py:88-92 with benchmarks/fig5_serving_perf.py:143)
+# and examples/serve_control.py's two configurations
+CTRL_FLOWS, CTRL_PKTS, CTRL_BISECT = 1000, 256, 8
+CTRL_REP_A = (("dur", "s_load", "s_bytes_mean", "s_iat_mean", "ack_cnt"), 8)
+CTRL_REP_B = (("dur", "s_load", "s_pkt_cnt", "d_bytes_med", "psh_cnt"), 12)
+# the selftune phase: examples/selftune_fleet.py at the size of
+# benchmarks/bench_runtime.py's self-tune gate, under the example's clock
+ST_FLOWS, ST_PKTS, ST_PPS = 600, 32, 2e5
 
 
 # the lm_serve phase: both LM families the port serves, at full width
@@ -701,6 +754,455 @@ def cotune_phase(counters) -> dict:
     return out
 
 
+def b5_inputs(ds, ds_s) -> dict:
+    """B5's cases as numpy (values, mask): the main path's two windows,
+    packet sizes masked by each flow's valid packets (the iot-class window,
+    4000 x 128, and the stream trace padded to 600 x 4000), then ragged
+    and edge shapes of random sizes (seed 15) and an all-empty mask."""
+    cases = {}
+    for name, d in (("iot_window", ds), ("stream_trace", ds_s)):
+        valid = np.arange(d.max_pkts)[None, :] < d.flow_len[:, None]
+        cases[name] = (np.ascontiguousarray(d.size, np.float32), valid)
+    rng = np.random.default_rng(15)
+    for n, P in B5_RAGGED:
+        m = rng.random((n, P)) < 0.4
+        m[0] = False
+        cases[f"ragged_{n}x{P}"] = (
+            (rng.random((n, P)) * 1500).astype(np.float32), m)
+    v, m = cases["ragged_1000x128"]
+    cases["empty_1000x128"] = (v, np.zeros_like(m))
+    return cases
+
+
+def b5_check(cases: dict, dev, flush) -> dict:
+    """B5's path, then B5 against its plain version, then its times.
+
+    The path: the entry point `ops.flow_stats` on the main path's two
+    windows (bool masks) on the card, with the launch counter set to 0 just
+    before and read just after; each result held against the plain version
+    run on the CPU over the same arrays (count, min, max exact, sums to
+    rtol 1e-6). Every case (the iot window with bool, uint8 and int32 masks)
+    is held bitwise against the plain version on the card. Then its time,
+    the plain version's and that of the five masked torch reductions
+    computing the same function, at the two windows."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.feature_extract import (
+        flow_stats_kernel_call,
+        flow_stats_plain,
+    )
+    from repro_torch.kernels.ref import flow_stats_ref
+
+    windows = ("iot_window", "stream_trace")
+    ins = {k: (torch.from_numpy(v).to(dev), torch.from_numpy(m).to(dev))
+           for k, (v, m) in cases.items()}
+    reset_launches(flow_stats_kernel_call)
+    outs = {(k, torch.bool): ops.flow_stats(*ins[k]) for k in windows}
+    torch.cuda.synchronize()
+    launches = flow_stats_kernel_call.launches
+    check(launches == len(windows), f"B5 launched {launches} times on its path")
+    path = {}
+    for k in windows:
+        v, m = cases[k]
+        got = outs[k, torch.bool].cpu().numpy()
+        cpu = flow_stats_plain(torch.from_numpy(v), torch.from_numpy(m)).numpy()
+        check(got.shape == (v.shape[0], 5) and np.isfinite(got).all(),
+              f"B5 {k}: shape {got.shape}")
+        check(np.array_equal(got[:, 0], m.sum(1)), f"B5 {k}: counts")
+        check(np.array_equal(got[:, [0, 3, 4]], cpu[:, [0, 3, 4]])
+              and np.allclose(got[:, 1:3], cpu[:, 1:3], rtol=1e-6, atol=0),
+              f"B5 {k}: differs from the CPU plain version")
+        path[k] = dict(N=v.shape[0], P=v.shape[1], valid=int(m.sum()),
+                       bitwise_cpu=bool(np.array_equal(got, cpu)),
+                       max_sumsq=float(got[:, 2].max()))
+    rows = []
+    for name, (v, m) in cases.items():
+        vt, mb = ins[name]
+        dtypes = ((torch.bool, torch.uint8, torch.int32)
+                  if name == "iot_window" else (torch.bool,))
+        for dt in dtypes:
+            mt = mb.to(dt)
+            got = outs.get((name, dt))
+            if got is None:
+                got = ops.flow_stats(vt, mt)
+            want = flow_stats_plain(vt, mt)
+            torch.cuda.synchronize()
+            rows.append(dict(case=name, N=v.shape[0], P=v.shape[1],
+                             mask=str(dt), valid=int(m.sum()),
+                             bitwise=bool(torch.equal(got, want)),
+                             max_abs_err=float((got - want).abs().max()),
+                             empty_rows_zero=bool(
+                                 (got[torch.from_numpy(~m.any(1)).to(dev)]
+                                  == 0).all())))
+            check(rows[-1]["bitwise"] and rows[-1]["empty_rows_zero"],
+                  f"B5 {rows[-1]}")
+    timing = {}
+    for name in windows:
+        v, m = cases[name]
+        N, P = v.shape
+        vt, mt = ins[name]
+        # each value and mask byte read once, five floats written a row
+        t = dict(ms=time_ms(lambda: flow_stats_kernel_call(vt, mt),
+                            KERNEL_REPS, flush),
+                 plain_ms=time_ms(lambda: flow_stats_plain(vt, mt),
+                                  PLAIN_REPS, flush),
+                 torch_ops_ms=time_ms(lambda: flow_stats_ref(vt, mt),
+                                      KERNEL_REPS, flush),
+                 library_ms=None, bytes=N * P * 5 + N * 20,
+                 ops=B5_OPS_PER_ELEMENT * N * P, shape=[N, P],
+                 valid=int(m.sum()))
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"])
+        timing[name] = t
+    return dict(launches=launches, path=path, cases=rows, timing=timing,
+                max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
+def control_phase(counters) -> dict:
+    """The JAX package's control-plane skew gate at full size on the card
+    (see phase 9): static against dynamic RETA, a hot-swap through the
+    deploy layer, elastic sizing, and an observability bundle."""
+    from repro_torch.core.search_space import FeatureRep
+    from repro_torch.serve import (
+        BundlePoint,
+        ControlConfig,
+        DriftMonitor,
+        HeadroomPolicy,
+        LatencyConfig,
+        MetricsExporter,
+        Observability,
+        PacketStream,
+        ServeSession,
+        ServiceModel,
+        ShardedRuntime,
+        SLOConfig,
+        SLOTracker,
+        Tracer,
+        check_prometheus,
+        compile_multi_tenant,
+        find_zero_loss_rate,
+        make_swap,
+        replay,
+    )
+    from repro_torch.serve.deploy import _forest_to_doc
+    from repro_torch.traffic.extraction import extract_features
+    from repro_torch.traffic.models import train_traffic_model
+    from repro_torch.traffic.pipeline import build_pipeline
+    from repro_torch.traffic.synth import make_scenario_dataset
+
+    t0 = time.perf_counter()
+    ds = make_scenario_dataset("app-class", "zipf", n_flows=CTRL_FLOWS,
+                               max_pkts=CTRL_PKTS, seed=3)
+    stream = PacketStream.from_dataset(ds, seed=0)
+    ring = max(64, stream.n_events // 16)
+    reps, forests = {}, {}
+    for tag, (names, depth) in (("a", CTRL_REP_A), ("b", CTRL_REP_B)):
+        reps[tag] = FeatureRep(names, depth)
+        x = extract_features(ds, reps[tag].features, depth, device="cpu")
+        forests[tag] = train_traffic_model(x, ds.label, model="tree-fast",
+                                           seed=0)[0]
+    pipe_a = build_pipeline(reps["a"], forests["a"], max_pkts=reps["a"].depth,
+                            fused=True)
+
+    def fleet(execute=False, shards=4, capacity=2048, pipe=pipe_a):
+        return ShardedRuntime(pipe, n_shards=shards, capacity=capacity,
+                              max_batch=64, execute=execute)
+
+    svc_a = ServiceModel.measure(fleet(True), stream, n_pkt_sample=16000,
+                                 reps=5)
+    reset_launches(*counters.values())
+
+    # 1. static against dynamic RETA; 4. the bundle rides the dynamic
+    # search's final replay
+    cfg = ControlConfig(interval_pkts=512, imbalance_trigger=1.04)
+    ta = time.perf_counter()
+    r_st, s_st = find_zero_loss_rate(stream, fleet, svc_a, iters=CTRL_BISECT,
+                                     ring_capacity=ring)
+    obs = Observability(
+        tracer=Tracer(capacity=1 << 16, sample=0.25, seed=0),
+        drift=DriftMonitor(), latency=LatencyConfig(),
+        slo=SLOTracker(SLOConfig(target_s=2e-3, objective=0.99,
+                                 window_s=5e-3, slow_windows=4)),
+        exporter=MetricsExporter())
+    r_dy, s_dy = find_zero_loss_rate(stream, fleet, svc_a, iters=CTRL_BISECT,
+                                     ring_capacity=ring,
+                                     session=ServeSession(control=cfg, obs=obs))
+    rebalance = dict(
+        static=dict(zero_loss_pps=r_st, zero_loss_gbps=s_st.offered_gbps,
+                    drops=s_st.drops, load_imbalance=s_st.load_imbalance,
+                    latency_p50_s=s_st.latency_p50_s,
+                    latency_p99_s=s_st.latency_p99_s,
+                    stage_seconds=s_st.stage_seconds,
+                    batches=s_st.metrics.batches),
+        dynamic=dict(zero_loss_pps=r_dy, zero_loss_gbps=s_dy.offered_gbps,
+                     drops=s_dy.drops, load_imbalance=s_dy.load_imbalance,
+                     latency_p50_s=s_dy.latency_p50_s,
+                     latency_p99_s=s_dy.latency_p99_s,
+                     stage_seconds=s_dy.stage_seconds,
+                     batches=s_dy.metrics.batches,
+                     flushes_migrate=s_dy.metrics.flushes_migrate,
+                     buckets_moved=s_dy.control["buckets_moved"],
+                     flows_migrated=s_dy.control["flows_migrated"],
+                     rebalances=s_dy.control["rebalances"]),
+        dynamic_over_static_pps=r_dy / r_st,
+        seconds=time.perf_counter() - ta)
+    emit("control", act="rebalance", **rebalance)
+    check(s_st.drops == 0 and s_dy.drops == 0,
+          f"drops at the zero-loss rates: {s_st.drops}, {s_dy.drops}")
+    check(s_dy.load_imbalance <= s_st.load_imbalance,
+          f"dynamic imbalance {s_dy.load_imbalance} above static "
+          f"{s_st.load_imbalance}")
+    text = obs.exporter.prometheus()
+    problems = check_prometheus(text)
+    observability = dict(
+        prometheus_lines=len(text.splitlines()), prometheus_problems=problems,
+        exporter_steps=obs.exporter.steps, audit=obs.audit.summary(),
+        drift=dict((k, obs.drift.signal()[k]) for k in (
+            "n_batches", "n_flows", "class_mix_shift", "max_class_shift")),
+        slo=dict((k, obs.slo.signal()[k]) for k in (
+            "samples", "violations", "attainment", "breaches")),
+        trace=obs.tracer.summary())
+    emit("control", act="observability", **observability)
+    check(problems == [] and obs.exporter.steps > 0,
+          f"the exporter's Prometheus text: {problems[:3]}")
+
+    # 2. a mid-replay hot-swap onto rep_b, built through the deploy layer
+    ta = time.perf_counter()
+    point_b = BundlePoint(rep=reps["b"], cost=0.0, perf=0.0,
+                          fidelity="trained", aux={},
+                          compile_meta={"fused": True},
+                          forest_doc=_forest_to_doc(forests["b"]))
+    pipe_b = point_b.build(runtime=fleet(), device="cuda")
+    svc_b = ServiceModel.measure(fleet(True, pipe=pipe_b), stream,
+                                 n_pkt_sample=16000, reps=5)
+    swap = make_swap(point_b, after_pkts=stream.n_events // 2, runtime=fleet(),
+                     service=svc_b)
+    rate = min(stream.base_pps, 0.5 * r_dy)
+    swapped = replay(stream, lambda: fleet(True), rate, svc_a,
+                     ring_capacity=ring, session=ServeSession(
+                         control=ControlConfig(interval_pkts=512,
+                                               imbalance_trigger=1.04,
+                                               swap=swap)))
+    m = swapped.metrics
+    only_b = replay(stream, lambda: fleet(True, pipe=pipe_b), rate, svc_b,
+                    ring_capacity=ring)
+    first_pkt = np.full(ds.n_flows, stream.n_events)
+    np.minimum.at(first_pkt, stream.fid, np.arange(stream.n_events))
+    post = [f for f in np.flatnonzero(first_pkt >= stream.n_events // 2)
+            if f in only_b.predictions]
+    agree = sum(int(swapped.predictions[f] == only_b.predictions[f])
+                for f in post)
+    hot_swap = dict(offered_pps=rate, drops=swapped.drops,
+                    flows_predicted=len(swapped.predictions),
+                    flows=ds.n_flows,
+                    duplicate_predictions=m.duplicate_predictions,
+                    swaps=swapped.control["swaps"],
+                    swap_at_pkts=swapped.control.get("swap_at_pkts"),
+                    flushes_swap=m.flushes_swap,
+                    post_swap_flows=len(post), post_swap_equal_new_only=agree,
+                    pipe_b_device=str(pipe_b.device),
+                    seconds=time.perf_counter() - ta)
+    emit("control", act="hot_swap", **hot_swap)
+    check(swapped.drops == 0 and len(swapped.predictions) == ds.n_flows
+          and m.duplicate_predictions == 0 and swapped.control["swaps"] == 1,
+          f"hot-swap: {hot_swap}")
+    check(agree == len(post) > 0, f"post-swap flows: {agree} of {len(post)} "
+          "equal the new pipeline's own replay")
+
+    # 3. elastic scale-out and scale-in around the static fleet's rate
+    ta = time.perf_counter()
+    elastic = ControlConfig(interval_pkts=512,
+                            headroom=HeadroomPolicy(max_workers=8))
+    rates = {"high": 2.0 * r_st, "low": r_st / 40}
+    runs = {k: replay(stream, lambda: fleet(shards=2, capacity=4096), r,
+                      svc_a, session=ServeSession(control=elastic))
+            for k, r in rates.items()}
+    scaling = {k: dict(offered_pps=rates[k], drops=st.drops,
+                       active_workers=st.control["active_workers"],
+                       workers_added=st.control["workers_added"],
+                       workers_retired=st.control["workers_retired"])
+               for k, st in runs.items()}
+    scaling["seconds"] = time.perf_counter() - ta
+    emit("control", act="elastic", **scaling)
+    check(scaling["high"]["workers_added"] > 0
+          and scaling["low"]["workers_retired"] > 0, f"elastic: {scaling}")
+
+    # 5. a multi-tenant bundle (tenants a, b; B4) compiled on the card by
+    # compile_multi_tenant, hot-swapped mid-replay onto the bundle of the
+    # same tenants in the other lane order
+    ta = time.perf_counter()
+    point_a = BundlePoint(rep=reps["a"], cost=1.0, perf=0.5,
+                          fidelity="trained", aux={},
+                          compile_meta={"fused": True},
+                          forest_doc=_forest_to_doc(forests["a"]))
+    mt_start = compile_multi_tenant([point_a, point_b], runtime=fleet(),
+                                    device="cuda")
+    mt_target = compile_multi_tenant([point_b, point_a], runtime=fleet(),
+                                     device="cuda")
+    swap = make_swap(mt_target, after_pkts=stream.n_events // 2,
+                     runtime=fleet())
+    mt_swapped = replay(
+        stream, lambda: fleet(True, pipe=mt_start.pipeline),
+        stream.base_pps, swap.service, ring_capacity=ring,
+        session=ServeSession(control=ControlConfig(
+            interval_pkts=512, rebalance=False, swap=swap)))
+    shapes = {np.asarray(v).shape for v in mt_swapped.predictions.values()}
+    multi_tenant = dict(offered_pps=stream.base_pps, drops=mt_swapped.drops,
+                        flows_predicted=len(mt_swapped.predictions),
+                        duplicate_predictions=(
+                            mt_swapped.metrics.duplicate_predictions),
+                        swaps=mt_swapped.control["swaps"],
+                        prediction_shapes=sorted(shapes),
+                        pipe_devices=[str(mt_start.pipeline.device),
+                                      str(mt_target.pipeline.device)],
+                        seconds=time.perf_counter() - ta)
+    emit("control", act="multi_tenant_swap", **multi_tenant)
+    check(mt_swapped.drops == 0 and mt_swapped.control["swaps"] == 1
+          and len(mt_swapped.predictions) == ds.n_flows
+          and mt_swapped.metrics.duplicate_predictions == 0
+          and shapes == {(2,)}, f"multi-tenant swap: {multi_tenant}")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(launches["fused_forest_infer"] > 0
+          and launches["fused_multi_forest_infer"] > 0,
+          f"the control phase did not launch B2 and B4: {launches}")
+    out = dict(flows=ds.n_flows, max_pkts=ds.max_pkts, events=stream.n_events,
+               base_pps=stream.base_pps, shards=4, bisect_iters=CTRL_BISECT,
+               ring_capacity=ring,
+               service=dict(a=dict(pkt_accum_ns=svc_a.pkt_accum_ns,
+                                   pkt_track_ns=svc_a.pkt_track_ns,
+                                   bucket_ns=svc_a.bucket_ns),
+                            b=dict(pkt_accum_ns=svc_b.pkt_accum_ns,
+                                   pkt_track_ns=svc_b.pkt_track_ns,
+                                   bucket_ns=svc_b.bucket_ns)),
+               launches=launches, seconds=time.perf_counter() - t0)
+    emit("control_summary", **out)
+    return dict(rebalance=rebalance, hot_swap=hot_swap, elastic=scaling,
+                multi_tenant_swap=multi_tenant, observability=observability,
+                **out)
+
+
+def union_macro_f1(y_true, y_pred) -> float:
+    """Macro-F1 over the classes either side names, as
+    examples/selftune_fleet.py scores its post-drift segment."""
+    f1s = []
+    for c in np.union1d(np.unique(y_true), np.unique(y_pred)):
+        tp = float(np.sum((y_pred == c) & (y_true == c)))
+        fp = float(np.sum((y_pred == c) & (y_true != c)))
+        fn = float(np.sum((y_pred != c) & (y_true == c)))
+        if tp + fp + fn:
+            f1s.append(2 * tp / max(2 * tp + fp + fn, 1e-9))
+    return float(np.mean(f1s)) if f1s else 0.0
+
+
+def selftune_phase(counters) -> dict:
+    """`examples/selftune_fleet.py` on the card (see phase 10): a frozen
+    stale knee against a fleet that re-tunes itself when the class mix
+    drifts and hot-swaps the new knee, compiled on the card."""
+    from repro_torch.core.search_space import FeatureRep, SearchSpace
+    from repro_torch.serve import (
+        BundlePoint,
+        ControlConfig,
+        DriftMonitor,
+        Observability,
+        PacketStream,
+        ReoptimizerConfig,
+        ReoptimizerPolicy,
+        ServeSession,
+        ServiceModel,
+        ShardedRuntime,
+        cato_retuner,
+        replay,
+    )
+    from repro_torch.serve.deploy import _forest_to_doc
+    from repro_torch.traffic import TrafficProfiler
+    from repro_torch.traffic.extraction import extract_features
+    from repro_torch.traffic.features import FEATURE_NAMES
+    from repro_torch.traffic.models import train_traffic_model
+    from repro_torch.traffic.pipeline import build_pipeline
+    from repro_torch.traffic.synth import make_scenario_dataset
+
+    t0 = time.perf_counter()
+    ds = make_scenario_dataset("app-class", "drift", n_flows=ST_FLOWS,
+                               max_pkts=ST_PKTS, seed=3)
+    stream = PacketStream.from_dataset(ds, seed=0)
+    first_pkt = np.full(ds.n_flows, stream.n_events)
+    np.minimum.at(first_pkt, stream.fid, np.arange(stream.n_events))
+    # the stale knee: trained on the flows that start in the first 40%
+    rep = FeatureRep(CTRL_REP_A[0], depth=CTRL_REP_A[1])
+    pre = np.flatnonzero(first_pkt < 0.4 * stream.n_events)
+    x = extract_features(ds, rep.features, rep.depth, device="cpu")
+    forest, _ = train_traffic_model(x[pre], ds.label[pre], model="tree-fast",
+                                    seed=0)
+    stale_pipe = build_pipeline(rep, forest, max_pkts=rep.depth, fused=True)
+    stale = BundlePoint(rep=rep, cost=1.0, perf=0.0, fidelity="measured",
+                        aux={}, compile_meta={"fused": True},
+                        forest_doc=_forest_to_doc(forest), pipeline=stale_pipe)
+    service = ServiceModel(**MT_SERVICE)
+
+    def fleet():
+        return ShardedRuntime(stale_pipe, n_shards=2, capacity=2048,
+                              max_batch=16, execute=True)
+
+    def control():
+        return ControlConfig(interval_pkts=256, rebalance=False)
+
+    reset_launches(*counters.values())
+    frozen = replay(stream, fleet, ST_PPS, service,
+                    session=ServeSession(control=control()))
+    devices = []
+
+    def make_profiler(trigger):
+        devices.append(trigger["device"])
+        return TrafficProfiler(ds, FEATURE_NAMES, model="tree-fast",
+                               cost_mode="modeled", scenario="drift",
+                               n_shards=2, bisect_iters=4, seed=0,
+                               device=trigger["device"])
+
+    space = SearchSpace(FEATURE_NAMES, max_depth=min(24, ds.max_pkts))
+    retune = cato_retuner(make_profiler, space, fidelities=("modeled",),
+                          measure_budget=4, batch_size=4, n_init=3, seed=0,
+                          baseline=stale)
+    session = ServeSession(
+        obs=Observability(drift=DriftMonitor()), control=control(),
+        reopt=ReoptimizerPolicy(retune, ReoptimizerConfig(
+            class_threshold=0.35, min_dwell_pkts=256, cooldown_pkts=1 << 20,
+            max_episodes=1)))
+    tuned = replay(stream, fleet, ST_PPS, service, session=session)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    episodes = session.resolve_audit().of_kind("reopt")
+    post = np.flatnonzero(first_pkt >= (2 / 3) * stream.n_events)
+    f1 = {arm: union_macro_f1(ds.label[post],
+                        np.array([st.predictions[f] for f in post]))
+          for arm, st in (("frozen", frozen), ("tuned", tuned))}
+    ep = episodes[0].detail if episodes else {}
+    out = dict(
+        flows=ds.n_flows, max_pkts=ds.max_pkts, events=stream.n_events,
+        offered_pps=ST_PPS, shards=2, episodes=len(episodes),
+        episode_at_pkts=ep.get("pkts_ingested"),
+        episode_now_pkts=episodes[0].now_pkts if episodes else None,
+        swap_at_pkts=tuned.control.get("swap_at_pkts"),
+        new_knee=ep.get("new_knee"), budget=ep.get("budget"),
+        retune_wall_s=ep.get("retune_wall_s"), retune_devices=devices,
+        drops={"frozen": frozen.drops, "tuned": tuned.drops},
+        flows_predicted={"frozen": len(frozen.predictions),
+                         "tuned": len(tuned.predictions)},
+        duplicate_predictions=tuned.metrics.duplicate_predictions,
+        post_drift_flows=len(post), macro_f1=f1, launches=launches,
+        seconds=time.perf_counter() - t0)
+    emit("selftune", **out)
+    check(len(episodes) == 1, f"{len(episodes)} re-tune episodes")
+    check(devices == ["cuda"], f"the re-tune ran on {devices}")
+    check(frozen.drops == 0 and tuned.drops == 0, f"drops {out['drops']}")
+    check(len(tuned.predictions) == ds.n_flows
+          and tuned.metrics.duplicate_predictions == 0,
+          f"tuned fleet predicted {len(tuned.predictions)} flows, "
+          f"{tuned.metrics.duplicate_predictions} twice")
+    check(f1["tuned"] > f1["frozen"], f"macro-F1 {f1}")
+    check(launches["fused_forest_infer"] > 0,
+          f"the selftune phase did not launch B2: {launches}")
+    return out
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Run the model path on the plain versions of B6-B8, on the card: the
@@ -862,7 +1364,7 @@ def lm_kernel_phase(dev, flush) -> dict:
 
 
 def lm_serve_phase(dev) -> dict:
-    """The LM serving path of both models at full width (see phase 9)."""
+    """The LM serving path of both models at full width (see phase 11)."""
     from repro_torch import configs
     from repro_torch.kernels.decode_attention import decode_attention_kernel_call
     from repro_torch.kernels.flash_attention import flash_attention_kernel_call
@@ -1396,6 +1898,16 @@ def main() -> None:
          reps=dict(kernel=KERNEL_REPS, plain=PLAIN_REPS),
          seconds=time.perf_counter() - t0)
 
+    # B5's path, the entry point on the main path's two windows, counted;
+    # then B5 against its plain version on every case, then its times
+    t0 = time.perf_counter()
+    b5 = b5_check(b5_inputs(ds, ds_s), dev, flush)
+    emit("flow_stats_path", launches=b5["launches"], cases=b5["path"])
+    emit("kernel_check", kernel="flow_stats", cases=b5["cases"])
+    emit("kernel_times_b5", timing=b5["timing"],
+         reps=dict(kernel=KERNEL_REPS, plain=PLAIN_REPS),
+         seconds=time.perf_counter() - t0)
+
     # B6-B8 against their plain versions, then their times
     t0 = time.perf_counter()
     lm = lm_kernel_phase(dev, flush)
@@ -1622,7 +2134,13 @@ def main() -> None:
     # 8. cotune: CATO's joint loop on the port ------------------------------
     co = cotune_phase(counters)
 
-    # 9. lm_serve: the LM serving path at full width -------------------------
+    # 9. control: the adaptive fleet, deploy and observability --------------
+    ctl = control_phase(counters)
+
+    # 10. selftune: drift -> re-tune -> hot-swap -----------------------------
+    tune = selftune_phase(counters)
+
+    # 11. lm_serve: the LM serving path at full width ------------------------
     t0 = time.perf_counter()
     lm_serve = lm_serve_phase(dev)
     emit("lm_serve_seconds", seconds=time.perf_counter() - t0)
@@ -1665,6 +2183,8 @@ def main() -> None:
              launches=launches["fused_forest_infer"], max_abs_err=b2_err,
              straddled=b2_straddled, argmax_mismatches=b2_mism,
              max_col_rel_err=b2_col_err,
+             control_launches=ctl["launches"]["fused_forest_infer"],
+             selftune_launches=tune["launches"]["fused_forest_infer"],
              ms=timing["fused_forest_infer"]["ms"],
              plain_ms=timing["fused_forest_infer"]["plain_ms"],
              ms_128_flows=timing["fused_forest_infer"]["ms_128"],
@@ -1708,6 +2228,21 @@ def main() -> None:
              fleet_ms_32_flows=b4["fleet"]["timing"]["ms_32"],
              fleet_bound_ms=b4["fleet"]["timing"]["bound_ms"],
              library_ms=None),
+        dict(name="flow_stats", route="cuda",
+             source="src/repro_torch/csrc/flow_stats.cu",
+             replaces="src/repro/kernels/feature_extract.py:41",
+             launches=b5["launches"], max_abs_err=b5["max_abs_err"],
+             bitwise=all(c["bitwise"] for c in b5["cases"]),
+             ms=b5["timing"]["iot_window"]["ms"],
+             plain_ms=b5["timing"]["iot_window"]["plain_ms"],
+             bound_ms=b5["timing"]["iot_window"]["bound_ms"],
+             bound_by=b5["timing"]["iot_window"]["bound_by"],
+             library_ms=None,
+             torch_ops_ms=b5["timing"]["iot_window"]["torch_ops_ms"],
+             shape=b5["timing"]["iot_window"]["shape"],
+             stream_trace={k: b5["timing"]["stream_trace"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "torch_ops_ms",
+                 "shape")}),
         lm_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:83", "qwen3-8b",
                  "zamba2-1.2b"),

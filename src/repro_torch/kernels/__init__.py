@@ -8,6 +8,8 @@ PyTorch version:
                   reuse path's refresh batches (B3, csrc/fused_agg.cu), and
                   its multi-tenant entry, a merged plan and every tenant's
                   forest in one launch (B4, csrc/fused_multi.cu)
+  feature_extract masked per-flow count / sum / sum of squares / min / max
+                  (B5, csrc/flow_stats.cu)
   flash_attention GQA prefill attention with an online softmax (B6,
                   csrc/flash_attention.cu)
   decode_attention

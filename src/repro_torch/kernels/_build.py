@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("forest_infer.cu", "fused_pipeline.cu", "fused_agg.cu",
            "fused_multi.cu", "flash_attention.cu", "decode_attention.cu",
-           "mamba_scan.cu")
+           "mamba_scan.cu", "flow_stats.cu")
 HEADERS = ("forest_common.cuh", "plan_columns.cuh", "lm_common.cuh")
 # --fmad=false: no multiply and add is contracted into one rounding, so
 # the forest kernels round as their plain versions do (the one fused
@@ -59,6 +59,8 @@ _SIGNATURES = {
         [_VOID] * 5 + [_INT] * 6 + [_FLOAT, _VOID]),
     "mamba_scan_launch": (
         [_VOID] * 7 + [_INT] * 7 + [_VOID]),
+    "flow_stats_launch": (
+        [_VOID] * 3 + [_INT] * 2 + [_VOID]),
 }
 
 

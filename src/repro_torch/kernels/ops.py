@@ -10,11 +10,13 @@ from __future__ import annotations
 import torch
 
 from .decode_attention import decode_attention_kernel_call, decode_attention_plain
+from .feature_extract import flow_stats_kernel_call, flow_stats_plain
 from .flash_attention import flash_attention_kernel_call, flash_attention_plain
 from .mamba_scan import mamba_scan_kernel_call, mamba_scan_plain
 from .tree_infer import forest_infer_kernel_call, forest_infer_plain
 
-__all__ = ["decode_attention", "flash_attention", "forest_infer", "mamba_scan"]
+__all__ = ["decode_attention", "flash_attention", "flow_stats", "forest_infer",
+           "mamba_scan"]
 
 
 def forest_infer(x, feature, threshold, leaf, depth: int, *,
@@ -25,6 +27,15 @@ def forest_infer(x, feature, threshold, leaf, depth: int, *,
                                         block_t=block_t)
     return forest_infer_plain(x, feature, threshold, leaf, depth,
                               block_t=block_t)
+
+
+def flow_stats(values, mask) -> torch.Tensor:
+    """Masked per-flow statistics, (N, P) values and mask -> (N, 5) float32
+    count, sum, sum of squares, min, max (min and max 0 on an empty row).
+    Any N: the ragged edge is masked, not padded."""
+    if values.is_cuda:
+        return flow_stats_kernel_call(values, mask)
+    return flow_stats_plain(values, mask)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

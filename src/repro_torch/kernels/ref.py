@@ -2,7 +2,8 @@
 pipelines whose feature columns agree only to float32 rounding.
 
 `forest_infer_ref` is the port of `repro.kernels.ref.forest_infer_ref`: the
-plain mean over all trees, with no tree blocking. `flash_attention_ref`,
+plain mean over all trees, with no tree blocking. `flow_stats_ref` ports
+`repro.kernels.ref.flow_stats_ref`, the masked per-flow statistics. `flash_attention_ref`,
 `decode_attention_ref` and `mamba_scan_ref` port the reference's oracles of
 the LM kernels: full-softmax attention masked with -inf (a row with no
 valid key gives NaN, as the jnp oracle does; the kernels give 0) and the
@@ -21,8 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["decode_attention_ref", "flash_attention_ref", "forest_infer_ref",
-           "mamba_scan_ref", "straddled_flows"]
+__all__ = ["decode_attention_ref", "flash_attention_ref", "flow_stats_ref",
+           "forest_infer_ref", "mamba_scan_ref", "straddled_flows"]
 
 
 def forest_infer_ref(x, feature, threshold, leaf, depth: int) -> torch.Tensor:
@@ -36,6 +37,21 @@ def forest_infer_ref(x, feature, threshold, leaf, depth: int) -> torch.Tensor:
         f = feature[trees, node]
         node = 2 * node + 1 + (x[rows, f] > threshold[trees, node]).long()
     return leaf[trees, node - (2 ** depth - 1)].mean(dim=1)
+
+
+def flow_stats_ref(values, mask) -> torch.Tensor:
+    """Masked per-flow stats over packets: (N, 5) = count, sum, sumsq, min,
+    max, with min and max 0 on a row with no valid packet."""
+    valid = mask != 0
+    m = valid.to(torch.float32)
+    cnt = m.sum(dim=1)
+    s = (values * m).sum(dim=1)
+    sq = (values * values * m).sum(dim=1)
+    big = torch.tensor(3.4e38, dtype=torch.float32, device=values.device)
+    zero = torch.zeros((), dtype=torch.float32, device=values.device)
+    mn = torch.where(cnt > 0, torch.where(valid, values, big).amin(dim=1), zero)
+    mx = torch.where(cnt > 0, torch.where(valid, values, -big).amax(dim=1), zero)
+    return torch.stack([cnt, s, sq, mn, mx], dim=1)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,

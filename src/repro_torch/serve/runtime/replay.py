@@ -1,9 +1,9 @@
 """Offered-load replay + zero-loss throughput measurement (DESIGN.md §6).
 
-Port of `repro.serve.runtime.replay`. The clock, the stream and the search
-are the reference's; the pipeline the replay drives runs on the card, and
+Port of `repro.serve.runtime.replay`. The clock, the stream, the search and
 the attachments of a `ServeSession` (control plane, observability bundle,
-reoptimizer) wait for ROADMAP A10.
+reoptimizer) are the reference's; the pipeline the replay drives runs on
+the card.
 
 The paper's Fig. 5c metric — *zero-loss throughput*, the highest offered
 load the pipeline sustains without dropping a single packet — is an
@@ -840,6 +840,8 @@ def _drive(
     t_end: float,
     *,
     pid: int = 0,
+    tracer=None,
+    slo=None,
 ) -> _WorkerClock:
     """Drive one worker's whole event stream: feed + drain (the static
     single-owner path; the control plane drives `_WorkerClock` directly).
@@ -852,7 +854,8 @@ def _drive(
     caller's `t_end` so every shard of a fleet stops on the same global
     clock edge. Returns the clock (its stage rollup outlives the drive).
     """
-    clock = _WorkerClock(rt, service, ring_capacity, evict_every, pid=pid)
+    clock = _WorkerClock(rt, service, ring_capacity, evict_every,
+                         pid=pid, tracer=tracer, slo=slo)
     clock.feed(ev)
     clock.finish(t_end)
     return clock
@@ -885,13 +888,44 @@ def replay(
     admission-proven blocks with an order-exact per-packet fallback —
     DESIGN.md §6.3/§7).
 
-    `session` (a `ServeSession`), and the deprecated `control` and `obs`
-    keywords, carry the reference's attachments: the control plane, the
-    observability bundle and the reoptimizer. Their port waits for
-    ROADMAP A10, so any of them raises `NotImplementedError`.
+    `session` (a `ServeSession`) carries every attachment in
+    one object: the observability bundle, the control-loop config, and
+    the reoptimizer policy. With a control config (and a sharded
+    runtime) the replay runs under the adaptive control plane instead:
+    shards are driven interleaved in global time, and telemetry-driven
+    RETA rebalancing / hot-swap / elastic / re-optimization actions fire
+    between blocks (DESIGN.md §9, §13). Steering is then dynamic, so
+    that path delegates to `serve.control.replay.controlled_replay`.
+
+    `control` (a `serve.control.ControlConfig`) and `obs` (a
+    `serve.obs.Observability`) are the pre-session spellings of
+    the same attachments — still accepted, deprecated (they fold into a
+    session via `ServeSession.coerce`).
     """
-    ServeSession.coerce(session, control=control, obs=obs)
+    session = ServeSession.coerce(session, control=control, obs=obs)
+    if session.control is not None:
+        from ..control.replay import controlled_replay
+
+        return controlled_replay(
+            stream, make_runtime, offered_pps, service,
+            ring_capacity=ring_capacity, evict_every=evict_every,
+            session=session,
+        )
+    if session.reopt is not None:
+        raise TypeError(
+            "a ReoptimizerPolicy needs the control plane (episodes run on "
+            "control-step cadence): add a ControlConfig to the session")
+    obs = session.obs
     rt = make_runtime()
+    tracer = slo = None
+    if obs is not None:
+        obs.attach(rt)
+        tracer = obs.tracer
+        slo = obs.slo
+        if obs.exporter is not None:
+            from ..obs import fleet_registry
+
+            obs.exporter.bind(lambda: fleet_registry(rt), slo=slo)
     # tcpreplay-style clock compression: one factor scales delivery times
     t_e = stream.base_t * (stream.base_pps / offered_pps)
     # stop the clock one flush-timeout after the last packet: flows still
@@ -917,7 +951,8 @@ def replay(
             if sel.size:
                 shard_stages[i] = fold_stages(_drive(
                     srt, _gather_events(stream, t_e, sel), service,
-                    ring_capacity, evict_every, t_end, pid=i))
+                    ring_capacity, evict_every, t_end,
+                    pid=i, tracer=tracer, slo=slo))
             else:
                 srt.drain(t_end)
         agg = rt.metrics
@@ -941,9 +976,14 @@ def replay(
         n_shards, imbalance = rt.n_shards, agg.load_imbalance()
     else:
         fold_stages(_drive(rt, _gather_events(stream, t_e), service,
-                           ring_capacity, evict_every, t_end))
+                           ring_capacity, evict_every, t_end, tracer=tracer,
+                           slo=slo))
         m = rt.metrics
         per_shard, n_shards, imbalance = [], 1, 1.0
+
+    if obs is not None and obs.exporter is not None:
+        # no control plane to pace it: one end-of-run export record
+        obs.exporter.step(t_end)
 
     return ReplayStats(
         offered_pps=offered_pps,
@@ -987,12 +1027,21 @@ def find_zero_loss_rate(
     the returned stats come from a final *executing* verification replay
     at the found rate. `ring_capacity` is per worker queue.
 
-    `session`, `control` and `obs` are the reference's attachments (the
-    adaptive control plane, the observability bundle); their port waits
-    for ROADMAP A10, so any of them raises `NotImplementedError`.
-    """
-    ServeSession.coerce(session, control=control, obs=obs)
+    `session` (or the deprecated `control=`) measures the *adaptive*
+    fleet: every probe replays under the control plane (fresh runtime,
+    fresh telemetry), so the reported rate is the zero-loss throughput
+    of the closed-loop system — rebalancing transients included.
 
+    The session's observability bundle attaches only to the final
+    *executing* verification replay — the bisection probes stay untraced
+    (tracing a probe would record thousands of spans for runs whose only
+    output is a drop count). The reoptimizer policy likewise rides only
+    the final replay: probes run `execute=False`, which produces no
+    predictions to drift on.
+    """
+    session = ServeSession.coerce(session, control=control, obs=obs)
+    # probes: control plane yes, observability/reoptimizer no
+    probe_session = ServeSession(control=session.control)
     def ring_guard(events_bound: int, scope: str) -> None:
         """The ring is per worker queue: the (sub-)trace offered to a
         queue must exceed it, or that queue can absorb its whole offered
@@ -1014,7 +1063,7 @@ def find_zero_loss_rate(
     def probe(r):
         return replay(
             stream, lambda: make_runtime(False), r, service,
-            ring_capacity=ring_capacity,
+            ring_capacity=ring_capacity, session=probe_session,
         )
 
     # bracket from the stream's own base rate unless told otherwise: every
@@ -1054,6 +1103,6 @@ def find_zero_loss_rate(
             hi = mid
     final = replay(
         stream, lambda: make_runtime(True), lo, service,
-        ring_capacity=ring_capacity,
+        ring_capacity=ring_capacity, session=session,
     )
     return lo, final

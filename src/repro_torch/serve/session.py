@@ -1,45 +1,85 @@
 """`ServeSession`: the one attachment bundle for a serving run.
 
-Port of `repro.serve.session`. In the reference a session carries the
-observability bundle, the control-loop configuration, the reoptimizer
-policy and the audit log, and every serving entry point takes
-``session=``; the legacy per-call keywords fold into one through
-`ServeSession.coerce`.
+Port of `repro.serve.session`, unchanged but for its imports.
 
-Those attachments need `serve/control/*` and the `serve/obs` bundle
-(`Observability`, drift monitor, SLO tracker, exporter, audit log), whose
-port waits for ROADMAP A10. Until then a session, or a legacy keyword,
-that carries any of them raises `NotImplementedError`: no serving path
-skips an attachment without saying so. An empty session is the only kind,
-and `replay` / `find_zero_loss_rate` go through `coerce` as in the
-reference.
+Historically each serving entry point grew its own attachment keywords —
+``obs=`` on `replay`, ``control=`` + ``obs=`` on `controlled_replay` and
+`find_zero_loss_rate`, ``audit=`` + ``tracer=`` on `ControlPlane`,
+``audit=`` on `deploy`/`make_swap` — five divergent ways to thread the
+same four objects. `ServeSession` is the single carrier: the
+observability bundle, the control-loop configuration, the reoptimizer
+policy, and (when it must differ from the bundle's) the audit log. Every
+entry point accepts ``session=``; the legacy keywords keep working for
+one release through `ServeSession.coerce`, which folds them into a
+session and emits a `DeprecationWarning`.
+
+Resolution rules (all trivially derivable, no hidden state):
+
+- ``audit``: the explicit `audit` field when set, else the observability
+  bundle's log, else a fresh `AuditLog` on demand — one run, one audit
+  stream.
+- ``tracer`` / ``drift`` / ``slo`` / ``exporter``: always through the
+  observability bundle.
+- ``control`` / ``reopt``: carried as-is; a session with a `reopt`
+  policy but no control config is an error at the point of use (the
+  reoptimizer runs on control-step cadence).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 __all__ = ["ServeSession"]
 
-_PENDING = ("the control plane, the observability bundle, the reoptimizer "
-            "and the audit log of a serving session are not ported yet "
-            "(ROADMAP A10)")
+
+def _deprecated(name: str, instead: str) -> None:
+    warnings.warn(
+        f"the {name} keyword is deprecated; pass "
+        f"session=ServeSession({instead}) instead",
+        DeprecationWarning,
+        stacklevel=4,
+    )
 
 
 @dataclasses.dataclass
 class ServeSession:
     """Everything a serving run carries besides the traffic itself."""
 
-    obs: Optional[object] = None        # serve.obs.Observability (A10)
-    control: Optional[object] = None    # serve.control.ControlConfig (A10)
-    reopt: Optional[object] = None      # serve.control.ReoptimizerPolicy (A10)
-    audit: Optional[object] = None      # overrides obs.audit when set (A10)
+    obs: Optional[object] = None        # serve.obs.Observability
+    control: Optional[object] = None    # serve.control.ControlConfig
+    reopt: Optional[object] = None      # ...control.ReoptimizerPolicy
+    audit: Optional[object] = None      # overrides obs.audit when set
 
-    def __post_init__(self):
-        given = [f.name for f in dataclasses.fields(self)
-                 if getattr(self, f.name) is not None]
-        if given:
-            raise NotImplementedError(f"{', '.join(given)}: {_PENDING}")
+    # -- resolution ----------------------------------------------------------
+
+    @property
+    def tracer(self):
+        return self.obs.tracer if self.obs is not None else None
+
+    @property
+    def drift(self):
+        return self.obs.drift if self.obs is not None else None
+
+    @property
+    def slo(self):
+        """The shared `SLOTracker` (DESIGN.md §14.2), via the bundle."""
+        return self.obs.slo if self.obs is not None else None
+
+    @property
+    def exporter(self):
+        """The bound `MetricsExporter` (DESIGN.md §14.3), via the bundle."""
+        return self.obs.exporter if self.obs is not None else None
+
+    def resolve_audit(self):
+        """The run's one audit log: explicit field > obs bundle > None."""
+        if self.audit is not None:
+            return self.audit
+        if self.obs is not None:
+            return self.obs.audit
+        return None
+
+    # -- legacy-keyword shim -------------------------------------------------
 
     @classmethod
     def coerce(
@@ -51,21 +91,33 @@ class ServeSession:
         audit=None,
         tracer=None,
         reopt=None,
+        warn: bool = True,
     ) -> "ServeSession":
         """Fold legacy per-call keywords into one session.
 
-        Passing both ``session=`` and a legacy keyword is a conflict, so it
-        raises `TypeError`, as in the reference; any legacy keyword alone
-        raises `NotImplementedError` (ROADMAP A10)."""
-        legacy = sorted(k for k, v in (("control", control), ("obs", obs),
-                                       ("audit", audit), ("tracer", tracer),
-                                       ("reopt", reopt)) if v is not None)
+        Passing both ``session=`` and a legacy keyword is a conflict (the
+        caller's intent is ambiguous), so it raises. Legacy keywords alone
+        build an equivalent session and warn once per call site; `warn=False`
+        is for internal forwarding paths that already warned."""
+        legacy = {k: v for k, v in (("control", control), ("obs", obs),
+                                    ("audit", audit), ("tracer", tracer),
+                                    ("reopt", reopt)) if v is not None}
         if session is not None:
             if legacy:
                 raise TypeError(
                     f"pass attachments through session= OR the legacy "
-                    f"keywords, not both (got session and {legacy})")
+                    f"keywords, not both (got session and {sorted(legacy)})")
             return session
-        if legacy:
-            raise NotImplementedError(f"{', '.join(legacy)}: {_PENDING}")
-        return cls()
+        if legacy and warn:
+            _deprecated(" / ".join(f"{k}=" for k in sorted(legacy)),
+                        ", ".join(f"{k}=..." for k in sorted(legacy)))
+        obs_bundle = obs
+        if tracer is not None:
+            # a bare tracer has no bundle to live in: wrap it
+            if obs_bundle is None:
+                from .obs import Observability
+
+                obs_bundle = Observability(tracer=tracer)
+            elif obs_bundle.tracer is None:
+                obs_bundle.tracer = tracer
+        return cls(obs=obs_bundle, control=control, reopt=reopt, audit=audit)

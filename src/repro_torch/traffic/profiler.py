@@ -309,11 +309,16 @@ class TrafficProfiler:
 
         The offered stream follows the profiler's `scenario` (arrival
         process + dataset skew are fixed at dataset construction; see
-        `make_scenario_dataset`).
+        `make_scenario_dataset`). With `control` (a
+        `repro_torch.serve.control.ControlConfig`) and `n_shards > 1`, the
+        measurement runs under the adaptive control plane — dynamic RETA
+        rebalancing and friends — instead of the static fleet
+        (DESIGN.md §9).
 
-        A `control` configuration or an `obs` bundle goes to a
-        `ServeSession`, which refuses both until the control plane and the
-        observability bundle are ported (ROADMAP A10).
+        Pass an `Observability` bundle as `obs` to instrument the final
+        zero-loss verification replay (tracing, drift, fleet registry,
+        audit — DESIGN.md §11); bisection probes stay uninstrumented so
+        the bundle captures exactly one run.
 
         `reuse` overrides the profiler's own reuse configuration for this
         measurement (a `ReuseConfig` or None; the default inherits

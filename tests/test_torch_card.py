@@ -29,6 +29,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_kernel_call,
     decode_attention_plain,
 )
+from repro_torch.kernels.feature_extract import flow_stats_kernel_call, flow_stats_plain
 from repro_torch.kernels.flash_attention import (
     flash_attention_kernel_call,
     flash_attention_plain,
@@ -389,3 +390,20 @@ def test_mamba_scan_kernel_matches_plain(cuda, B, T, H, P, S, chunk,  # noqa: F8
     tol = 2e-2 if dtype == torch.bfloat16 else 3e-4
     torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=0)
     torch.testing.assert_close(h, h_want, atol=3e-4, rtol=0)
+
+
+@pytest.mark.parametrize("n,P", [(73, 17), (5, 8), (256, 12), (1000, 128),
+                                 (600, 4000), (4000, 128)])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.uint8, torch.int32])
+def test_flow_stats_kernel_bitwise_plain(cuda, n, P, mask_dtype):  # noqa: F811
+    R = np.random.default_rng(n + P)
+    v = torch.from_numpy((R.random((n, P)) * 1500).astype(np.float32)).to(cuda)
+    m = torch.from_numpy(R.random((n, P)) < 0.4).to(cuda)
+    m[0] = False                                     # an empty row
+    m = m.to(mask_dtype)
+    got = flow_stats_kernel_call(v, m)
+    want = flow_stats_plain(v, m)
+    empty = flow_stats_kernel_call(v, torch.zeros_like(m))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.all(got[0] == 0) and torch.all(empty == 0)

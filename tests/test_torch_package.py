@@ -1,6 +1,7 @@
 """The port stands alone: `repro_torch` imports without jax, imports nothing
 of `repro`, runs on the card by default and never quietly on the CPU."""
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -21,6 +22,7 @@ from repro_torch.kernels.fused_pipeline import (
     fused_pipeline_call,
 )
 from repro_torch.kernels.decode_attention import decode_attention_kernel_call
+from repro_torch.kernels.feature_extract import flow_stats_kernel_call
 from repro_torch.kernels.flash_attention import flash_attention_kernel_call
 from repro_torch.kernels.mamba_scan import mamba_scan_kernel_call
 from repro_torch.kernels.tree_infer import forest_infer_kernel_call
@@ -69,6 +71,18 @@ SLICE_MODULES = (
     "repro_torch.models.ssm",
     "repro_torch.models.zoo",
     "repro_torch.serve.serve_step",
+    "repro_torch.kernels.feature_extract",
+    "repro_torch.serve.deploy",
+    "repro_torch.serve.session",
+    "repro_torch.serve.control.plane",
+    "repro_torch.serve.control.planner",
+    "repro_torch.serve.control.reoptimizer",
+    "repro_torch.serve.control.replay",
+    "repro_torch.serve.control.telemetry",
+    "repro_torch.serve.obs.audit",
+    "repro_torch.serve.obs.drift",
+    "repro_torch.serve.obs.export",
+    "repro_torch.serve.obs.slo",
 )
 
 
@@ -162,6 +176,12 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         fused_multi_forest_call(*args, **kw)
     assert fused_multi_forest_infer(*args, **kw).shape == (N, K)
 
+    # B5
+    v, m = torch.zeros((3, 5)), torch.ones((3, 5), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        flow_stats_kernel_call(v, m)
+    assert ops.flow_stats(v, m).shape == (3, 5)
+
 
 def test_fused_wrapper_states_its_window():
     N, P = 2, MAX_WINDOW + 1
@@ -175,6 +195,36 @@ def test_fused_wrapper_states_its_window():
             torch.zeros((1, 1)), torch.zeros((1, 2, 3)),
             op_table=torch.zeros((1, 4), dtype=torch.int32), depth=P,
             forest_depth=1)
+
+
+def test_deploy_entry_points_default_to_the_card(monkeypatch):
+    """Every deploy-layer function that builds a pipeline runs on the card
+    unless asked for the CPU."""
+    import importlib
+
+    from repro_torch.serve.control import PipelineSwap
+
+    deploy = importlib.import_module("repro_torch.serve.deploy")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = make_dataset("app-class", n_flows=20, max_pkts=8, seed=3)
+    rep = FeatureRep(("dur", "s_bytes_mean"), depth=4)
+    X = extract_features(ds, rep.features, rep.depth, device="cpu")
+    forest = train_forest(X, ds.label, n_trees=2, max_depth=3,
+                          rng=np.random.default_rng(0))
+    doc = deploy._forest_to_doc(forest)
+    point = deploy.BundlePoint(rep=rep, cost=1.0, perf=0.5, fidelity="modeled",
+                               aux={}, compile_meta={"fused": True},
+                               forest_doc=doc)
+    for make in (lambda **kw: point.build(warm=False, **kw),
+                 lambda **kw: deploy.compile_multi_tenant([point, point],
+                                                          warm=False, **kw),
+                 lambda **kw: PipelineSwap.build(rep, forest,
+                                                 warm_buckets=(8,), **kw),
+                 lambda **kw: deploy.make_swap(
+                     dataclasses.replace(point, pipeline=None), **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        make(device="cpu")
 
 
 def test_lm_entry_points_default_to_the_card(monkeypatch):

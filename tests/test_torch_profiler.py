@@ -113,13 +113,38 @@ def test_measured_fidelities_invariants():
     assert math.isfinite(p99) and p99 > 0 and stats.drops == 0
 
 
-def test_attachments_stay_refused(mini):
-    port, _ = mini
-    x = FeatureRep(MINI_FEATURE_NAMES[:3], 6)
-    _, forest = port.perf_f1(x)
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.replayed_throughput_gbps(x, forest, obs=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.replayed_throughput_gbps(x, forest, n_shards=2, control=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.replayed_latency_p99(x, forest, obs=object())
+@pytest.mark.parametrize("shards", [1, 2])
+def test_attachments_match_reference(mini, shards):
+    """`control=` and `obs=` reach a `ServeSession`, as in the reference:
+    the replayed throughput under the modeled clock, with a control plane
+    (sharded) and an observability bundle on the final replay, equals the
+    reference's, and the bundle saw exactly that one replay."""
+    from repro.serve import control as jcontrol
+    from repro.serve import obs as jobs
+
+    from repro_torch.serve import control as tcontrol
+    from repro_torch.serve import obs as tobs
+
+    port, ref = mini
+    names, depth = MINI_FEATURE_NAMES[:3], 6
+    _, f_t = port.perf_f1(FeatureRep(names, depth))
+    _, f_j = ref.perf_f1(JFeatureRep(J_MINI[:3], depth))
+    out = []
+    for prof, x, forest, ctl, obs in (
+            (port, FeatureRep(names, depth), f_t, tcontrol, tobs),
+            (ref, JFeatureRep(J_MINI[:3], depth), f_j, jcontrol, jobs)):
+        bundle = obs.Observability(drift=obs.DriftMonitor())
+        kw = dict(obs=bundle)
+        if shards > 1:
+            kw["control"] = ctl.ControlConfig(interval_pkts=256,
+                                              imbalance_trigger=1.04)
+        gbps, stats = prof.replayed_throughput_gbps(x, forest, n_shards=shards,
+                                                    **kw)
+        p99, st99 = prof.replayed_latency_p99(x, forest, obs=bundle)
+        out.append((gbps, stats.drops, stats.control, p99,
+                    bundle.drift.signal()["n_flows"],
+                    [e.kind for e in bundle.audit.events]))
+    assert out[0] == out[1]
+    assert out[0][1] == 0 and math.isfinite(out[0][0])
+    if shards > 1:
+        assert out[0][2] is not None and out[0][2]["steps"] > 0

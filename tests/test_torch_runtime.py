@@ -24,7 +24,6 @@ from _torch_parity import MAX_STRADDLED
 from repro_torch.convert import forest_from_numpy
 from repro_torch.core.search_space import FeatureRep
 from repro_torch.kernels.ref import straddled_flows
-from repro_torch.serve import ServeSession
 from repro_torch.serve import runtime as prt
 from repro_torch.traffic.extraction import extract_features
 from repro_torch.traffic.pipeline import build_pipeline
@@ -280,21 +279,6 @@ def test_zero_loss_rate_matches_reference(world):
     assert (got.latency_p50_s, got.latency_p99_s) == (
         want.latency_p50_s, want.latency_p99_s)
     assert_predictions(want.predictions, got.predictions, ref, port, forest)
-
-
-def test_attachments_wait_for_the_control_plane(world):
-    _, port, _ = world
-    with pytest.raises(NotImplementedError, match="A10"):
-        ServeSession(control=object())
-    for kw in ({"control": object()}, {"obs": object()}):
-        with pytest.raises(NotImplementedError, match="A10"):
-            prt.replay(port.stream, lambda: None, 1.0, port.svc, **kw)
-        with pytest.raises(NotImplementedError, match="A10"):
-            prt.find_zero_loss_rate(port.stream, lambda e: None, port.svc,
-                                    **kw)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ServeSession.coerce(tracer=object())
-    assert ServeSession.coerce() == ServeSession()
 
 
 @pytest.mark.parametrize("discount", [1.0, 0.4])
