@@ -32,10 +32,20 @@ Phases, each printing one JSON line:
    and 32 flows: its merged columns bitwise equal to the plain ones, no
    flow straddled, and every tenant's lane bitwise equal to solo B2 on
    that tenant's own plan and forest; then its time at 4096 and 32 flows.
+   The same on `wide_merge`, four tenants over the registry at depths 5,
+   10, 15 and 20 on the iot-class window: 259 merged columns, more than
+   B4's per-thread array holds. Then `long_window`: B2 on the stream
+   phase's trace with the registry's plan (all eight medians) at depths
+   129, 256 and 4000, above the kernels' 128-packet per-thread sample
+   buffer, columns and probabilities bitwise the plain version's; B4 on
+   the registry at depths 100 and 4000 the same way, its lanes bitwise
+   solo B2; B2's time at depth 4000 beside its byte bound; and one
+   replayed profiler evaluation at depth 256 on the card, counted.
    The LM kernels (`lm_kernel_check`, `lm_kernel_times`): flash attention
    (B6) at qwen3-8b's prefill shape (B 2, 32 q heads, 8 kv heads, T 2048,
-   D 128) and zamba2-1.2b's (32 and 32 heads, D 64) in bf16, causal, and
-   at a ragged Tq != Tk in float32, causal and not; decode attention (B7)
+   D 128) and zamba2-1.2b's (32 and 32 heads, D 64) in bf16, causal (the
+   tensor-core kernel), and at a ragged Tq != Tk in float32 (the scalar
+   kernel) and in bf16, causal and not; decode attention (B7)
    at (B 8, 32 q heads, 8 kv heads, S 4096, D 128) in bf16 with random
    lengths in [1, S], at zamba2-1.2b's served batch (B 8, 32 and 32 heads,
    S 168, D 64, every length 159) in bf16, and at S = 300 in float32;
@@ -44,7 +54,8 @@ Phases, each printing one JSON line:
    bf16 and at a ragged T with S 16 in float32, y and the final state;
    then each one's time at the main-path shapes beside its plain version,
    one PyTorch call computing the same function (scaled_dot_product_
-   attention for B6 and B7; the port never calls it) and its bound.
+   attention for B6 and B7; the port never calls it) and its bound, and
+   B6's achieved TFLOP/s.
    The flow statistics kernel (B5) through `ops.flow_stats`, bitwise
    against its plain version, on the main path's two windows (packet
    sizes of the iot-class set, 4000 x 128, masked by each flow's valid
@@ -128,7 +139,11 @@ Phases, each printing one JSON line:
    just before the prefills and read just after the served batch; then 4
    decode steps held against the plain path step by step from the same
    cache (logit gaps bounded), a torch.profiler breakdown of a prefill and
-   4 decode steps, and a float32 copy at 4 layers whose decode reproduces
+   4 decode steps; then the float32 truth: the bf16 weights upcast in
+   place and the same tokens prefilled on the plain path, against which
+   the kernel path's argmax share must be at least the plain path's less
+   0.01 and its mean logit gap at most 1.1 times the plain path's; and a
+   float32 copy at 4 layers whose decode reproduces
    its prefill (atol = rtol = 2e-3) and whose decode on the plain path
    reproduces the kernel path's (atol = rtol = 1e-4, argmax equal).
 
@@ -210,6 +225,17 @@ CTRL_REP_B = (("dur", "s_load", "s_pkt_cnt", "d_bytes_med", "psh_cnt"), 12)
 # the selftune phase: examples/selftune_fleet.py at the size of
 # benchmarks/bench_runtime.py's self-tune gate, under the example's clock
 ST_FLOWS, ST_PKTS, ST_PPS = 600, 32, 2e5
+# windows above B2's and B4's per-thread sample buffer (128 packets), on
+# the stream phase's trace; B4's two tenants (the registry at both depths)
+LW_DEPTHS, LW_TENANT_DEPTHS = (129, 256, 4000), (100, 4000)
+# one replayed profiler evaluation above the buffer: a median-bearing
+# configuration over a zipf app-class trace of flows of up to 512 packets
+LW_PROFILE_FLOWS, LW_PROFILE_PKTS, LW_PROFILE_DEPTH = 200, 512, 256
+LW_PROFILE_POOL = ("dur", "s_load", "ack_cnt", "s_bytes_mean", "s_bytes_med",
+                   "d_iat_med")
+# more merged columns than B4's per-thread array (256): four tenants over
+# the registry at four depths, 3 meta + 4 x 64 = 259 columns
+WM_DEPTHS = (5, 10, 15, 20)
 
 
 # the lm_serve phase: both LM families the port serves, at full width
@@ -223,8 +249,18 @@ LM_F32_LAYERS, LM_F32_T = 4, 32
 # kernel-path prefill logits against the plain path's, both bf16: the two
 # differ only where a float32 sum in B6 or B8 rounds to the other bf16
 # neighbour, which then travels through the layers; logits of a random
-# model are ~N(0, 1) (|max| ~ 5, a bf16 ulp 0.016-0.031 there)
+# model are ~N(0, 1) (|max| ~ 5, a bf16 ulp 0.016-0.031 there). B6's bf16
+# plain version repeats the tensor-core kernel's arithmetic (its GEMMs are
+# cuBLAS's bf16 GEMMs into float32), so on the card the two agree bitwise;
+# a one-ulp difference alone, carried through 36 random layers, moved 5.3%
+# of the argmaxes (a one-pass plain B6, run E) and through zamba2-1.2b's
+# 38 layers and SSM state a mean logit gap of 0.052 (a first version of
+# this kernel, run M). Both bf16 paths are also held to a float32 run of
+# the same weights: the kernel path's argmax share with it at least the
+# plain path's minus LM_TRUTH_ARGMAX_SLACK, its mean gap to it at most
+# LM_TRUTH_GAP_RATIO times the plain path's.
 LM_ARGMAX_MIN, LM_LOGIT_MAX_ERR, LM_LOGIT_MEAN_ERR = 0.99, 1.0, 0.02
+LM_TRUTH_ARGMAX_SLACK, LM_TRUTH_GAP_RATIO = 0.01, 1.1
 # the float32 4-layer copies: decode against the prefill (the reference's
 # own invariant, tests/test_models.py) and decode on the kernel path
 # against the plain path, where orders of summation differ by ~1e-6
@@ -241,7 +277,8 @@ SCAN_TOL_F32 = 3e-4
 LM_B6_CASES = (
     ("qwen3-8b", (2, 32, 8, 2048, 2048, 128), torch.bfloat16, (True,)),
     ("zamba2-1.2b", (2, 32, 32, 2048, 2048, 64), torch.bfloat16, (True,)),
-    ("ragged", (2, 8, 2, 200, 328, 128), torch.float32, (True, False)))
+    ("ragged", (2, 8, 2, 200, 328, 128), torch.float32, (True, False)),
+    ("ragged_bf16", (2, 8, 2, 200, 328, 128), torch.bfloat16, (True, False)))
 LM_B7_CASES = (
     ("qwen3-8b", (8, 32, 8, 4096, 128), torch.bfloat16, None),
     ("zamba2-1.2b", (LM_SERVE_B, 32, 32, LM_CACHE_LEN, 64), torch.bfloat16,
@@ -403,9 +440,11 @@ def merged_of(reps):
     return plans, merged, cols
 
 
-def b4_check(config: str, ds, reps, forests, dev, flush) -> dict:
+def b4_check(config: str, ds, reps, forests, dev, flush,
+             sizes=(4096, 32), timed: bool = True) -> dict:
     """B4 against its plain version and against solo B2 on one
-    configuration, at 4096 and 32 flows; then its times and bound."""
+    configuration, at each batch size of `sizes`; then, if `timed`, its
+    times and bound at 4096 and 32 flows."""
     from repro_torch.convert import forest_tables, multi_forest_tables
     from repro_torch.kernels.fused_pipeline import (
         encode_merged_plan,
@@ -425,7 +464,7 @@ def b4_check(config: str, ds, reps, forests, dev, flush) -> dict:
             for f, p in zip(forests, plans)]
     cases, out = [], dict(max_abs_err=0.0, straddled=0, argmax_mismatches=0)
     packets = {}
-    for n in (4096, 32):
+    for n in sizes:
         batch = ds.take(np.arange(n) % ds.n_flows)
         t = dataset_tensors(batch, dev)
         pk = packets[n] = [t[k] for k in (
@@ -461,10 +500,14 @@ def b4_check(config: str, ds, reps, forests, dev, flush) -> dict:
             lo = hi
         cases.append(dict(config=config, N=n, merged_columns=len(merged),
                           tenants=len(reps), k_sum=kw["n_out"],
+                          union_window=min(kw["depth"], batch.max_pkts),
                           columns_bitwise=True, straddled=0,
+                          probs_bitwise=bool(np.array_equal(pk_, pp)),
                           lanes_bitwise_vs_solo_b2=lanes_bitwise))
         if n == 4096:
             x_plain, batch_4096 = xp, batch
+    if not timed:
+        return dict(cases=cases, **out)
     # the bound, from this run's data: the packets each flow holds up to
     # the union depth, its metadata, the op table and spec, the forest
     # entries each tenant visits, and the (N, sum K) output
@@ -504,6 +547,125 @@ def b4_check(config: str, ds, reps, forests, dev, flush) -> dict:
                    forests=[dict(trees=f.n_trees, depth=f.depth,
                                  classes=f.n_out) for f in forests]))
     return dict(cases=cases, timing=timing, **out)
+
+
+def long_window_phase(ds_s, dev, flush, counters) -> dict:
+    """B2 and B4 at windows above their per-thread sample buffer, which
+    the card once refused: on the stream phase's trace with the registry's
+    plan (every median among it), columns and probabilities bitwise the
+    plain versions'; B4's lanes bitwise solo B2; B2's time at depth 4000;
+    then one replayed profiler evaluation above the buffer."""
+    from repro_torch.convert import forest_tables
+    from repro_torch.core.search_space import FeatureRep
+    from repro_torch.kernels.fused_pipeline import (
+        encode_plan,
+        fused_forest_infer_plain,
+        fused_pipeline_call,
+    )
+    from repro_torch.traffic import TrafficProfiler
+    from repro_torch.traffic.extraction import (
+        dataset_tensors,
+        extract_features,
+        stats_plan,
+    )
+    from repro_torch.traffic.features import FEATURE_NAMES
+    from repro_torch.traffic.synth import make_scenario_dataset
+
+    t0 = time.perf_counter()
+    plan = stats_plan(FEATURE_NAMES)
+    check(sum(e[-1] == "med" for e in plan) == 8, "the registry's medians")
+    op = torch.from_numpy(encode_plan(plan)).to(dev)
+    t = dataset_tensors(ds_s, dev)
+    packets = [t[k] for k in ("ts", "size", "direction", "ttl", "winsize",
+                              "flags", "flow_len", "proto", "s_port", "d_port")]
+    rng = np.random.default_rng(16)
+    cases, forests = [], {}
+    for depth in LW_DEPTHS:
+        x = extract_features(ds_s, FEATURE_NAMES, depth, device="cuda")
+        forests[depth] = forest = quantile_forest(x, rng)
+        tables = forest_tables(forest, dev)
+        outs = {}
+        for side, fn in (("kernel", fused_pipeline_call),
+                         ("plain", fused_forest_infer_plain)):
+            cols = torch.empty((ds_s.n_flows, len(plan)), device=dev)
+            p = fn(*packets, *tables, op_table=op, depth=depth,
+                   forest_depth=forest.depth, columns=cols)
+            outs[side] = (p.cpu().numpy(), cols.cpu().numpy())
+        (pk, xk), (pp, xp) = outs.values()
+        c = dict(kernel="fused_forest_infer", depth=depth,
+                 window=min(depth, ds_s.max_pkts), plan=len(plan),
+                 columns_bitwise=bool(np.array_equal(xk, xp)),
+                 probs_bitwise=bool(np.array_equal(pk, pp)),
+                 max_abs_err=float(np.abs(pk - pp).max()))
+        cases.append(c)
+        check(c["columns_bitwise"] and c["probs_bitwise"], f"B2 long window {c}")
+    emit("kernel_check", kernel="fused_forest_infer", config="long_window",
+         cases=cases)
+
+    # B4: the registry at two depths, the longer above the buffer
+    reps = [FeatureRep(tuple(FEATURE_NAMES), depth=d) for d in LW_TENANT_DEPTHS]
+    b4 = b4_check("long_window", ds_s, reps,
+                  [quantile_forest(extract_features(
+                      ds_s, r.features, r.depth, device="cuda"), rng)
+                   for r in reps], dev, flush, sizes=(ds_s.n_flows,),
+                  timed=False)
+    emit("kernel_check", kernel="fused_multi_forest_infer",
+         config="long_window", cases=b4["cases"])
+    check(all(c["probs_bitwise"] for c in b4["cases"]),
+          f"B4 long window: probabilities differ from the plain version's "
+          f"{b4['cases']}")
+
+    # B2's time at depth 4000 beside its byte bound; its plain version's
+    # per-packet loops take seconds here, so it is timed once
+    depth = LW_DEPTHS[-1]
+    forest = forests[depth]
+    tables = forest_tables(forest, dev)
+    x_plain = extract_features(ds_s, FEATURE_NAMES, depth, device="cuda")
+    _, nodes, leaves = forest_touch(x_plain, forest)
+    N, K = ds_s.n_flows, forest.n_out
+    L = np.minimum(np.minimum(ds_s.flow_len, depth), ds_s.max_pkts)
+    n_bytes = (int(L.sum()) * (4 * 4 + 1 + 8) + N * 16 + op.numel() * 4
+               + 8 * nodes + 4 * K * leaves + 4 * N * K)
+    n_ops = int(L.sum()) * len(plan) + N * forest.n_trees * (
+        2 * forest.depth + K)
+    timing = dict(
+        ms=time_ms(lambda: fused_pipeline_call(
+            *packets, *tables, op_table=op, depth=depth,
+            forest_depth=forest.depth), KERNEL_REPS, flush),
+        plain_ms=time_ms(lambda: fused_forest_infer_plain(
+            *packets, *tables, op_table=op, depth=depth,
+            forest_depth=forest.depth), 1, flush, warmup=0),
+        library_ms=None, bytes=n_bytes, ops=n_ops,
+        shape=dict(N=N, P=ds_s.max_pkts, F=len(plan), depth=depth,
+                   packets=int(L.sum()), T=forest.n_trees, D=forest.depth,
+                   K=K))
+    timing["bound_ms"], timing["bound_by"] = bound(n_bytes, n_ops)
+    emit("kernel_times_long_window", timing=timing)
+
+    # the profiler's replayed fidelity above the buffer, on the card
+    tp = time.perf_counter()
+    ds_p = make_scenario_dataset("app-class", "zipf", n_flows=LW_PROFILE_FLOWS,
+                                 max_pkts=LW_PROFILE_PKTS, seed=3)
+    prof = TrafficProfiler(ds_p, LW_PROFILE_POOL, model="tree-fast",
+                           cost_metric="throughput_replayed",
+                           cost_mode="measured", bisect_iters=4, seed=0,
+                           device="cuda")
+    rep = FeatureRep(LW_PROFILE_POOL, depth=LW_PROFILE_DEPTH)
+    reset_launches(*counters.values())
+    r = prof(rep)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(math.isfinite(r.cost) and r.cost < 0, f"replayed cost {r.cost}")
+    check(launches["fused_forest_infer"] > 0,
+          f"the replayed evaluation did not launch B2: {launches}")
+    profiled = dict(flows=ds_p.n_flows, max_pkts=ds_p.max_pkts,
+                    features=list(rep.features), depth=rep.depth,
+                    flows_longer_than_buffer=int((ds_p.flow_len > 128).sum()),
+                    cost=r.cost, gbps=-r.cost, f1=r.perf, launches=launches,
+                    seconds=time.perf_counter() - tp)
+    emit("long_window_profiler", **profiled)
+    return dict(cases=cases, b4=b4, timing=timing, profiler=profiled,
+                seconds=time.perf_counter() - t0)
 
 
 def reset_launches(*fns) -> None:
@@ -1323,6 +1485,8 @@ def lm_kernel_phase(dev, flush) -> dict:
             ops=4 * D * pairs * B * Hq, shape=list(q.shape) + [k.shape[1]])
         t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
                                              ops_rate(q.dtype))
+        t["tflops"] = t["ops"] / (t["ms"] * 1e-3) / 1e12
+        t["library_tflops"] = t["ops"] / (t["library_ms"] * 1e-3) / 1e12
         timing[f"flash_attention/{name}"] = t
     q, kc, vc, lens = da_inputs["qwen3-8b"]
     B, Hq, D = q.shape
@@ -1496,7 +1660,38 @@ def lm_serve_phase(dev) -> dict:
             prefill=device_profile(lambda: prefill(params, {"tokens": toks}), 1),
             decode=device_profile(lambda: step(params, cache, tok),
                                   LM_PROFILE_STEPS))
-        del params, logits, ref, cache
+
+        # both bf16 prefills against a float32 run of the same weights (the
+        # bf16 parameters upcast in place) on the plain path: the kernel
+        # path must come as close to it as the plain path does
+        del cache
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params.float()
+        with plain_kernels():
+            truth = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        del params
+        truth_arg = truth.argmax(-1)
+        vs_truth = {}
+        for side, lg in (("kernel", logits), ("plain", ref)):
+            vs_truth[f"{side}_argmax_agree"] = float(
+                (lg.argmax(-1) == truth_arg).float().mean())
+            vs_truth[f"{side}_mean_abs_err"] = float(
+                (lg.float() - truth).abs().mean())
+        vs_truth.update(
+            truth_dtype=str(truth.dtype),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            argmax_slack=LM_TRUTH_ARGMAX_SLACK, gap_ratio=LM_TRUTH_GAP_RATIO)
+        res["vs_truth"] = vs_truth
+        check(truth.dtype == torch.float32 and bool(torch.isfinite(truth).all()),
+              f"{arch} float32 truth")
+        check(vs_truth["kernel_argmax_agree"]
+              >= vs_truth["plain_argmax_agree"] - LM_TRUTH_ARGMAX_SLACK
+              and vs_truth["kernel_mean_abs_err"]
+              <= LM_TRUTH_GAP_RATIO * vs_truth["plain_mean_abs_err"],
+              f"{arch} kernel path against the float32 truth: {vs_truth}")
+        del logits, ref, truth, truth_arg
         torch.cuda.empty_cache()
 
         # float32 at full width, 4 layers: decode reproduces the prefill,
@@ -1898,6 +2093,29 @@ def main() -> None:
          reps=dict(kernel=KERNEL_REPS, plain=PLAIN_REPS),
          seconds=time.perf_counter() - t0)
 
+    # B4 beyond its per-thread column array: four tenants over the
+    # registry at four depths on the iot-class window, 259 merged columns
+    t0 = time.perf_counter()
+    reps_wm = [FeatureRep(tuple(FEATURE_NAMES), depth=d) for d in WM_DEPTHS]
+    rng_wm = np.random.default_rng(259)
+    wm = b4_check("wide_merge", ds, reps_wm, [quantile_forest(
+        extract_features(ds, r.features, r.depth, device="cpu"), rng_wm)
+        for r in reps_wm], dev, flush)
+    check(all(c["merged_columns"] == 259 for c in wm["cases"]),
+          f"the wide merge has {wm['cases'][0]['merged_columns']} columns")
+    emit("kernel_check", kernel="fused_multi_forest_infer", config="wide_merge",
+         cases=wm["cases"])
+    emit("kernel_times_wide_merge", timing=wm["timing"],
+         reps=dict(kernel=KERNEL_REPS, plain=PLAIN_REPS),
+         seconds=time.perf_counter() - t0)
+
+    # B2 and B4 at windows above their per-thread sample buffer, and a
+    # replayed profiler evaluation there
+    lw = long_window_phase(ds_s, dev, flush, {
+        "forest_infer": forest_infer_kernel_call,
+        "fused_forest_infer": fused_pipeline_call})
+    emit("long_window_seconds", seconds=lw["seconds"])
+
     # B5's path, the entry point on the main path's two windows, counted;
     # then B5 against its plain version on every case, then its times
     t0 = time.perf_counter()
@@ -2180,7 +2398,8 @@ def main() -> None:
         dict(name="fused_forest_infer", route="cuda",
              source="src/repro_torch/csrc/fused_pipeline.cu",
              replaces="src/repro/kernels/fused_pipeline.py:209",
-             launches=launches["fused_forest_infer"], max_abs_err=b2_err,
+             launches=launches["fused_forest_infer"],
+             max_abs_err=max(b2_err, *(c["max_abs_err"] for c in lw["cases"])),
              straddled=b2_straddled, argmax_mismatches=b2_mism,
              max_col_rel_err=b2_col_err,
              control_launches=ctl["launches"]["fused_forest_infer"],
@@ -2191,7 +2410,14 @@ def main() -> None:
              bound_ms=timing["fused_forest_infer"]["bound_ms"],
              bound_us=timing["fused_forest_infer"]["bound_ms"] * 1e3,
              bound_by=timing["fused_forest_infer"]["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             long_window=dict(
+                 {k: lw["timing"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms",
+                                               "shape")},
+                 bitwise_depths=[c["depth"] for c in lw["cases"]],
+                 profiler_launches=lw["profiler"]["launches"][
+                     "fused_forest_infer"])),
         dict(name="fused_agg_infer", route="cuda",
              source="src/repro_torch/csrc/fused_agg.cu",
              replaces="src/repro/kernels/fused_pipeline.py:467",
@@ -2213,9 +2439,11 @@ def main() -> None:
              launches=mt["arms"]["shared"]["launches"][
                  "fused_multi_forest_infer"],
              cotune_launches=co["knee"]["launches"]["fused_multi_forest_infer"],
-             max_abs_err=max(v["max_abs_err"] for v in b4.values()),
+             max_abs_err=max(v["max_abs_err"]
+                             for v in (*b4.values(), wm, lw["b4"])),
              straddled=0,
-             argmax_mismatches=sum(v["argmax_mismatches"] for v in b4.values()),
+             argmax_mismatches=sum(v["argmax_mismatches"]
+                                   for v in (*b4.values(), wm, lw["b4"])),
              ms=b4["wide"]["timing"]["ms"],
              plain_ms=b4["wide"]["timing"]["plain_ms"],
              ms_32_flows=b4["wide"]["timing"]["ms_32"],
@@ -2227,7 +2455,11 @@ def main() -> None:
              fleet_plain_ms=b4["fleet"]["timing"]["plain_ms"],
              fleet_ms_32_flows=b4["fleet"]["timing"]["ms_32"],
              fleet_bound_ms=b4["fleet"]["timing"]["bound_ms"],
-             library_ms=None),
+             library_ms=None,
+             wide_merge={k: wm["timing"][k] for k in (
+                 "ms", "plain_ms", "ms_32", "bound_ms", "bound_by", "shape")},
+             long_window_windows=[c["union_window"]
+                                  for c in lw["b4"]["cases"]]),
         dict(name="flow_stats", route="cuda",
              source="src/repro_torch/csrc/flow_stats.cu",
              replaces="src/repro/kernels/feature_extract.py:41",

@@ -39,7 +39,13 @@
 // owns its flow's output row (N, sum K), so there are no atomics. The
 // merged columns live in a per-thread array of kMaxMergedColumns floats
 // (1 KB, in local memory: two tenants over the 67-feature registry at two
-// depths already need 131 columns).
+// depths already need 131 columns); a plan of more columns keeps them in
+// the flow's row of the (N, F) `columns` buffer, which the wrapper then
+// always passes (four tenants over the registry at four depths merge to
+// 259). A statistic's samples go to a per-thread buffer when the window
+// min(P, largest depth) is at most kMaxWindow, else to the flow's column of
+// the wrapper's [W][N] scratch (plan_columns.cuh). Each of the four cases
+// is its own instantiation, chosen on the host from the null pointers.
 //
 // Bound on the H100. Memory: each flow's valid packets up to the union
 // depth (25 bytes a packet), 16 bytes of per-flow metadata, the op table
@@ -55,13 +61,15 @@
 
 namespace {
 
-constexpr int kMaxMergedColumns = 256;  // F; the wrapper raises above it
+// the per-thread column array's size; a wider plan uses `columns`
+constexpr int kMaxMergedColumns = 256;
 constexpr int kOpFields = 5;            // kind, direction, field, stat, depth
 constexpr int kSpecFields = 7;
 // spec row fields (repro_torch/convert.py `multi_forest_tables`)
 enum Spec { kOffset = 0, kTrees = 1, kTreesPadded = 2, kDepth = 3,
             kBlock = 4, kClasses = 5, kLane = 6 };
 
+template <bool kScratch, bool kWide>
 __global__ void __launch_bounds__(cato::kThreads) fused_multi_forest_kernel(
     const float* __restrict__ ts, const float* __restrict__ size,
     const uint8_t* __restrict__ direction, const float* __restrict__ ttl,
@@ -75,7 +83,8 @@ __global__ void __launch_bounds__(cato::kThreads) fused_multi_forest_kernel(
     const float* __restrict__ threshold,  // (sum T_pad, NI)
     const float* __restrict__ leaf,       // (sum T_pad, NL, K_max)
     float* __restrict__ out,              // (N, k_sum)
-    float* __restrict__ columns,          // (N, F) or null
+    float* __restrict__ columns,          // (N, F), or null unless kWide
+    float* __restrict__ scratch,          // (W, N) when kScratch
     int N, int P, int F, int max_depth, int n_tenants, int NI, int NL,
     int K_max, int k_sum) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
@@ -83,8 +92,11 @@ __global__ void __launch_bounds__(cato::kThreads) fused_multi_forest_kernel(
   const size_t base = static_cast<size_t>(n) * P;
   const int fl = flow_len[n];
   const float meta[3] = {proto[n], s_port[n], d_port[n]};
-  float x[kMaxMergedColumns];
-  float buf[cato::kMaxWindow];
+  float local_x[kWide ? 1 : kMaxMergedColumns];
+  float* x = kWide ? columns + static_cast<size_t>(n) * F : local_x;
+  float local[kScratch ? 1 : cato::kMaxWindow];
+  const cato::Samples buf = kScratch ? cato::Samples{scratch + n, N}
+                                     : cato::Samples{local, 1};
 
   // depth groups in ascending order; every thread walks the same table
   for (int prev = -1;;) {
@@ -94,8 +106,8 @@ __global__ void __launch_bounds__(cato::kThreads) fused_multi_forest_kernel(
       if (df > prev && df < d) d = df;
     }
     if (d == INT_MAX) break;
-    // max_depth (the plan's largest depth, checked by the wrapper against
-    // kMaxWindow) only guards the buffer against a table that lies
+    // max_depth (the plan's largest depth, from which the wrapper sizes
+    // the window) only guards the buffer against a table that lies
     const int dd = d ? min(min(d, max_depth), P) : 1;
     const cato::Row r{ts + base, size + base, direction + base, ttl + base,
                       winsize + base, flags + base * 8, max(0, min(fl, dd))};
@@ -106,7 +118,7 @@ __global__ void __launch_bounds__(cato::kThreads) fused_multi_forest_kernel(
     }
     prev = d;
   }
-  if (columns != nullptr)
+  if (!kWide && columns != nullptr)
     for (int f = 0; f < F; ++f) columns[static_cast<size_t>(n) * F + f] = x[f];
 
   float* row = out + static_cast<size_t>(n) * k_sum;
@@ -124,22 +136,34 @@ __global__ void __launch_bounds__(cato::kThreads) fused_multi_forest_kernel(
 }  // namespace
 
 // Launches on `stream`, allocates nothing, does not synchronise. `columns`
-// is null when serving; a check passes an (N, F) buffer to read the
-// kernel's own merged columns. Returns cudaGetLastError() after the launch.
+// is null when serving a plan of at most kMaxMergedColumns columns; a
+// check passes an (N, F) buffer to read the kernel's own merged columns,
+// and a wider plan always has one. `scratch` is null when min(P,
+// max_depth) <= kMaxWindow, else a (min(P, max_depth), N) float32 buffer.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for a wide plan without `columns`.
 extern "C" int fused_multi_forest_launch(
     const float* ts, const float* size, const uint8_t* direction,
     const float* ttl, const float* winsize, const uint8_t* flags,
     const int* flow_len, const float* proto, const float* s_port,
     const float* d_port, const int* op_table, const int* spec,
     const float* rescale, const int* feature, const float* threshold,
-    const float* leaf, float* out, float* columns, int N, int P, int F,
-    int max_depth, int n_tenants, int NI, int NL, int K_max, int k_sum,
-    void* stream) {
+    const float* leaf, float* out, float* columns, float* scratch, int N,
+    int P, int F, int max_depth, int n_tenants, int NI, int NL, int K_max,
+    int k_sum, void* stream) {
+  const bool wide = F > kMaxMergedColumns;
+  if (wide && columns == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (N + cato::kThreads - 1) / cato::kThreads;
-  fused_multi_forest_kernel<<<blocks, cato::kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kernel = scratch != nullptr
+                    ? (wide ? fused_multi_forest_kernel<true, true>
+                            : fused_multi_forest_kernel<true, false>)
+                    : (wide ? fused_multi_forest_kernel<false, true>
+                            : fused_multi_forest_kernel<false, false>);
+  kernel<<<blocks, cato::kThreads, 0, s>>>(
       ts, size, direction, ttl, winsize, flags, flow_len, proto, s_port,
       d_port, op_table, spec, rescale, feature, threshold, leaf, out, columns,
-      N, P, F, max_depth, n_tenants, NI, NL, K_max, k_sum);
+      scratch, N, P, F, max_depth, n_tenants, NI, NL, K_max, k_sum);
   return static_cast<int>(cudaGetLastError());
 }

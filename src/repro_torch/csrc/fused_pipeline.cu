@@ -19,8 +19,12 @@
 // reads the first L = min(flow_len, depth, P) packets of its own rows:
 // ts, size, ttl, winsize (float32), direction and flags (uint8, 8 flags
 // per packet). Its F columns live in a per-thread array (kMaxFeatures).
-// The column code, and the parity notes that go with it, are in
-// plan_columns.cuh, which B4 (fused_multi.cu) shares.
+// A statistic's samples go to a per-thread buffer when the window
+// W = min(P, depth) is at most kMaxWindow, else to the thread's column of
+// the wrapper's [W][N] scratch: one kernel instantiation each, chosen by
+// whether the scratch pointer is null. The column code, and the parity
+// notes that go with it, are in plan_columns.cuh, which B4
+// (fused_multi.cu) shares.
 //
 // Bound on the H100. Memory: the valid packets of each flow (4 float32
 // fields, 1 direction byte, 8 flag bytes: 25 bytes a packet), 16 bytes of
@@ -36,6 +40,7 @@ namespace {
 
 constexpr int kMaxFeatures = 128;  // F; the wrapper raises above it
 
+template <bool kScratch>
 __global__ void __launch_bounds__(cato::kThreads) fused_forest_infer_kernel(
     const float* __restrict__ ts, const float* __restrict__ size,
     const uint8_t* __restrict__ direction, const float* __restrict__ ttl,
@@ -48,6 +53,7 @@ __global__ void __launch_bounds__(cato::kThreads) fused_forest_infer_kernel(
     const float* __restrict__ leaf,       // (T, 2^D, K)
     float* __restrict__ out,              // (N, K)
     float* __restrict__ columns,          // (N, F) or null
+    float* __restrict__ scratch,          // (W, N) when kScratch
     int N, int P, int F, int depth, int forest_depth, int T, int K,
     int block_t, int n_trees_padded, float rescale) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
@@ -60,7 +66,9 @@ __global__ void __launch_bounds__(cato::kThreads) fused_forest_infer_kernel(
   const cato::WindowTerms w = cato::window_terms(r);
   const float meta[3] = {proto[n], s_port[n], d_port[n]};
   float x[kMaxFeatures];
-  float buf[cato::kMaxWindow];
+  float local[kScratch ? 1 : cato::kMaxWindow];
+  const cato::Samples buf = kScratch ? cato::Samples{scratch + n, N}
+                                     : cato::Samples{local, 1};
   for (int f = 0; f < F; ++f) {
     const float v = cato::column_value(r, w, op_table + 4 * f, meta, buf);
     x[f] = v;
@@ -75,20 +83,24 @@ __global__ void __launch_bounds__(cato::kThreads) fused_forest_infer_kernel(
 
 // Launches on `stream`, allocates nothing, does not synchronise. `columns`
 // is null when serving; a check passes an (N, F) buffer to read the
-// kernel's own feature columns. Returns cudaGetLastError() after the launch.
+// kernel's own feature columns. `scratch` is null when min(P, depth) <=
+// kMaxWindow, else a (min(P, depth), N) float32 buffer. Returns
+// cudaGetLastError() after the launch.
 extern "C" int fused_forest_infer_launch(
     const float* ts, const float* size, const uint8_t* direction,
     const float* ttl, const float* winsize, const uint8_t* flags,
     const int* flow_len, const float* proto, const float* s_port,
     const float* d_port, const int* op_table, const int* feature,
     const float* threshold, const float* leaf, float* out, float* columns,
-    int N, int P, int F, int depth, int forest_depth, int T, int K,
-    int block_t, int n_trees_padded, float rescale, void* stream) {
+    float* scratch, int N, int P, int F, int depth, int forest_depth, int T,
+    int K, int block_t, int n_trees_padded, float rescale, void* stream) {
   const int blocks = (N + cato::kThreads - 1) / cato::kThreads;
-  fused_forest_infer_kernel<<<blocks, cato::kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kernel = scratch != nullptr ? fused_forest_infer_kernel<true>
+                                   : fused_forest_infer_kernel<false>;
+  kernel<<<blocks, cato::kThreads, 0, s>>>(
       ts, size, direction, ttl, winsize, flags, flow_len, proto, s_port,
-      d_port, op_table, feature, threshold, leaf, out, columns, N, P, F,
-      depth, forest_depth, T, K, block_t, n_trees_padded, rescale);
+      d_port, op_table, feature, threshold, leaf, out, columns, scratch, N, P,
+      F, depth, forest_depth, T, K, block_t, n_trees_padded, rescale);
   return static_cast<int>(cudaGetLastError());
 }

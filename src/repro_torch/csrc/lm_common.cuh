@@ -4,8 +4,8 @@
 // Each kernel reads float32 or bfloat16 tensors, computes in float32 and
 // writes its input's type, as the TPU kernels do (`astype(jnp.float32)` on
 // load, `astype(o_ref.dtype)` on store). Dot products are explicit fmaf
-// chains: the library is built with --fmad=false, so nothing else is
-// contracted.
+// chains, or, in B6's bf16 kernel, wgmma on the tensor cores: the library
+// is built with --fmad=false, so nothing else is contracted.
 #pragma once
 
 #include <cuda_bf16.h>

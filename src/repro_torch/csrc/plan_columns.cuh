@@ -10,9 +10,14 @@
 // across the warp.
 //
 // A thread reads the first L = min(flow_len, depth, P) packets of its own
-// rows. The samples of one statistic are gathered into a per-thread buffer
-// of kMaxWindow floats, where the median sorts them by insertion (O(L^2), L
-// is at most the connection depth). Sums run in packet order.
+// rows. The samples of one statistic are gathered into a buffer (`Samples`):
+// a per-thread array of kMaxWindow floats when the window W = min(P, depth)
+// fits it, else the thread's column of a [W][N] scratch in device memory
+// that the wrapper allocates (sample i of flow n at i * N + n, so that a
+// warp's accesses coalesce). Both go through the same code. The median
+// selects its two ranks with a heap sort in place (O(L log L)); any exact
+// selection gives the same two samples, so the same bits. Sums run in
+// packet order.
 //
 // Parity with the reference, where it is most likely to break:
 // - directional inter-arrival times use the *exclusive* running max of the
@@ -33,7 +38,8 @@
 
 namespace cato {
 
-constexpr int kMaxWindow = 128;  // min(P, depth); the wrappers raise above
+// the per-thread sample buffer's size; a larger window uses the scratch
+constexpr int kMaxWindow = 128;
 constexpr float kBig = 3.4e38f;
 
 // op table: kind, direction (0 = src, 1 = dst), field, stat
@@ -56,6 +62,16 @@ struct Row {  // one flow's packets
   int L;                 // valid packets
 };
 
+// One flow's sample buffer: a per-thread array (stride 1) or the flow's
+// column of the [W][N] scratch (stride N).
+struct Samples {
+  float* p;
+  int stride;
+  __device__ __forceinline__ float& operator[](int i) const {
+    return p[static_cast<size_t>(i) * stride];
+  }
+};
+
 // Terms several ops of one window share: duration and handshake times.
 struct WindowTerms {
   float dur;
@@ -63,7 +79,8 @@ struct WindowTerms {
 };
 
 // The samples of (direction d, field) in packet order; returns their count.
-__device__ inline int gather(const Row& r, int d, int field, float* buf) {
+__device__ inline int gather(const Row& r, int d, int field,
+                              const Samples& buf) {
   int c = 0;
   if (field == kIat) {
     float prev = -kBig;  // exclusive running max of same-direction ts
@@ -81,7 +98,44 @@ __device__ inline int gather(const Row& r, int d, int field, float* buf) {
   return c;
 }
 
-__device__ inline float stat_of(float* buf, int c, int stat) {
+// Restore the max-heap a[root..end) below `root`.
+__device__ inline void sift_down(const Samples& a, int root, int end) {
+  const float v = a[root];
+  int i = root;
+  for (;;) {
+    int child = 2 * i + 1;
+    if (child >= end) break;
+    float cv = a[child];
+    if (child + 1 < end) {
+      const float rv = a[child + 1];
+      if (rv > cv) {
+        ++child;
+        cv = rv;
+      }
+    }
+    if (!(cv > v)) break;
+    a[i] = cv;
+    i = child;
+  }
+  a[i] = v;
+}
+
+// The median of a[0..c), c >= 1, by heap sort in place until ranks
+// (c-1)/2 and c/2 are known: a[lo + 1..c) then holds the largest samples in
+// order and a[0], the top of the heap of the rest, is the sample of rank lo.
+__device__ inline float median_of(const Samples& a, int c) {
+  const int lo = (c - 1) / 2;
+  for (int i = c / 2 - 1; i >= 0; --i) sift_down(a, i, c);
+  for (int end = c - 1; end > lo; --end) {
+    const float top = a[0];
+    a[0] = a[end];
+    a[end] = top;
+    sift_down(a, 0, end);
+  }
+  return 0.5f * (a[0] + (c / 2 == lo ? a[0] : a[lo + 1]));
+}
+
+__device__ inline float stat_of(const Samples& buf, int c, int stat) {
   if (c == 0) return 0.0f;
   float s = 0.0f;
   for (int i = 0; i < c; ++i) s += buf[i];
@@ -101,18 +155,8 @@ __device__ inline float stat_of(float* buf, int c, int stat) {
       for (int i = 1; i < c; ++i) m = fmaxf(m, buf[i]);
       return m;
     }
-    case kMed: {
-      for (int i = 1; i < c; ++i) {  // insertion sort, ascending
-        const float v = buf[i];
-        int j = i - 1;
-        while (j >= 0 && buf[j] > v) {
-          buf[j + 1] = buf[j];
-          --j;
-        }
-        buf[j + 1] = v;
-      }
-      return 0.5f * (buf[(c - 1) / 2] + buf[c / 2]);
-    }
+    case kMed:
+      return median_of(buf, c);
     default: {  // kStd, two-pass; the squares accumulate by fused
                 // multiply-add, as the plain version's `_seq_sum` does
       const float mean = s / fc;
@@ -149,7 +193,8 @@ __device__ inline WindowTerms window_terms(const Row& r) {
 // window `r`; `meta` holds the flow's proto, s_port and d_port.
 __device__ inline float column_value(const Row& r, const WindowTerms& w,
                                      const int* __restrict__ op,
-                                     const float meta[3], float* buf) {
+                                     const float meta[3],
+                                     const Samples& buf) {
   const int kind = __ldg(op);
   const int d = __ldg(op + 1);
   const int field = __ldg(op + 2);

@@ -48,11 +48,11 @@ _SIGNATURES = {
     "forest_infer_launch": (
         [_VOID] * 5 + [_INT] * 7 + [_FLOAT, _VOID]),
     "fused_forest_infer_launch": (
-        [_VOID] * 16 + [_INT] * 9 + [_FLOAT, _VOID]),
+        [_VOID] * 17 + [_INT] * 9 + [_FLOAT, _VOID]),
     "fused_agg_infer_launch": (
         [_VOID] * 8 + [_INT] * 7 + [_FLOAT, _VOID]),
     "fused_multi_forest_launch": (
-        [_VOID] * 18 + [_INT] * 9 + [_VOID]),
+        [_VOID] * 19 + [_INT] * 9 + [_VOID]),
     "flash_attention_launch": (
         [_VOID] * 4 + [_INT] * 8 + [_FLOAT, _VOID]),
     "decode_attention_launch": (

@@ -10,18 +10,32 @@ Causal rows see keys up to their position plus ``Tk - Tq``. Ragged
 ``Tq`` and ``Tk`` are handled in the kernel; nothing is padded.
 
 `flash_attention_kernel_call` launches ``csrc/flash_attention.cu`` (see the
-source note for its design and bound); `flash_attention_plain` computes the
-same function with torch ops in the kernel's order of arithmetic: an
-online softmax over tiles of 64 keys, masked entries weighted 0, a row
-with no valid key 0. On the card the two agree to the last bit where the
-GEMMs accumulate each tile in key order, and to float32 rounding
-elsewhere; a one-pass softmax differs from the kernel by enough to flip
-bf16 roundings, which a deep bf16 model amplifies.
-`repro_torch.kernels.ops.flash_attention` picks between them by the device
-of `q`.
+source note for its design and bound): bfloat16 inputs go to a tensor-core
+kernel (wgmma on 64-key tiles that TMA loads), float32 inputs to a scalar
+float32 kernel. `flash_attention_plain` computes the same function with
+torch ops in each kernel's arithmetic, an online softmax over tiles of
+`TILE_K` keys, masked entries weighted 0, a row with no valid key 0:
+
+- float32: the scalar kernel's order, each tile's row sum in its lane
+  butterfly (`_lane_sum`).
+- bfloat16: the tensor-core kernel's, S and P V as bf16 GEMMs into float32
+  (cuBLAS's on the card, which sum as wgmma does), exp2 of the scores
+  times scale * log2(e), P rounded to bf16, the row sum l over that
+  rounded P in the kernel's quad order (`_quad_sum`), ``acc = acc * alpha
+  + P_bf16 @ V``.
+
+On the card each agrees with its kernel to the last bit; a difference of
+one bf16 rounding, carried through a deep random bf16 model, would move
+some of its argmaxes. On the CPU the bf16 GEMMs are float32 products, one
+rounding from the card's.
+`repro_torch.kernels.ops.flash_attention` picks between kernel and plain
+version by the device of `q`.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -31,8 +45,9 @@ __all__ = ["HEAD_DIMS", "TILE_K", "flash_attention_kernel_call",
            "flash_attention_plain"]
 
 HEAD_DIMS = (32, 64, 128)   # the head sizes the kernel is compiled for
-TILE_K = 64                 # keys per tile, kBK in the source
+TILE_K = 64                 # keys per tile, kBK and kWgBK in the source
 _DTYPES = (torch.float32, torch.bfloat16)
+_LOG2E = 1.4426950408889634   # the kernel's float32 factor is scale * this
 
 
 def _shapes(q, k, v):
@@ -62,12 +77,22 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     """(B, Hq, Tq, D) attention output in q's type; runs on any device.
 
     The kernel's online softmax, tile by tile of `TILE_K` keys: the running
-    max from -1e30 over valid keys, ``l = l * alpha + sum(p)`` (the sum in
-    the kernel's lane order), ``acc = acc * alpha + p @ v_tile``; masked
-    keys weigh 0, and a row with no valid key gives 0."""
+    max from -1e30 over valid keys, ``l = l * alpha + sum(p)``, ``acc = acc
+    * alpha + p @ v_tile``; masked keys weigh 0, and a row with no valid
+    key gives 0. bfloat16 inputs follow the tensor-core kernel
+    (`_plain_bf16`), float32 inputs the scalar kernel (`_plain_f32`)."""
+    B, Hq, Hkv, Tq, Tk, D = _shapes(q, k, v)
+    scale = scale if scale is not None else D ** -0.5
+    if q.dtype == torch.bfloat16:
+        return _plain_bf16(q, k, v, causal, scale)
+    return _plain_f32(q, k, v, causal, scale)
+
+
+def _plain_f32(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """The scalar kernel's order: float32 GEMMs per tile, each tile's row
+    sum in the kernel's lane order (`_lane_sum`)."""
     B, Hq, Hkv, Tq, Tk, D = _shapes(q, k, v)
     g = Hq // Hkv
-    scale = scale if scale is not None else D ** -0.5
     pad = (-Tk) % TILE_K
     kf = F.pad(k.float(), (0, 0, 0, pad)).repeat_interleave(g, dim=1)
     vf = F.pad(v.float(), (0, 0, 0, pad)).repeat_interleave(g, dim=1)
@@ -94,14 +119,78 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out.to(q.dtype)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., M, K) @ (..., K, N) in float32 from bf16 operands. On the card
+    a bf16 GEMM with float32 output (the tensor cores, as the kernel's
+    wgmma: exact products, float32 sums in 16-deep steps in K order);
+    elsewhere a float32 product."""
+    if not a.is_cuda:
+        return torch.matmul(a.float(), b.float())
+    lead = a.shape[:-2]
+    return torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                     out_dtype=torch.float32).reshape(*lead, a.shape[-2],
+                                                      b.shape[-1])
+
+
+def _quad_sum(p: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (64 keys) in the tensor-core kernel's order:
+    the thread holding keys 8j + 2q and 8j + 2q + 1 (q = lane % 4) adds
+    each pair, then its 8 pairs in key order; the four threads' sums then
+    meet in a quad shuffle, (s0 + s1) + (s2 + s3)."""
+    x = p.unflatten(-1, (8, 4, 2))
+    x = x[..., 0] + x[..., 1]
+    t = x[..., 0, :]
+    for j in range(1, 8):
+        t = t + x[..., j, :]
+    return ((t[..., 0] + t[..., 1]) + (t[..., 2] + t[..., 3]))[..., None]
+
+
+def _plain_bf16(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic: S = Q K^T and P V as bf16 GEMMs
+    into float32 (`_mm_f32`), the scores times scale * log2(e) rounded to
+    float32 and exponentiated by exp2, P rounded to bf16, l summed over
+    that rounded P in the kernel's order (`_quad_sum`), ``acc = acc *
+    alpha + P_bf16 @ V`` with the tile's product from zero, out = acc / l.
+    On the card this repeats the kernel wherever cuBLAS's GEMM sums as
+    wgmma does."""
+    B, Hq, Hkv, Tq, Tk, D = _shapes(q, k, v)
+    g = Hq // Hkv
+    pad = (-Tk) % TILE_K
+    kb = F.pad(k, (0, 0, 0, pad)).repeat_interleave(g, dim=1)
+    vb = F.pad(v, (0, 0, 0, pad)).repeat_interleave(g, dim=1)
+    # the kernel's float32 factor: scale and log2(e) as float32, multiplied
+    c = float(np.float32(np.float32(scale) * np.float32(_LOG2E)))
+    dev = q.device
+    qpos = torch.arange(Tq, device=dev)[:, None] + (Tk - Tq)
+    m = torch.full((B, Hq, Tq, 1), -1e30, device=dev)
+    l = torch.zeros((B, Hq, Tq, 1), device=dev)
+    acc = torch.zeros((B, Hq, Tq, D), device=dev)
+    for k0 in range(0, Tk + pad, TILE_K):
+        s = _mm_f32(q, kb[:, :, k0:k0 + TILE_K].transpose(-1, -2)) * c
+        key = k0 + torch.arange(TILE_K, device=dev)[None, :]
+        valid = key < Tk
+        if causal:
+            valid = valid & (key <= qpos)
+        s = s.masked_fill(~valid, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new).to(torch.bfloat16)
+        l = l * alpha + _quad_sum(p.float())
+        acc = acc * alpha + _mm_f32(p, vb[:, :, k0:k0 + TILE_K])
+        m = m_new
+    out = torch.where(l > 0, acc / l, torch.zeros_like(acc))
+    return out.to(q.dtype)
+
+
 def flash_attention_kernel_call(q, k, v, *, causal: bool = True,
                                 scale: float | None = None) -> torch.Tensor:
     """Launch the B6 CUDA kernel on CUDA tensors; returns (B, Hq, Tq, D) in
     q's type.
 
     q, k and v are contiguous, of one type (float32 or bfloat16), with head
-    size D in `HEAD_DIMS`; anything else raises. Launches on the current
-    stream and does not synchronise.
+    size D in `HEAD_DIMS`; bfloat16 tensors start on 16-byte boundaries
+    (TMA reads them); anything else raises. Launches on the current stream
+    and does not synchronise.
     """
     B, Hq, Hkv, Tq, Tk, D = _shapes(q, k, v)
     if D not in HEAD_DIMS:
@@ -112,6 +201,9 @@ def flash_attention_kernel_call(q, k, v, *, causal: bool = True,
     check_tensor("q", q, q.dtype, (B, Hq, Tq, D), dev)
     check_tensor("k", k, q.dtype, (B, Hkv, Tk, D), dev)
     check_tensor("v", v, q.dtype, (B, Hkv, Tk, D), dev)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 kernel loads q, k and v by TMA: each must "
+                         "start on a 16-byte boundary")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

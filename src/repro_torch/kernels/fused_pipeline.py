@@ -63,8 +63,12 @@ __all__ = ["encode_plan", "decode_plan", "fused_forest_infer",
            "MAX_MERGED_COLUMNS", "MAX_WINDOW", "SPEC_FIELDS"]
 
 MAX_FEATURES = 128  # kMaxFeatures in csrc/fused_pipeline.cu and fused_agg.cu
-MAX_MERGED_COLUMNS = 256  # kMaxMergedColumns in csrc/fused_multi.cu
-MAX_WINDOW = 128    # kMaxWindow: the most packets a flow's window may hold
+# kMaxMergedColumns in csrc/fused_multi.cu: B4's per-thread column array;
+# a wider merged plan keeps its columns in the (N, F) `columns` buffer
+MAX_MERGED_COLUMNS = 256
+# kMaxWindow in csrc/plan_columns.cuh: the per-thread sample buffer of B2
+# and B4; a longer window W = min(P, depth) takes a (W, N) scratch instead
+MAX_WINDOW = 128
 # B4's per-tenant spec row (csrc/fused_multi.cu `Spec`): tree offset, trees,
 # padded trees, forest depth, tree block, classes, lane offset
 SPEC_FIELDS = ("offset", "trees", "trees_padded", "depth", "block_t",
@@ -136,6 +140,18 @@ def _check_forest(feature, threshold, leaf, forest_depth: int, dev) -> tuple:
     return T, K
 
 
+def _window_scratch(N: int, window: int, dev) -> torch.Tensor | None:
+    """B2's and B4's (window, N) sample scratch, or None when the window
+    fits the kernels' per-thread buffer."""
+    if window <= MAX_WINDOW:
+        return None
+    return torch.empty((window, N), dtype=torch.float32, device=dev)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 def fused_forest_infer_plain(
     ts, size, direction, ttl, winsize, flags, flow_len, proto, s_port, d_port,
     feature, threshold, leaf, *, op_table, depth: int, forest_depth: int,
@@ -166,10 +182,10 @@ def fused_pipeline_call(
     the forest tables as `forest_infer_kernel_call` takes them, and the
     int32 (F, 4) `op_table` from `encode_plan`, all contiguous on one CUDA
     device. The kernel reads the first ``min(P, depth)`` packets of each
-    row, which may be at most MAX_WINDOW; F may be at most MAX_FEATURES.
-    `columns`, if given, is an (N, F) float32 buffer that receives the
-    kernel's own feature columns. Launches on the current stream and does
-    not synchronise.
+    row; above MAX_WINDOW packets a statistic's samples go to a scratch
+    allocated here. F may be at most MAX_FEATURES. `columns`, if given, is
+    an (N, F) float32 buffer that receives the kernel's own feature
+    columns. Launches on the current stream and does not synchronise.
     """
     dev = ts.device
     if ts.ndim != 2 or op_table.ndim != 2:
@@ -178,9 +194,6 @@ def fused_pipeline_call(
     nf = op_table.shape[0]
     if not 1 <= nf <= MAX_FEATURES:
         raise ValueError(f"plan has {nf} columns; the kernel takes 1..{MAX_FEATURES}")
-    if min(P, depth) > MAX_WINDOW:
-        raise ValueError(f"packet window min(P={P}, depth={depth}) exceeds "
-                         f"the kernel's {MAX_WINDOW}")
     T, K = _check_forest(feature, threshold, leaf, forest_depth, dev)
     for name, t in (("ts", ts), ("size", size), ("ttl", ttl),
                     ("winsize", winsize)):
@@ -197,13 +210,14 @@ def fused_pipeline_call(
     if N == 0:
         return out
     bt, tp, rescale = tree_blocking(T, block_t)
+    scratch = _window_scratch(N, min(P, depth), dev)
     launch("fused_forest_infer_launch", dev,
            ts.data_ptr(), size.data_ptr(), direction.data_ptr(),
            ttl.data_ptr(), winsize.data_ptr(), flags.data_ptr(),
            flow_len.data_ptr(), proto.data_ptr(), s_port.data_ptr(),
            d_port.data_ptr(), op_table.data_ptr(), feature.data_ptr(),
            threshold.data_ptr(), leaf.data_ptr(), out.data_ptr(),
-           None if columns is None else columns.data_ptr(),
+           _ptr(columns), _ptr(scratch),
            N, P, nf, depth, forest_depth, T, K, bt, tp, rescale)
     fused_pipeline_call.launches += 1
     return out
@@ -415,12 +429,14 @@ def fused_multi_forest_call(
     `rescale` from `repro_torch.convert.multi_forest_tables`; the int32
     (F, 5) `op_table` from `encode_merged_plan`; `depth`, the merged plan's
     largest connection depth, and `n_out`, the sum of the tenants' class
-    counts. All contiguous on one CUDA device. F may be at most
-    MAX_MERGED_COLUMNS and ``min(P, depth)`` at most MAX_WINDOW. The spec
-    is checked once, where the tables are made, not per call (that would
-    read the card back). `columns`, if given, is an (N, F) float32 buffer
-    that receives the kernel's own merged columns. Launches on the current
-    stream and does not synchronise.
+    counts. All contiguous on one CUDA device. The spec is checked once,
+    where the tables are made, not per call (that would read the card
+    back). `columns`, if given, is an (N, F) float32 buffer that receives
+    the kernel's own merged columns; above MAX_MERGED_COLUMNS columns the
+    kernel keeps its columns there, in one allocated here if none is
+    given. Above MAX_WINDOW packets (``min(P, depth)``) a statistic's
+    samples go to a scratch allocated here. Launches on the current stream
+    and does not synchronise.
     """
     dev = ts.device
     if (ts.ndim != 2 or op_table.ndim != 2 or feature.ndim != 2
@@ -429,12 +445,8 @@ def fused_multi_forest_call(
                          "(ΣT, NI), leaf (ΣT, NL, K), spec (n_tenants, 7)")
     N, P = ts.shape
     nf = op_table.shape[0]
-    if not 1 <= nf <= MAX_MERGED_COLUMNS:
-        raise ValueError(f"merged plan has {nf} columns; the kernel takes "
-                         f"1..{MAX_MERGED_COLUMNS}")
-    if min(P, depth) > MAX_WINDOW:
-        raise ValueError(f"packet window min(P={P}, depth={depth}) exceeds "
-                         f"the kernel's {MAX_WINDOW}")
+    if nf < 1:
+        raise ValueError("the merged plan has no column")
     TP, NI = feature.shape
     NL, K = leaf.shape[1], leaf.shape[2]
     nt = spec.shape[0]
@@ -461,14 +473,16 @@ def fused_multi_forest_call(
     out = torch.empty((N, n_out), dtype=torch.float32, device=dev)
     if N == 0:
         return out
+    if columns is None and nf > MAX_MERGED_COLUMNS:
+        columns = torch.empty((N, nf), dtype=torch.float32, device=dev)
+    scratch = _window_scratch(N, min(P, depth), dev)
     launch("fused_multi_forest_launch", dev,
            ts.data_ptr(), size.data_ptr(), direction.data_ptr(),
            ttl.data_ptr(), winsize.data_ptr(), flags.data_ptr(),
            flow_len.data_ptr(), proto.data_ptr(), s_port.data_ptr(),
            d_port.data_ptr(), op_table.data_ptr(), spec.data_ptr(),
            rescale.data_ptr(), feature.data_ptr(), threshold.data_ptr(),
-           leaf.data_ptr(), out.data_ptr(),
-           None if columns is None else columns.data_ptr(),
+           leaf.data_ptr(), out.data_ptr(), _ptr(columns), _ptr(scratch),
            N, P, nf, depth, nt, NI, NL, K, n_out)
     fused_multi_forest_call.launches += 1
     return out

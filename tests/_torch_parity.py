@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.convert import forest_from_numpy
 from repro_torch.kernels.ref import straddled_flows
 
 # non-straddled flows agree in probability to this (vote sums in another
@@ -39,3 +40,17 @@ def assert_straddle_parity(p_a, p_b, x_a, x_b, forest) -> int:
     np.testing.assert_allclose(p_b[keep], p_a[keep], rtol=0, atol=PROB_ATOL)
     np.testing.assert_array_equal(p_b[keep].argmax(1), p_a[keep].argmax(1))
     return int(s.sum())
+
+
+def quantile_forest(x, rng, T=6, D=5, K=4):
+    """A random depth-D forest over the (N, F) columns `x` whose thresholds
+    are quantile edges of those columns, as the trainer's are: ties
+    happen."""
+    x = np.asarray(x)
+    F = x.shape[1]
+    feature = rng.integers(0, F, (T, 2 ** D - 1))
+    q = rng.random((T, 2 ** D - 1))
+    threshold = np.quantile(x, q.ravel(), axis=0, method="lower")[
+        np.arange(q.size), feature.ravel()].reshape(T, -1)
+    return forest_from_numpy(feature, threshold, rng.random((T, 2 ** D, K)),
+                             D, F)

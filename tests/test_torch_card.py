@@ -6,16 +6,24 @@ port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import PROB_ATOL, assert_straddle_parity, cuda  # noqa: F401
+from _torch_parity import (  # noqa: F401
+    PROB_ATOL,
+    assert_straddle_parity,
+    cuda,
+    quantile_forest,
+)
 from repro_torch.convert import forest_from_numpy, forest_tables, multi_forest_tables
 from repro_torch.core.search_space import FeatureRep
 from repro_torch.kernels.fused_pipeline import (
     MAX_MERGED_COLUMNS,
     MAX_WINDOW,
+    decode_merged_plan,
     encode_merged_plan,
     encode_plan,
     fused_agg_call,
@@ -97,6 +105,38 @@ def test_fused_kernel_matches_plain(cuda, conn_depth):  # noqa: F811
     (pk, xk), (pp, xp) = outs
     np.testing.assert_allclose(xk, xp, rtol=1e-5, atol=1e-6)
     assert_straddle_parity(pp, pk, xp, xk, forest)
+
+
+@functools.cache
+def _stream_trace():
+    """Flows of up to 4000 packets: the stream phase's zipf app-class trace
+    (benchmarks/bench_runtime.py), cut to 200 flows."""
+    return make_scenario_dataset("app-class", "zipf", n_flows=200,
+                                 max_pkts=4000, seed=3)
+
+
+@pytest.mark.parametrize("depth", [129, 256, 4000])
+def test_fused_kernel_long_window_bitwise(cuda, depth):  # noqa: F811
+    """Windows above the per-thread sample buffer (MAX_WINDOW) go through
+    the kernel's scratch: columns, medians among them, and probabilities
+    bitwise the plain version's."""
+    ds = _stream_trace()
+    assert min(depth, ds.max_pkts) > MAX_WINDOW
+    assert (ds.flow_len > depth // 2).sum() > 0
+    plan = stats_plan(FEATURE_NAMES)
+    x = extract_features(ds, FEATURE_NAMES, depth, device=cuda)
+    forest = quantile_forest(x, np.random.default_rng(depth), T=9, D=6, K=28)
+    tables = forest_tables(forest, cuda)
+    op_table = torch.from_numpy(encode_plan(plan)).to(cuda)
+    outs = []
+    for fn in (fused_pipeline_call, fused_forest_infer_plain):
+        cols = torch.empty((ds.n_flows, len(plan)), device=cuda)
+        p = fn(*_packets(ds, cuda), *tables, op_table=op_table, depth=depth,
+               forest_depth=forest.depth, columns=cols)
+        outs.append((p.cpu().numpy(), cols.cpu().numpy()))
+    (pk, xk), (pp, xp) = outs
+    np.testing.assert_array_equal(xk, xp)
+    np.testing.assert_array_equal(pk, pp)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):  # noqa: F811
@@ -273,6 +313,65 @@ def test_multi_kernel_matches_plain_and_solo(cuda, case):  # noqa: F811
         lo = hi
 
 
+def _tenants_case(case):
+    """Flows, tenant feature reps and random quantile forests of the B4
+    cases beyond the per-thread arrays: two tenants whose union window is
+    129, 256 or 4000 packets (the registry at depth 100 beside a median
+    plan at the long depth), and four tenants over the registry at depths
+    5, 10, 15 and 20, whose merged plan has 259 columns."""
+    if case == "259_columns":
+        ds = make_dataset("iot-class", n_flows=600, max_pkts=128, seed=0)
+        reps = [FeatureRep(FEATURE_NAMES, d) for d in (5, 10, 15, 20)]
+    else:
+        ds = _stream_trace()
+        meds = tuple(f for f in FEATURE_NAMES if f.endswith(("_med", "_std")))
+        reps = [FeatureRep(FEATURE_NAMES, 100), FeatureRep(meds, int(case))]
+    rng = np.random.default_rng(len(reps))
+    forests = [quantile_forest(extract_features(ds, r.features, r.depth,
+                                                device="cpu"), rng, T=9, D=6,
+                               K=5 + t)
+               for t, r in enumerate(reps)]
+    return ds, reps, forests
+
+
+@pytest.mark.parametrize("case", ["129", "256", "4000", "259_columns"])
+def test_multi_kernel_beyond_its_arrays_bitwise(cuda, case):  # noqa: F811
+    """Merged columns and lanes bitwise the plain version's, and each
+    tenant's lanes bitwise solo B2, where the window or the merged plan
+    outgrows B4's per-thread arrays."""
+    ds, reps, forests = _tenants_case(case)
+    plans = [stats_plan(r.features) for r in reps]
+    merged, cols = merge_stats_plans(plans, [r.depth for r in reps])
+    assert (len(merged) > MAX_MERGED_COLUMNS if case == "259_columns" else
+            min(max(r.depth for r in reps), ds.max_pkts) > MAX_WINDOW)
+    tables = multi_forest_tables(forests, cols, cuda)[:5]
+    op_table = torch.from_numpy(encode_merged_plan(merged)).to(cuda)
+    assert decode_merged_plan(op_table.cpu()) == merged
+    kw = dict(op_table=op_table, depth=max(r.depth for r in reps),
+              n_out=sum(f.n_out for f in forests))
+    packets = _packets(ds, cuda)
+    outs = []
+    for fn in (fused_multi_forest_call, fused_multi_forest_infer_plain):
+        c = torch.empty((ds.n_flows, len(merged)), device=cuda)
+        p = fn(*packets, *tables, columns=c, **kw)
+        outs.append((p.cpu().numpy(), c.cpu().numpy()))
+    (pk, xk), (pp, xp) = outs
+    np.testing.assert_array_equal(xk, xp)
+    np.testing.assert_array_equal(pk, pp)
+    # serving passes no columns buffer: a wide plan gets one of its own
+    np.testing.assert_array_equal(
+        fused_multi_forest_call(*packets, *tables, **kw).cpu().numpy(), pk)
+    lo = 0
+    for plan, r, f in zip(plans, reps, forests):
+        solo = fused_pipeline_call(
+            *packets, *forest_tables(f, cuda),
+            op_table=torch.from_numpy(encode_plan(plan)).to(cuda),
+            depth=r.depth, forest_depth=f.depth)
+        np.testing.assert_array_equal(pk[:, lo:lo + f.n_out],
+                                      solo.cpu().numpy())
+        lo += f.n_out
+
+
 def test_multi_pipeline_on_card_matches_cpu(cuda):  # noqa: F811
     ds, reps, forests = _multi_case("tenants")
     n0 = fused_multi_forest_call.launches
@@ -304,14 +403,14 @@ def test_multi_kernel_refuses_what_it_does_not_take(cuda):  # noqa: F811
     fused_multi_forest_call(*args, **kw)        # the base case launches
     with pytest.raises(ValueError, match="CUDA"):
         fused_multi_forest_call(*_multi_args("cpu")[0], **kw)
-    with pytest.raises(ValueError, match="columns"):
-        fused_multi_forest_call(*_multi_args(cuda, F=MAX_MERGED_COLUMNS + 1)[0],
-                                **{**kw, "op_table": torch.zeros(
-                                    (MAX_MERGED_COLUMNS + 1, 5),
-                                    dtype=torch.int32, device=cuda)})
-    wide, kw_w = _multi_args(cuda, P=MAX_WINDOW + 1)
-    with pytest.raises(ValueError, match="exceeds"):
-        fused_multi_forest_call(*wide, **kw_w)
+    # a plan wider than the per-thread column array, and a window longer
+    # than the per-thread sample buffer, launch
+    wide = MAX_MERGED_COLUMNS + 1
+    assert fused_multi_forest_call(*_multi_args(cuda, F=wide)[0], **{
+        **kw, "op_table": torch.zeros((wide, 5), dtype=torch.int32,
+                                      device=cuda)}).shape == (2, 2)
+    long, kw_l = _multi_args(cuda, P=MAX_WINDOW + 1)
+    assert fused_multi_forest_call(*long, **kw_l).shape == (2, 2)
     with pytest.raises(ValueError, match="shape"):
         fused_multi_forest_call(*args, **{**kw, "op_table": kw["op_table"][:, :4]
                                           .contiguous()})
@@ -347,6 +446,36 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Tq, Tk, D,  # no
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,D", [(2, 32, 8, 2048, 128),
+                                          (2, 32, 32, 2048, 64)])
+def test_flash_attention_bf16_at_main_shapes(cuda, B, Hq, Hkv, T, D):  # noqa: F811
+    """The tensor-core kernel at qwen3-8b's and zamba2-1.2b's prefill
+    shapes, causal, bitwise its plain version: the plain version's bf16
+    GEMMs into float32 sum as wgmma does, and chip_smoke.py's prefill
+    argmax check rests on it."""
+    R = np.random.default_rng(T + D)
+    q = _randn(R, (B, Hq, T, D), cuda, torch.bfloat16)
+    k = _randn(R, (B, Hkv, T, D), cuda, torch.bfloat16)
+    v = _randn(R, (B, Hkv, T, D), cuda, torch.bfloat16)
+    got = flash_attention_kernel_call(q, k, v)
+    assert torch.equal(got, flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_row_without_keys_on_card(cuda, dtype):  # noqa: F811
+    """Causal with Tq > Tk: the first Tq - Tk rows see no key and give 0;
+    the rest agree with the plain version."""
+    R = np.random.default_rng(7)
+    q = _randn(R, (1, 4, 200, 64), cuda, dtype)
+    k = _randn(R, (1, 2, 72, 64), cuda, dtype)
+    v = _randn(R, (1, 2, 72, 64), cuda, dtype)
+    got = flash_attention_kernel_call(q, k, v, causal=True)
+    assert torch.all(got[:, :, :128] == 0)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), flash_attention_plain(
+        q, k, v, causal=True).float(), atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,S,D", [

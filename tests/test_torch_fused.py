@@ -93,3 +93,49 @@ def test_op_table_round_trips_every_feature():
     # every row of the full registry is a distinct op
     full = encode_plan(stats_plan(FEATURE_NAMES))
     assert len({tuple(r) for r in full}) == 67
+
+
+# a plan in which every stat family has a median, at windows above the
+# kernel's per-thread sample buffer (MAX_WINDOW = 128 packets)
+WINDOW_FEATURES = ("dur", "s_load", "ack_cnt", "tcp_rtt", "s_bytes_mean",
+                   "s_bytes_med", "s_bytes_std", "d_iat_sum", "d_iat_med",
+                   "s_winsize_med", "d_ttl_med")
+
+
+@pytest.fixture(scope="module")
+def long_flows():
+    kw = dict(n_flows=96, max_pkts=300, seed=11)
+    return make_dataset("app-class", **kw), jsynth.make_dataset("app-class", **kw)
+
+
+@pytest.mark.parametrize("depth", [129, 256])
+def test_fused_serves_windows_above_the_buffer(long_flows, depth):
+    """The fused entry takes any window, as the reference does; the card's
+    kernel moves a longer window's samples to a scratch (checked bitwise
+    against this plain version by tests/test_torch_card.py)."""
+    ds, jds = long_flows
+    assert (ds.flow_len > 128).sum() >= 8
+    jrep = JFeatureRep(WINDOW_FEATURES, depth)
+    plan = stats_plan(jrep.features)
+    xj = jext.extract_features(jds, jrep.features, depth)
+    jf, _ = j_train(xj, jds.label, model="rf-fast", seed=0)
+    want = np.asarray(j_fused(
+        jnp.asarray(jds.ts), jnp.asarray(jds.size), jnp.asarray(jds.direction),
+        jnp.asarray(jds.ttl), jnp.asarray(jds.winsize), jnp.asarray(jds.flags),
+        jnp.asarray(jds.flow_len), jnp.asarray(jds.proto),
+        jnp.asarray(jds.s_port), jnp.asarray(jds.d_port),
+        jnp.asarray(jf.feature), jnp.asarray(jf.threshold), jnp.asarray(jf.leaf),
+        plan=plan, depth=depth, forest_depth=jf.depth))
+    tf = forest_from_numpy(jf.feature, jf.threshold, jf.leaf, jf.depth,
+                           jf.n_features, jf.classes)
+    cols = torch.empty((ds.n_flows, len(plan)))
+    got = fused_forest_infer(*_port_args(ds, tf),
+                             op_table=torch.from_numpy(encode_plan(plan)),
+                             depth=depth, forest_depth=tf.depth, columns=cols)
+    x = cols.numpy()
+    # XLA adds rows above 32 packets in another order than packet order
+    np.testing.assert_allclose(x, xj, rtol=1e-5, atol=1e-6)
+    med = [i for i, e in enumerate(plan) if e[-1] == "med"]
+    assert len(med) == 4
+    np.testing.assert_array_equal(x[:, med], xj[:, med])
+    assert_straddle_parity(want, got.numpy(), xj, x, jf)

@@ -88,6 +88,86 @@ def test_flash_attention_plain_matches_oracle_ragged(Tq, Tk, causal):
                                _np(want), atol=2e-5)
 
 
+FA_BF16_CASES = {"aligned": (1, 4, 2, 128, 128), "chunked": (2, 4, 1, 128, 256),
+                 "ragged": (1, 4, 2, 200, 328)}
+
+
+@pytest.mark.parametrize("case", list(FA_BF16_CASES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_bf16_plain_in_kernel_order(case, causal, D):
+    """The bf16 plain version in the tensor-core kernel's order (P rounded
+    to bf16 before P V, l over the rounded P) stays within one bf16
+    rounding of the Pallas kernel (at block multiples, which it takes
+    unpadded) and of the jnp oracle."""
+    B, Hq, Hkv, Tq, Tk = FA_BF16_CASES[case]
+    R = np.random.default_rng(Tq * D + Tk)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(R, (B, h, t, D), "bfloat16") for h, t
+                                    in ((Hq, Tq), (Hkv, Tk), (Hkv, Tk)))
+    got = flash_attention_plain(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
+    if case != "ragged":
+        want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                    block_k=64)
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
+
+
+def _flash_attention_plain_f32_before(q, k, v, causal):
+    """The plain version's loop as it stood before the bf16 kernel moved
+    to tensor cores (64-key tiles, the lane butterfly), kept frozen here."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = D ** -0.5
+    pad = (-Tk) % 64
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad)).repeat_interleave(g, dim=1)
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad)).repeat_interleave(g, dim=1)
+    qf = q.float()
+    qpos = torch.arange(Tq)[:, None] + (Tk - Tq)
+    m = torch.full((B, Hq, Tq, 1), -1e30)
+    l = torch.zeros((B, Hq, Tq, 1))
+    acc = torch.zeros((B, Hq, Tq, D))
+
+    def lane_sum(p):
+        x = p[..., :32] + p[..., 32:]
+        for w in (16, 8, 4, 2, 1):
+            x = x[..., :w] + x[..., w:2 * w]
+        return x
+
+    for k0 in range(0, Tk + pad, 64):
+        s = torch.matmul(qf, kf[:, :, k0:k0 + 64].transpose(-1, -2)) * scale
+        key = k0 + torch.arange(64)[None, :]
+        valid = key < Tk
+        if causal:
+            valid = valid & (key <= qpos)
+        m_new = torch.maximum(
+            m, s.masked_fill(~valid, -1e30).amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), torch.zeros_like(s))
+        l = l * alpha + lane_sum(p)
+        acc = acc * alpha + torch.matmul(p, vf[:, :, k0:k0 + 64])
+        m = m_new
+    out = torch.where(l > 0, acc / l, torch.zeros_like(acc))
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2, 64, 64, 32), (2, 4, 2, 200, 328, 128),
+                                   (1, 2, 1, 48, 40, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_plain_is_unchanged(shape, causal):
+    """The float32 plain version is bitwise what it was: the scalar float32
+    kernel it mirrors did not change."""
+    B, Hq, Hkv, Tq, Tk, D = shape
+    R = np.random.default_rng(Tq + Tk + D)
+    _, q = _pair(R, (B, Hq, Tq, D))
+    _, k = _pair(R, (B, Hkv, Tk, D))
+    _, v = _pair(R, (B, Hkv, Tk, D))
+    assert torch.equal(flash_attention_plain(q, k, v, causal=causal),
+                       _flash_attention_plain_f32_before(q, k, v, causal))
+
+
 def test_flash_attention_row_without_keys_is_zero():
     """Causal with Tq > Tk: the first Tq - Tk rows see no key. The kernel's
     guard gives 0 there (the jnp oracle gives NaN); every other row agrees

@@ -24,14 +24,17 @@ from repro.traffic.extraction import merge_stats_plans as j_merge
 from repro.traffic.models import train_traffic_model as j_train
 from repro.traffic.synth import make_scenario_dataset as j_make_scenario
 
-from _torch_parity import assert_straddle_parity
-from repro_torch.convert import forest_from_numpy, multi_forest_tables
+from _torch_parity import assert_straddle_parity, quantile_forest
+from repro_torch.convert import forest_from_numpy, forest_tables, multi_forest_tables
 from repro_torch.core.forest import train_forest
 from repro_torch.core.search_space import FeatureRep, SearchSpace
 from repro_torch.kernels.fused_pipeline import (
     SPEC_FIELDS,
     decode_merged_plan,
     encode_merged_plan,
+    encode_plan,
+    fused_forest_infer,
+    fused_multi_forest_infer,
     stack_multi_forests,
 )
 from repro_torch.serve import runtime as prt
@@ -327,6 +330,46 @@ def test_fused_columns_and_wide_window(world):
     narrow = mt.probabilities(_clip(ds, mt.rep.depth))
     np.testing.assert_array_equal(mt.probabilities(ds), narrow)
     assert mt(ds).shape == (ds.n_flows, 3)
+
+
+# four tenants over the whole registry at four depths: 3 meta columns and
+# 4 x 64 windowed ones, above B4's 256-column per-thread array
+WIDE_DEPTHS = (5, 10, 15, 20)
+
+
+def test_plain_b4_at_259_columns_gives_solo_lanes():
+    """The merged plan the card once refused (259 columns): B4's plain
+    version serves each tenant the lanes of its solo B2 plain version."""
+    ds = make_scenario_dataset("app-class", "zipf", n_flows=120, max_pkts=24,
+                               seed=5)
+    plans = [stats_plan(FEATURE_NAMES)] * len(WIDE_DEPTHS)
+    merged, cols = merge_stats_plans(plans, WIDE_DEPTHS)
+    assert len(merged) == 259
+    assert (merged, cols) == j_merge(plans, WIDE_DEPTHS)
+    rng = np.random.default_rng(259)
+    t = dataset_tensors(ds, torch.device("cpu"))
+    packets = [t[k] for k in ("ts", "size", "direction", "ttl", "winsize",
+                              "flags", "flow_len", "proto", "s_port",
+                              "d_port")]
+    forests = [quantile_forest(extract_features(ds, FEATURE_NAMES, d,
+                                                 device="cpu"), rng)
+               for d in WIDE_DEPTHS]
+    tables = multi_forest_tables(forests, cols, "cpu")[:5]
+    x = torch.empty((ds.n_flows, len(merged)))
+    lanes = fused_multi_forest_infer(
+        *packets, *tables, op_table=torch.from_numpy(encode_merged_plan(merged)),
+        depth=max(WIDE_DEPTHS), n_out=sum(f.n_out for f in forests),
+        columns=x).numpy()
+    lo = 0
+    for plan, d, f, c in zip(plans, WIDE_DEPTHS, forests, cols):
+        solo_x = torch.empty((ds.n_flows, len(plan)))
+        solo = fused_forest_infer(
+            *packets, *forest_tables(f, "cpu"),
+            op_table=torch.from_numpy(encode_plan(plan)), depth=d,
+            forest_depth=f.depth, columns=solo_x)
+        np.testing.assert_array_equal(x.numpy()[:, list(c)], solo_x.numpy())
+        np.testing.assert_array_equal(lanes[:, lo:lo + f.n_out], solo.numpy())
+        lo += f.n_out
 
 
 def _agg_rows(stream, depth):

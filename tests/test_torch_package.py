@@ -16,10 +16,8 @@ from repro_torch.core.forest import train_forest
 from repro_torch.core.search_space import FeatureRep
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_pipeline import (
-    MAX_WINDOW,
     fused_multi_forest_call,
     fused_multi_forest_infer,
-    fused_pipeline_call,
 )
 from repro_torch.kernels.decode_attention import decode_attention_kernel_call
 from repro_torch.kernels.feature_extract import flow_stats_kernel_call
@@ -181,20 +179,6 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flow_stats_kernel_call(v, m)
     assert ops.flow_stats(v, m).shape == (3, 5)
-
-
-def test_fused_wrapper_states_its_window():
-    N, P = 2, MAX_WINDOW + 1
-    f32 = torch.zeros((N, P))
-    u8 = torch.zeros((N, P), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="exceeds"):
-        fused_pipeline_call(
-            f32, f32, u8, f32, f32, torch.zeros((N, P, 8), dtype=torch.uint8),
-            torch.zeros(N, dtype=torch.int32), torch.zeros(N), torch.zeros(N),
-            torch.zeros(N), torch.zeros((1, 1), dtype=torch.int32),
-            torch.zeros((1, 1)), torch.zeros((1, 2, 3)),
-            op_table=torch.zeros((1, 4), dtype=torch.int32), depth=P,
-            forest_depth=1)
 
 
 def test_deploy_entry_points_default_to_the_card(monkeypatch):
