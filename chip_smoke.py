@@ -23,7 +23,8 @@ Phases, each printing one JSON line:
    card, on the same inputs: the forest traversal (B1) at the main-path
    shape and a ragged one, the fused extract+infer kernel (B2) for plans
    covering every op family at connection depths 1, 8 and 50, with the
-   kernel's own feature columns; then each kernel's time.
+   kernel's own feature columns; then each kernel's time (B1 and B2 at
+   4096 and 128 flows, B2 also at 8).
    The aggregate kernel (B3) against its plain version on aggregate rows
    of a flow table that ingested the stream phase's trace, for the
    59-feature incremental plan and one plan per op family, at 8, 777 and
@@ -48,14 +49,17 @@ Phases, each printing one JSON line:
    kernel) and in bf16, causal and not; decode attention (B7)
    at (B 8, 32 q heads, 8 kv heads, S 4096, D 128) in bf16 with random
    lengths in [1, S], at zamba2-1.2b's served batch (B 8, 32 and 32 heads,
-   S 168, D 64, every length 159) in bf16, and at S = 300 in float32;
-   the Mamba scan (B8) at
+   S 168, D 64, every length 159) in bf16, and at S = 300 in float32,
+   each bitwise its plain version (which repeats the split kernel's
+   arithmetic), with its split count; the Mamba scan (B8) at
    zamba2-1.2b's prefill shape (B 2, T 2048, 64 heads of P 64, S 64) in
    bf16 and at a ragged T with S 16 in float32, y and the final state;
-   then each one's time at the main-path shapes beside its plain version,
-   one PyTorch call computing the same function (scaled_dot_product_
+   then each one's time at the main-path shapes (B7 at qwen3-8b's shape
+   and at zamba2-1.2b's served cache) beside its plain version, one
+   PyTorch call computing the same function (scaled_dot_product_
    attention for B6 and B7; the port never calls it) and its bound, and
-   B6's achieved TFLOP/s.
+   B6's achieved TFLOP/s. The build's ptxas report for B7's and B2's
+   kernels (registers, stack, spills) is the `build_ptxas` line.
    The flow statistics kernel (B5) through `ops.flow_stats`, bitwise
    against its plain version, on the main path's two windows (packet
    sizes of the iot-class set, 4000 x 128, masked by each flow's valid
@@ -138,7 +142,7 @@ Phases, each printing one JSON line:
    tokens teacher-forced, 32 greedy), with the launch counters set to 0
    just before the prefills and read just after the served batch; then 4
    decode steps held against the plain path step by step from the same
-   cache (logit gaps bounded), a torch.profiler breakdown of a prefill and
+   cache (bitwise: every logit and argmax equal), a torch.profiler breakdown of a prefill and
    4 decode steps; then the float32 truth: the bf16 weights upcast in
    place and the same tokens prefilled on the plain path, against which
    the kernel path's argmax share must be at least the plain path's less
@@ -162,6 +166,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -173,6 +178,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+# about 1 ms of the card's clock: longer than a wrapper's host work
+QUEUE_CYCLES = 2_000_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: 80 GB of HBM3 at 3.35 TB/s
 FP32_OPS_PER_S = 67e12     # H100 SXM: float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM: bf16 on the tensor cores, dense
@@ -272,8 +279,8 @@ SCAN_TOL_F32 = 3e-4
 # B7 (B, Hq, Hkv, S, D) with every length or None for lengths drawn in
 # [1, S], B8 (B, T, H, P, S). The qwen3-8b and zamba2-1.2b cases are the
 # main path's shapes (B7's zamba2 case the served batch's cache, at the
-# length of its last served step); the first two B6 cases and the first
-# B7 and B8 case are also timed
+# length of its last served step); the first two B6 and B7 cases and the
+# first B8 case are also timed
 LM_B6_CASES = (
     ("qwen3-8b", (2, 32, 8, 2048, 2048, 128), torch.bfloat16, (True,)),
     ("zamba2-1.2b", (2, 32, 32, 2048, 2048, 64), torch.bfloat16, (True,)),
@@ -286,6 +293,31 @@ LM_B7_CASES = (
     ("ragged", (4, 32, 8, 300, 128), torch.float32, None))
 LM_B8_CASES = (("zamba2-1.2b", (2, 2048, 64, 64, 64), torch.bfloat16),
                ("ragged", (2, 1000, 8, 64, 16), torch.float32))
+
+
+def ptxas_entries(log: str, names: tuple[str, ...]) -> list[dict]:
+    """Registers, stack and spills of each kernel entry in nvcc's build log
+    whose (mangled) name holds one of `names`."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = dict(entry=m.group(1)) if any(
+                n in m.group(1) for n in names) else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def check(ok: bool, what: str) -> None:
@@ -304,16 +336,23 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, flush: torch.Tensor, warmup: int = 3) -> float:
+def time_ms(fn, reps: int, flush: torch.Tensor, warmup: int = 3,
+            queued: bool = False) -> float:
     """Median ms of `fn()` over `reps` runs, each bracketed by CUDA events,
     with `flush` (larger than the 50 MB L2) overwritten before each run so
     that the inputs come from device memory, as a fresh micro-batch's
-    packets do."""
+    packets do. The events also take in whatever host time `fn` spends
+    before its launch while the card waits (a wrapper's checks and
+    allocations). With `queued`, the card first spins for QUEUE_CYCLES, so
+    that this host time passes while it is busy: the events then bracket
+    the device's work alone."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -632,6 +671,9 @@ def long_window_phase(ds_s, dev, flush, counters) -> dict:
         ms=time_ms(lambda: fused_pipeline_call(
             *packets, *tables, op_table=op, depth=depth,
             forest_depth=forest.depth), KERNEL_REPS, flush),
+        device_ms=time_ms(lambda: fused_pipeline_call(
+            *packets, *tables, op_table=op, depth=depth,
+            forest_depth=forest.depth), KERNEL_REPS, flush, queued=True),
         plain_ms=time_ms(lambda: fused_forest_infer_plain(
             *packets, *tables, op_table=op, depth=depth,
             forest_depth=forest.depth), 1, flush, warmup=0),
@@ -1398,6 +1440,7 @@ def lm_kernel_phase(dev, flush) -> dict:
     from repro_torch.kernels.decode_attention import (
         decode_attention_kernel_call,
         decode_attention_plain,
+        split_plan,
     )
     from repro_torch.kernels.flash_attention import (
         flash_attention_kernel_call,
@@ -1430,7 +1473,8 @@ def lm_kernel_phase(dev, flush) -> dict:
                               dtype=str(dtype), max_abs_err=e,
                               tol=LM_TOL[dtype]))
             check(e <= LM_TOL[dtype], f"B6 {cases[-1]}")
-    # B7: (B, Hq, Hkv, S, D), lengths in [1, S]
+    # B7: (B, Hq, Hkv, S, D), lengths in [1, S]; the plain version repeats
+    # the split kernel's arithmetic, so the two agree to the last bit
     da_inputs = {}
     for name, (B, Hq, Hkv, S, D), dtype, length in LM_B7_CASES:
         q = randn((B, Hq, D), dtype)
@@ -1442,12 +1486,16 @@ def lm_kernel_phase(dev, flush) -> dict:
         else:
             lens = torch.full((B,), length, device=dev, dtype=torch.int32)
         da_inputs[name] = (q, kc, vc, lens)
-        e = err(decode_attention_kernel_call(q, kc, vc, lens),
-                decode_attention_plain(q, kc, vc, lens))
+        got = decode_attention_kernel_call(q, kc, vc, lens)
+        want = decode_attention_plain(q, kc, vc, lens)
+        n_split, split_len = split_plan(B, Hkv, S)
         cases.append(dict(kernel="decode_attention", case=name,
                           shape=[B, Hq, Hkv, S, D], lengths=lens.tolist(),
-                          dtype=str(dtype), max_abs_err=e, tol=LM_TOL[dtype]))
-        check(e <= LM_TOL[dtype], f"B7 {cases[-1]}")
+                          dtype=str(dtype), max_abs_err=err(got, want),
+                          bitwise=bool(torch.equal(got, want)), tol=0.0,
+                          n_split=n_split, split_len=split_len,
+                          blocks=B * Hkv * n_split))
+        check(cases[-1]["bitwise"], f"B7 {cases[-1]}")
     # B8: (B, T, H, P, S)
     ms_inputs = {}
     for name, (B, T, H, P, S), dtype in LM_B8_CASES:
@@ -1488,25 +1536,37 @@ def lm_kernel_phase(dev, flush) -> dict:
         t["tflops"] = t["ops"] / (t["ms"] * 1e-3) / 1e12
         t["library_tflops"] = t["ops"] / (t["library_ms"] * 1e-3) / 1e12
         timing[f"flash_attention/{name}"] = t
-    q, kc, vc, lens = da_inputs["qwen3-8b"]
-    B, Hq, D = q.shape
-    S, Hkv = kc.shape[1], kc.shape[2]
-    n_valid = int(lens.sum())
-    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-    t = dict(
-        ms=time_ms(lambda: decode_attention_kernel_call(q, kc, vc, lens),
-                   KERNEL_REPS, flush),
-        plain_ms=time_ms(lambda: decode_attention_plain(q, kc, vc, lens),
-                         PLAIN_REPS, flush),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask, enable_gqa=True), KERNEL_REPS, flush),
-        # q and out, the valid K and V rows, the lengths
-        bytes=2 * (2 * q.numel() + 2 * n_valid * Hkv * D) + 4 * B,
-        ops=4 * D * Hq * n_valid, shape=[B, Hq, Hkv, S, D],
-        valid_positions=n_valid)
-    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"], ops_rate(q.dtype))
-    timing["decode_attention/qwen3-8b"] = t
+    # B7 at qwen3-8b's timed shape and at zamba2-1.2b's served cache
+    for name in ("qwen3-8b", "zamba2-1.2b"):
+        q, kc, vc, lens = da_inputs[name]
+        B, Hq, D = q.shape
+        S, Hkv = kc.shape[1], kc.shape[2]
+        n_valid = int(lens.sum())
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        def kernel():
+            return decode_attention_kernel_call(q, kc, vc, lens)
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        t = dict(
+            ms=time_ms(kernel, KERNEL_REPS, flush),
+            plain_ms=time_ms(lambda: decode_attention_plain(q, kc, vc, lens),
+                             PLAIN_REPS, flush),
+            library_ms=time_ms(library, KERNEL_REPS, flush),
+            device_ms=time_ms(kernel, KERNEL_REPS, flush, queued=True),
+            library_device_ms=time_ms(library, KERNEL_REPS, flush,
+                                      queued=True),
+            # q and out, the valid K and V rows, the lengths
+            bytes=2 * (2 * q.numel() + 2 * n_valid * Hkv * D) + 4 * B,
+            ops=4 * D * Hq * n_valid, shape=[B, Hq, Hkv, S, D],
+            valid_positions=n_valid, split=list(split_plan(B, Hkv, S)))
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
+                                             ops_rate(q.dtype))
+        timing[f"decode_attention/{name}"] = t
     x, dt, A, Bm, Cm = ms_inputs["zamba2-1.2b"]
     B, T, H, P = x.shape
     S, c = Bm.shape[-1], 128
@@ -1643,13 +1703,12 @@ def lm_serve_phase(dev) -> dict:
         check(bool(((gen_t >= 0) & (gen_t < cfg.vocab_size)).all())
               and served_pos == LM_PROMPT + LM_GEN - 1,
               f"{arch} served tokens")
-        # B7's plain version is a one-pass softmax: in bf16 it rounds some
-        # attention outputs to the neighbouring value, as a one-pass B6 did
-        # in prefill, so near-tied argmaxes may move; the logit gaps are
-        # held here and the argmaxes in the float32 check below
+        # B7's plain version repeats the split kernel's arithmetic, and
+        # decode reaches no other kernel: the two paths are bitwise twins,
+        # every logit equal and so every argmax
         check(decode_vs_plain["finite"]
-              and decode_vs_plain["max_abs_err"] <= LM_LOGIT_MAX_ERR
-              and decode_vs_plain["mean_abs_err"] <= LM_LOGIT_MEAN_ERR,
+              and decode_vs_plain["max_abs_err"] == 0.0
+              and decode_vs_plain["argmax_agree"] == 1.0,
               f"{arch} kernel vs plain decode: {decode_vs_plain}")
         want = ["flash_attention", "decode_attention"] + (
             ["mamba_scan"] if cfg.family == "hybrid" else [])
@@ -1801,6 +1860,9 @@ def main() -> None:
          nvcc_flags=" ".join(_build.NVCC_FLAGS),
          ptxas=[ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln])
+    emit("build_ptxas", entries=ptxas_entries(log, (
+        "decode_split_kernel", "decode_merge_kernel",
+        "fused_forest_infer_kernel")))
 
     # 3. data and forests ----------------------------------------------------
     t0 = time.perf_counter()
@@ -2020,6 +2082,8 @@ def main() -> None:
     # the first 128 flows: one micro-batch, the size the main path serves
     x_128 = x_main_t[:128].contiguous()
     packets_128 = [t[:128].contiguous() for t in packets]
+    # and a micro-batch of 8, the stream phase's size
+    packets_8 = [t[:8].contiguous() for t in packets]
     timing = {
         "forest_infer": dict(
             ms=time_ms(lambda: forest_infer_kernel_call(
@@ -2039,6 +2103,14 @@ def main() -> None:
             ms_128=time_ms(lambda: fused_pipeline_call(
                 *packets_128, *deep_tables, op_table=op67, depth=conn_depth,
                 forest_depth=D), KERNEL_REPS, flush),
+            ms_8=time_ms(lambda: fused_pipeline_call(
+                *packets_8, *deep_tables, op_table=op67, depth=conn_depth,
+                forest_depth=D), KERNEL_REPS, flush),
+            **{f"device_ms{sfx}": time_ms(lambda p=p: fused_pipeline_call(
+                *p, *deep_tables, op_table=op67, depth=conn_depth,
+                forest_depth=D), KERNEL_REPS, flush, queued=True)
+               for sfx, p in (("", packets), ("_128", packets_128),
+                              ("_8", packets_8))},
             bytes=b2_bytes, ops=b2_ops),
     }
     # B3 on the stream deployment: the 59-feature plan, its trained forest,
@@ -2375,11 +2447,14 @@ def main() -> None:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             shape=t["shape"])
+        # B7's device-only times and split count, where measured
+        extra = ("device_ms", "library_device_ms", "split")
+        entry.update({k: t[k] for k in extra if k in t})
         if extra_case:
             e = lm["timing"][f"{name}/{extra_case}"]
             entry[extra_case] = {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms",
-                                                   "shape")}
+                                                   "shape", *extra) if k in e}
         return entry
 
     kernels = [
@@ -2407,14 +2482,18 @@ def main() -> None:
              ms=timing["fused_forest_infer"]["ms"],
              plain_ms=timing["fused_forest_infer"]["plain_ms"],
              ms_128_flows=timing["fused_forest_infer"]["ms_128"],
+             ms_8_flows=timing["fused_forest_infer"]["ms_8"],
+             device_ms=timing["fused_forest_infer"]["device_ms"],
+             device_ms_128_flows=timing["fused_forest_infer"]["device_ms_128"],
+             device_ms_8_flows=timing["fused_forest_infer"]["device_ms_8"],
              bound_ms=timing["fused_forest_infer"]["bound_ms"],
              bound_us=timing["fused_forest_infer"]["bound_ms"] * 1e3,
              bound_by=timing["fused_forest_infer"]["bound_by"],
              library_ms=None,
              long_window=dict(
-                 {k: lw["timing"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms",
-                                               "shape")},
+                 {k: lw["timing"][k] for k in ("ms", "device_ms", "plain_ms",
+                                               "bound_ms", "bound_by",
+                                               "library_ms", "shape")},
                  bitwise_depths=[c["depth"] for c in lw["cases"]],
                  profiler_launches=lw["profiler"]["launches"][
                      "fused_forest_infer"])),
@@ -2479,7 +2558,8 @@ def main() -> None:
                  "src/repro/kernels/flash_attention.py:83", "qwen3-8b",
                  "zamba2-1.2b"),
         lm_entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-                 "src/repro/kernels/decode_attention.py:70", "qwen3-8b"),
+                 "src/repro/kernels/decode_attention.py:70", "qwen3-8b",
+                 "zamba2-1.2b"),
         lm_entry("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
                  "src/repro/kernels/mamba_scan.py:78", "zamba2-1.2b"),
     ]

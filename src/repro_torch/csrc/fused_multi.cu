@@ -17,7 +17,8 @@
 // duration and handshake times of that window, exactly as the reference
 // emits each group over its own window slice. The kernel walks the groups
 // in ascending depth: one pass over a group's window for its shared terms,
-// then its columns, with B2's column code (plan_columns.cuh).
+// then its columns, with the per-thread column code of plan_columns.cuh
+// (B2's warp code in plan_warp.cuh computes the same columns).
 //
 // The forests. Each tenant's forest is padded with pass-through trees to a
 // multiple of its own block (min(8, T)), its node feature ids remapped into

@@ -1,7 +1,8 @@
-// Feature columns of a stats plan over one flow's packet window, shared by
-// fused_pipeline.cu (B2) and fused_multi.cu (B4): the counterpart of
-// src/repro/traffic/extraction.py `emit_feature_columns`, for one flow per
-// thread.
+// Feature columns of a stats plan over one flow's packet window, for one
+// flow per thread, used by fused_multi.cu (B4): the counterpart of
+// src/repro/traffic/extraction.py `emit_feature_columns`. Its op codes and
+// `Row` are also plan_warp.cuh's, whose warp per flow (B2) computes the
+// same columns to the last bit.
 //
 // A plan is an int32 op table, one row per column (kind, direction, field,
 // stat; repro_torch/kernels/fused_pipeline.py `encode_plan`), which the

@@ -31,7 +31,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("forest_infer.cu", "fused_pipeline.cu", "fused_agg.cu",
            "fused_multi.cu", "flash_attention.cu", "decode_attention.cu",
            "mamba_scan.cu", "flow_stats.cu")
-HEADERS = ("forest_common.cuh", "plan_columns.cuh", "lm_common.cuh")
+HEADERS = ("forest_common.cuh", "plan_columns.cuh", "plan_warp.cuh",
+           "lm_common.cuh")
 # --fmad=false: no multiply and add is contracted into one rounding, so
 # the forest kernels round as their plain versions do (the one fused
 # multiply-add they use, std's, is an explicit fmaf that the plain version
@@ -56,7 +57,7 @@ _SIGNATURES = {
     "flash_attention_launch": (
         [_VOID] * 4 + [_INT] * 8 + [_FLOAT, _VOID]),
     "decode_attention_launch": (
-        [_VOID] * 5 + [_INT] * 6 + [_FLOAT, _VOID]),
+        [_VOID] * 6 + [_INT] * 8 + [_FLOAT, _VOID]),
     "mamba_scan_launch": (
         [_VOID] * 7 + [_INT] * 7 + [_VOID]),
     "flow_stats_launch": (

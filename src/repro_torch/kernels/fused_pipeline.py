@@ -3,8 +3,9 @@
 Port of the window entry of `repro.kernels.fused_pipeline`. The unfused
 pipeline writes the ``(N, F)`` feature matrix to device memory and reads it
 back in the forest kernel; the fused kernel (``csrc/fused_pipeline.cu``)
-computes each flow's columns in the thread that owns the flow and walks
-the forest on them in the same launch.
+computes each flow's columns in the warp that owns the flow (its lanes over
+the columns, then over the trees) and walks the forest on them in the same
+launch.
 
 The reference specialises its kernel per static stats plan through jit.
 Here the plan is encoded once per pipeline as an int32 op table
@@ -66,8 +67,9 @@ MAX_FEATURES = 128  # kMaxFeatures in csrc/fused_pipeline.cu and fused_agg.cu
 # kMaxMergedColumns in csrc/fused_multi.cu: B4's per-thread column array;
 # a wider merged plan keeps its columns in the (N, F) `columns` buffer
 MAX_MERGED_COLUMNS = 256
-# kMaxWindow in csrc/plan_columns.cuh: the per-thread sample buffer of B2
-# and B4; a longer window W = min(P, depth) takes a (W, N) scratch instead
+# kMaxWindow in csrc/plan_columns.cuh (B4's per-thread sample buffer) and
+# kChunk in csrc/plan_warp.cuh (B2's shared-memory window); a longer window
+# W = min(P, depth) takes a scratch of W x N samples instead
 MAX_WINDOW = 128
 # B4's per-tenant spec row (csrc/fused_multi.cu `Spec`): tree offset, trees,
 # padded trees, forest depth, tree block, classes, lane offset
@@ -141,8 +143,9 @@ def _check_forest(feature, threshold, leaf, forest_depth: int, dev) -> tuple:
 
 
 def _window_scratch(N: int, window: int, dev) -> torch.Tensor | None:
-    """B2's and B4's (window, N) sample scratch, or None when the window
-    fits the kernels' per-thread buffer."""
+    """A window's sample scratch of window x N floats, or None when the
+    window fits the kernels' own buffers: B4 indexes it (window, N), a
+    thread's samples strided by N; B2 (N, window), a warp's contiguous."""
     if window <= MAX_WINDOW:
         return None
     return torch.empty((window, N), dtype=torch.float32, device=dev)
@@ -182,10 +185,11 @@ def fused_pipeline_call(
     the forest tables as `forest_infer_kernel_call` takes them, and the
     int32 (F, 4) `op_table` from `encode_plan`, all contiguous on one CUDA
     device. The kernel reads the first ``min(P, depth)`` packets of each
-    row; above MAX_WINDOW packets a statistic's samples go to a scratch
-    allocated here. F may be at most MAX_FEATURES. `columns`, if given, is
-    an (N, F) float32 buffer that receives the kernel's own feature
-    columns. Launches on the current stream and does not synchronise.
+    row; above MAX_WINDOW packets it stages the window in chunks and a
+    median's samples go to a scratch allocated here. F may be at most
+    MAX_FEATURES. `columns`, if given, is an (N, F) float32 buffer that
+    receives the kernel's own feature columns. Launches on the current
+    stream and does not synchronise.
     """
     dev = ts.device
     if ts.ndim != 2 or op_table.ndim != 2:

@@ -68,6 +68,10 @@ def forest_infer_plain(x, feature, threshold, leaf, depth: int, *,
     trees = torch.arange(bt, device=x.device)[None, :]
     feature = feature.long()
     acc = torch.zeros((N, K), dtype=torch.float32, device=x.device)
+    # a tensor, not a Python number: on CUDA torch divides by a number as a
+    # multiply by its reciprocal, which rounds otherwise than the kernels'
+    # division unless tp is a power of two
+    n_pad = torch.tensor(float(tp), device=x.device)
     for j0 in range(0, tp, bt):
         fj, tj, lj = feature[j0:j0 + bt], threshold[j0:j0 + bt], leaf[j0:j0 + bt]
         node = torch.zeros((N, bt), dtype=torch.long, device=x.device)
@@ -78,7 +82,7 @@ def forest_infer_plain(x, feature, threshold, leaf, depth: int, *,
         block = torch.zeros_like(acc)
         for t in range(bt):      # in tree order, as the kernel adds them
             block = block + votes[:, t]
-        acc = acc + block / tp
+        acc = acc + block / n_pad
     return acc * rescale
 
 

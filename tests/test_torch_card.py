@@ -36,6 +36,7 @@ from repro_torch.kernels.fused_pipeline import (
 from repro_torch.kernels.decode_attention import (
     decode_attention_kernel_call,
     decode_attention_plain,
+    split_plan,
 )
 from repro_torch.kernels.feature_extract import flow_stats_kernel_call, flow_stats_plain
 from repro_torch.kernels.flash_attention import (
@@ -132,6 +133,55 @@ def test_fused_kernel_long_window_bitwise(cuda, depth):  # noqa: F811
     for fn in (fused_pipeline_call, fused_forest_infer_plain):
         cols = torch.empty((ds.n_flows, len(plan)), device=cuda)
         p = fn(*_packets(ds, cuda), *tables, op_table=op_table, depth=depth,
+               forest_depth=forest.depth, columns=cols)
+        outs.append((p.cpu().numpy(), cols.cpu().numpy()))
+    (pk, xk), (pp, xp) = outs
+    np.testing.assert_array_equal(xk, xp)
+    np.testing.assert_array_equal(pk, pp)
+
+
+def _warp_case_plan(F: int) -> tuple:
+    """A plan of F columns: the registry's 67 features, cut or repeated;
+    F = 1 is one median."""
+    if F == 1:
+        return stats_plan(("s_iat_med",))
+    names = (FEATURE_NAMES * 2)[:F]
+    return stats_plan(names)
+
+
+@pytest.mark.parametrize("N,F,window", [
+    (4096, 67, 50), (1, 67, 50), (8, 128, 50), (33, 1, 50),
+    (4096, 128, 128), (33, 67, 128), (8, 1, 128),
+    (33, 67, 129), (8, 128, 129), (1, 67, 4000), (33, 1, 4000),
+    (200, 128, 4000)])
+def test_fused_kernel_warp_per_flow_bitwise(cuda, N, F, window):  # noqa: F811
+    """The warp-per-flow kernel at batch sizes around a warp's flows and a
+    block's, at 1, 67 and 128 columns, 40 trees (more than a warp's lanes)
+    and 64 classes (two a lane), and windows inside a shared-memory chunk
+    (50, 128) and above it (129, 4000): columns and probabilities bitwise
+    the plain version's. The forest's thresholds are quantiles of the
+    columns, so a column one ulp off would move some flow's path."""
+    if window <= MAX_WINDOW:
+        ds = make_dataset("iot-class", n_flows=600, max_pkts=160, seed=5)
+    else:
+        ds = _stream_trace()
+    ds = ds.take(np.arange(N) % ds.n_flows)
+    plan = _warp_case_plan(F)
+    assert len(plan) == F
+    op_table = torch.from_numpy(encode_plan(plan)).to(cuda)
+    packets = _packets(ds, cuda)
+    x = torch.empty((N, F), device=cuda)
+    probe = forest_tables(_random_forest(np.random.default_rng(0), 1, 1, 2, F),
+                          cuda)
+    fused_forest_infer_plain(*packets, *probe, op_table=op_table, depth=window,
+                             forest_depth=1, columns=x)
+    forest = quantile_forest(x.cpu().numpy(), np.random.default_rng(N + F),
+                             T=40, D=6, K=64)
+    tables = forest_tables(forest, cuda)
+    outs = []
+    for fn in (fused_pipeline_call, fused_forest_infer_plain):
+        cols = torch.empty((N, F), device=cuda)
+        p = fn(*packets, *tables, op_table=op_table, depth=window,
                forest_depth=forest.depth, columns=cols)
         outs.append((p.cpu().numpy(), cols.cpu().numpy()))
     (pk, xk), (pp, xp) = outs
@@ -484,6 +534,8 @@ def test_flash_attention_row_without_keys_on_card(cuda, dtype):  # noqa: F811
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain(cuda, B, Hq, Hkv, S, D,  # noqa: F811
                                                dtype):
+    """The split kernel bitwise its plain version, which repeats its splits,
+    sums and merge; an empty sequence gives 0."""
     R = np.random.default_rng(S * D + Hq)
     q = _randn(R, (B, Hq, D), cuda, dtype)
     kc = _randn(R, (B, S, Hkv, D), cuda, dtype)
@@ -492,13 +544,64 @@ def test_decode_attention_kernel_matches_plain(cuda, B, Hq, Hkv, S, D,  # noqa: 
     if B > 1:
         lens[0] = 0       # an empty sequence gives 0
     lens = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+    n0 = decode_attention_kernel_call.launches
     got = decode_attention_kernel_call(q, kc, vc, lens)
     want = decode_attention_plain(q, kc, vc, lens)
     torch.cuda.synchronize()
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert decode_attention_kernel_call.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, want)
     if B > 1:
         assert torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [
+    (1, 4, 1, 200, 64), (2, 8, 2, 700, 128), (2, 8, 8, 1100, 32),
+    (8, 32, 8, 4096, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_at_split_edges(cuda, B, Hq, Hkv, S, D,  # noqa: F811
+                                                dtype):
+    """Lengths 0, 1, S and one either side of each split boundary, bitwise
+    the plain version (qwen3-8b's decode shape among them)."""
+    n_split, split_len = split_plan(B, Hkv, S)
+    assert n_split > 1
+    R = np.random.default_rng(S + D)
+    q = _randn(R, (B, Hq, D), cuda, dtype)
+    kc = _randn(R, (B, S, Hkv, D), cuda, dtype)
+    vc = _randn(R, (B, S, Hkv, D), cuda, dtype)
+    edges = {0, 1, S}
+    for e in range(split_len, S, split_len):
+        edges.update((e - 1, e, e + 1))
+    edges = sorted(edges)
+    for i in range(0, len(edges), B):
+        lens = torch.tensor((edges[i:i + B] * B)[:B], dtype=torch.int32,
+                            device=cuda)
+        got = decode_attention_kernel_call(q, kc, vc, lens)
+        assert torch.equal(got, decode_attention_plain(q, kc, vc, lens)), \
+            lens.tolist()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_in_a_cuda_graph(cuda, dtype):  # noqa: F811
+    """The launch reads nothing back, so a CUDA graph captures it: replayed
+    after new lengths are copied in, it equals an eager call."""
+    B, Hq, Hkv, S, D = 8, 32, 8, 1024, 128
+    R = np.random.default_rng(11)
+    q = _randn(R, (B, Hq, D), cuda, dtype)
+    kc = _randn(R, (B, S, Hkv, D), cuda, dtype)
+    vc = _randn(R, (B, S, Hkv, D), cuda, dtype)
+    lens = torch.from_numpy(R.integers(1, S + 1, B).astype(np.int32)).to(cuda)
+    decode_attention_kernel_call(q, kc, vc, lens)    # warm: attributes set
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_kernel_call(q, kc, vc, lens)
+    for new in (R.integers(0, S + 1, B), np.full(B, S), np.arange(B) * 97):
+        lens.copy_(torch.from_numpy(new.astype(np.int32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, decode_attention_kernel_call(q, kc, vc, lens))
+        assert torch.equal(out, decode_attention_plain(q, kc, vc, lens))
 
 
 @pytest.mark.parametrize("B,T,H,P,S,chunk", [

@@ -2,6 +2,8 @@
 B8 Mamba scan) against the JAX package: its Pallas kernels in interpret
 mode at `tests/test_kernels.py`'s sweep shapes and tolerances, and its jnp
 oracles at ragged shapes the Pallas wrappers do not take."""
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,8 +15,11 @@ from repro.models.ssm import chunked_ssd as j_chunked_ssd
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import (
+    MAX_SPLIT_LEN,
+    SPLIT_TILE,
     decode_attention_kernel_call,
     decode_attention_plain,
+    split_plan,
 )
 from repro_torch.kernels.flash_attention import (
     flash_attention_kernel_call,
@@ -214,6 +219,127 @@ def test_decode_attention_plain_matches_oracle_ragged(dtype):
     # a sequence of length 0 gives 0 (the oracle gives NaN)
     zero = decode_attention_plain(tq, tk, tv, torch.zeros(B, dtype=torch.int32))
     assert torch.all(zero == 0)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,bs", [
+    (2, 4, 2, 256, 64, 128),
+    (1, 16, 2, 300, 64, 128),
+    (4, 32, 8, 512, 128, 256),
+])
+def test_decode_attention_plain_matches_pallas_bf16(B, Hq, Hkv, S, D, bs):
+    """The split plain version on bf16 inputs against the Pallas kernel in
+    interpret mode (both compute in float32 and round the output to
+    bf16: one bf16 rounding apart)."""
+    R = np.random.default_rng(S + D + 1)
+    jq, tq = _pair(R, (B, Hq, D), "bfloat16")
+    jk, tk = _pair(R, (B, S, Hkv, D), "bfloat16")
+    jv, tv = _pair(R, (B, S, Hkv, D), "bfloat16")
+    lens = R.integers(1, S + 1, B).astype(np.int32)
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(lens), block_s=bs)
+    got = decode_attention_plain(tq, tk, tv, torch.from_numpy(lens))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
+
+
+def _split_lengths(S: int, split_len: int) -> list[int]:
+    """Lengths 0, 1, S and one either side of every split boundary."""
+    out = {0, 1, S}
+    for edge in range(split_len, S, split_len):
+        out.update((edge - 1, edge, edge + 1))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [
+    (1, 4, 1, 200, 64),    # 4 splits of 64
+    (1, 2, 2, 130, 128),   # 3 splits, the last of 2 positions
+    (2, 8, 2, 256, 32),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_at_split_edges(B, Hq, Hkv, S, D, dtype):
+    """Lengths 0, 1, S and split boundaries +-1, with several splits at a
+    small S: the plain version against the jnp oracle (0 where the length
+    is 0, where the oracle gives NaN)."""
+    n_split, split_len = split_plan(B, Hkv, S)
+    assert n_split > 1
+    R = np.random.default_rng(S * D)
+    jq, tq = _pair(R, (B, Hq, D), dtype)
+    jk, tk = _pair(R, (B, S, Hkv, D), dtype)
+    jv, tv = _pair(R, (B, S, Hkv, D), dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for n in _split_lengths(S, split_len):
+        lens = np.full(B, n, np.int32)
+        lens[-1] = S - n          # the other sequence at another edge
+        got = _np(decode_attention_plain(tq, tk, tv, torch.from_numpy(lens)))
+        want = _np(jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens)))
+        for b in range(B):
+            if lens[b] == 0:
+                assert np.all(got[b] == 0)
+            else:
+                np.testing.assert_allclose(got[b], want[b], atol=tol)
+
+
+@pytest.mark.parametrize("B,Hkv,S", [
+    (8, 8, 4096),     # qwen3-8b's timed shape
+    (8, 32, 168),     # zamba2-1.2b's served cache
+    (1, 1, 1), (1, 1, 64), (1, 1, 65), (2, 8, 300), (1, 2, 32768),
+    (64, 8, 4096), (1, 1, 0),
+])
+def test_split_plan(B, Hkv, S):
+    """The split count is a function of (B, Hkv, S) only: whole tiles of
+    at least SPLIT_TILE positions, at most MAX_SPLIT_LEN, covering S with
+    no split wholly past it."""
+    assert list(inspect.signature(split_plan).parameters) == ["B", "Hkv", "S"]
+    n_split, split_len = split_plan(B, Hkv, S)
+    assert split_plan(B, Hkv, S) == (n_split, split_len)
+    assert split_len % SPLIT_TILE == 0
+    assert SPLIT_TILE <= split_len <= MAX_SPLIT_LEN
+    assert n_split >= 1 and n_split * split_len >= S
+    assert (n_split - 1) * split_len < max(S, 1)
+    if (B, Hkv, S) == (8, 8, 4096):
+        # about 8 blocks per SM of the H100's 132: 16 splits of 256
+        assert (n_split, split_len) == (16, 256)
+        assert 6 * 132 <= B * Hkv * n_split <= 10 * 132
+
+
+def _decode_attention_plain_before(q, k_cache, v_cache, lengths):
+    """The plain version before the split kernel: a one-pass softmax over
+    the whole cache (frozen copy)."""
+    B, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    g = Hq // Hkv
+    qg = q.reshape(B, Hkv, g, D).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * D ** -0.5
+    valid = (torch.arange(S)[None, :] < lengths[:, None])[:, None, None, :]
+    s = s.masked_fill(~valid, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~valid, 0.0)
+    den = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    out = out / torch.where(den > 0, den, torch.ones_like(den))
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [
+    (2, 4, 2, 256, 64), (3, 8, 8, 512, 32), (4, 32, 8, 300, 128),
+    (2, 9, 1, 77, 128), (2, 4, 2, 50, 20)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_near_one_pass(B, Hq, Hkv, S, D, dtype):
+    """The split plain version against the one-pass version it replaced:
+    float32 within 2e-6 (sums in another order, outputs of magnitude ~1),
+    bf16 within one bf16 rounding of the output (2^-7 relative)."""
+    R = np.random.default_rng(B * S + D)
+    _, q = _pair(R, (B, Hq, D), dtype)
+    _, k = _pair(R, (B, S, Hkv, D), dtype)
+    _, v = _pair(R, (B, S, Hkv, D), dtype)
+    lens = torch.from_numpy(R.integers(0, S + 1, B).astype(np.int32))
+    got = decode_attention_plain(q, k, v, lens)
+    want = _decode_attention_plain_before(q, k, v, lens)
+    assert got.dtype == want.dtype
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-6)
 
 
 @pytest.mark.parametrize("B,T,H,P,S,chunk", [
