@@ -2,8 +2,8 @@
 // fused_pipeline.cu (B2), fused_agg.cu (B3) and fused_multi.cu (B4): the
 // counterpart of `_traverse` in
 // src/repro/kernels/fused_pipeline.py and of `_tree_kernel` in
-// src/repro/kernels/tree_infer.py, for one flow per thread (B1, B3, B4)
-// or per warp (B2, `traverse_forest_warp`).
+// src/repro/kernels/tree_infer.py, for one flow per thread (B1, B4) or
+// per warp (B2, B3: `traverse_forest_warp`).
 //
 // Order of the arithmetic, kept from the reference so that the kernel agrees
 // with the plain versions to float32 rounding:
@@ -22,11 +22,11 @@
 
 namespace cato {
 
-constexpr int kThreads = 32;      // flows per block of B1, B3, B4: one a thread
+constexpr int kThreads = 32;      // flows per block of B1, B4: one a thread
 constexpr int kMaxClasses = 64;   // K; the wrappers raise above it
 
 // xrow: this flow's feature values (global memory for B1, a per-thread
-// array for B3 and B4). The node tables and the leaf table stay in
+// array for B4). The node tables and the leaf table stay in
 // global memory and are read through the read-only cache: at T=25, D=10,
 // K=28 the leaves alone are 2.9 MB, far above the 227 KB of shared memory
 // a block may use and far below the 50 MB of L2.
@@ -84,7 +84,7 @@ __device__ __forceinline__ void traverse_forest(
                           (1 << depth) - 1, (1 << depth) * K, K);
 }
 
-// The same traversal and sums for one flow by a warp (B2): lane t walks
+// The same traversal and sums for one flow by a warp (B2, B3): lane t walks
 // trees t, t + 32, ... on the flow's columns `xs` (shared memory) and puts
 // its leaf in `leaf_idx` (32 ints of shared memory); then lane k adds the
 // payloads of classes k and k + 32 tree by tree, in tree order, block by

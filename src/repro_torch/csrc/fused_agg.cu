@@ -16,9 +16,18 @@
 // never compiles (DESIGN.md §9.3). A median has no incremental form: the
 // wrapper refuses a table with one.
 //
-// Layout. One thread per flow, kThreads (32) flows per block; rows past N
-// are masked. A thread reads its flow's 53 + 3 floats and keeps its F
-// columns in a per-thread array (kMaxFeatures).
+// Layout: one warp per flow, kFlowsPerBlock (4) flows a block, as B2
+// (fused_pipeline.cu), nothing shared between the warps of a block. The
+// warp loads its flow's 53 aggregate floats and 3 meta floats into shared
+// memory, coalesced; lane c computes op-table rows c, c + 32, c + 64 and
+// c + 96 (F <= 128) with the column code below, into a shared x[F] and,
+// when it is given, into `columns` (coalesced). Then the warp walks the
+// forest with `traverse_forest_warp` (forest_common.cuh: lane t on trees
+// t, t + 32, ...; lane k on classes k and k + 32, in tree order) and
+// writes the flow's output row coalesced. Each column is one lane's, by
+// the same operations as before, and the tree sums keep their block
+// order: columns and probabilities are bitwise the one-thread-per-flow
+// design's and the plain version's.
 //
 // Parity with the reference's float32 path, where it is most likely to
 // break:
@@ -37,14 +46,17 @@
 //
 // Bound on the H100. Memory: each flow's 56 floats in, the visited forest
 // entries and the (N, K) output. Operations: a handful per column plus the
-// traversal, far below the card's float32 rate. In practice the
-// traversal's chain of dependent loads bounds it, as for B1: a refresh
-// batch is 8..256 flows, a few warps on a card of 132 SMs.
+// traversal, far below the card's float32 rate. In practice a flow's
+// latency bounds it: its lanes' columns, then one tree walk per lane, a
+// chain of dependent loads as deep as the forest. A refresh batch is 8..256
+// flows, so warps per flow put 8..256 warps on the card where one thread
+// per flow put 1..8.
 #include "forest_common.cuh"
 
 namespace {
 
 constexpr int kMaxFeatures = 128;  // F; the wrapper raises above it
+constexpr int kFlowsPerBlock = 4;  // one warp each
 constexpr int kAggWidth = 53;      // AGG_WIDTH
 constexpr float kHalfBig = 3.4e38f / 2;
 
@@ -105,7 +117,48 @@ __device__ float stat_of(const float* a, int d, int field, int stat) {
   }
 }
 
-__global__ void __launch_bounds__(cato::kThreads) fused_agg_infer_kernel(
+// The column of op-table row `op` for the flow's aggregate row `a`, meta
+// `m` (proto, s_port, d_port) and duration `dur`.
+__device__ float agg_column(const float* a, const float* m, float dur,
+                            const int* __restrict__ op) {
+  const int kind = __ldg(op);
+  const int d = __ldg(op + 1);
+  const int field = __ldg(op + 2);
+  const int stat = __ldg(op + 3);
+  switch (kind) {
+    case kDur:
+      return dur;
+    case kMeta:
+      return m[field];  // proto, s_port, d_port
+    case kLoad: {
+      const float byt = a[kDirStride * d + family_base(kBytes)];
+      return dur > 0.0f ? byt * 8.0f / fmaxf(dur, 1e-9f) : 0.0f;
+    }
+    case kPktCnt:
+      return a[kDirStride * d + kCnt];
+    case kHandshake: {
+      const float t_syn = shake(a, kHsSyn);
+      const float t_synack = shake(a, kHsSynAck);
+      const float t_ack = shake(a, kHsAck);
+      return field == kTcpRtt   ? fmaxf(t_ack - t_syn, 0.0f)
+             : field == kSynAck ? fmaxf(t_synack - t_syn, 0.0f)
+                                : fmaxf(t_ack - t_synack, 0.0f);
+    }
+    case kFlagCnt:
+      return a[kFlags + field];
+    default:  // kStat
+      return stat_of(a, d, field, stat);
+  }
+}
+
+struct FlowShared {  // one warp's shared memory
+  float a[kAggWidth];
+  float meta[3];
+  float x[kMaxFeatures];
+  int leaf_idx[32];
+};
+
+__global__ void __launch_bounds__(kFlowsPerBlock * 32) fused_agg_infer_kernel(
     const float* __restrict__ agg,        // (N, 53)
     const float* __restrict__ meta,       // (N, 3): proto, s_port, d_port
     const int* __restrict__ op_table,     // (F, 4)
@@ -116,60 +169,30 @@ __global__ void __launch_bounds__(cato::kThreads) fused_agg_infer_kernel(
     float* __restrict__ columns,          // (N, F) or null
     int N, int F, int forest_depth, int T, int K, int block_t,
     int n_trees_padded, float rescale) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  float a[kAggWidth];
-  for (int i = 0; i < kAggWidth; ++i)
-    a[i] = agg[static_cast<size_t>(n) * kAggWidth + i];
-  const float* m = meta + static_cast<size_t>(n) * 3;
+  __shared__ FlowShared shared[kFlowsPerBlock];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n = blockIdx.x * kFlowsPerBlock + warp;
+  if (n >= N) return;   // the whole warp: no barrier spans the block
+  FlowShared& sh = shared[warp];
+  const float* row = agg + static_cast<size_t>(n) * kAggWidth;
+  for (int i = lane; i < kAggWidth; i += 32) sh.a[i] = row[i];
+  if (lane < 3) sh.meta[lane] = meta[static_cast<size_t>(n) * 3 + lane];
+  __syncwarp();
 
-  const float n_any = a[kCnt] + a[kDirStride + kCnt];
-  const float dur = n_any > 0.0f ? a[kTsMax] - a[kTsMin] : 0.0f;
-
-  float x[kMaxFeatures];
-  for (int f = 0; f < F; ++f) {
-    const int kind = __ldg(op_table + 4 * f);
-    const int d = __ldg(op_table + 4 * f + 1);
-    const int field = __ldg(op_table + 4 * f + 2);
-    const int stat = __ldg(op_table + 4 * f + 3);
-    float v;
-    switch (kind) {
-      case kDur:
-        v = dur;
-        break;
-      case kMeta:
-        v = m[field];  // proto, s_port, d_port
-        break;
-      case kLoad: {
-        const float byt = a[kDirStride * d + family_base(kBytes)];
-        v = dur > 0.0f ? byt * 8.0f / fmaxf(dur, 1e-9f) : 0.0f;
-        break;
-      }
-      case kPktCnt:
-        v = a[kDirStride * d + kCnt];
-        break;
-      case kHandshake: {
-        const float t_syn = shake(a, kHsSyn);
-        const float t_synack = shake(a, kHsSynAck);
-        const float t_ack = shake(a, kHsAck);
-        v = field == kTcpRtt   ? fmaxf(t_ack - t_syn, 0.0f)
-            : field == kSynAck ? fmaxf(t_synack - t_syn, 0.0f)
-                               : fmaxf(t_ack - t_synack, 0.0f);
-        break;
-      }
-      case kFlagCnt:
-        v = a[kFlags + field];
-        break;
-      default:  // kStat
-        v = stat_of(a, d, field, stat);
-        break;
-    }
-    x[f] = v;
-    if (columns != nullptr) columns[static_cast<size_t>(n) * F + f] = v;
+  const float n_any = sh.a[kCnt] + sh.a[kDirStride + kCnt];
+  const float dur = n_any > 0.0f ? sh.a[kTsMax] - sh.a[kTsMin] : 0.0f;
+  float* col = columns != nullptr ? columns + static_cast<size_t>(n) * F
+                                  : nullptr;
+  for (int f = lane; f < F; f += 32) {
+    const float v = agg_column(sh.a, sh.meta, dur, op_table + 4 * f);
+    sh.x[f] = v;
+    if (col != nullptr) col[f] = v;
   }
-  cato::traverse_forest(x, feature, threshold, leaf, T, forest_depth, K,
-                        block_t, n_trees_padded, rescale,
-                        out + static_cast<size_t>(n) * K);
+  __syncwarp();
+  cato::traverse_forest_warp(sh.x, feature, threshold, leaf, T, forest_depth,
+                             K, block_t, n_trees_padded, rescale,
+                             out + static_cast<size_t>(n) * K, sh.leaf_idx,
+                             lane);
 }
 
 }  // namespace
@@ -182,8 +205,8 @@ extern "C" int fused_agg_infer_launch(
     const int* feature, const float* threshold, const float* leaf,
     float* out, float* columns, int N, int F, int forest_depth, int T, int K,
     int block_t, int n_trees_padded, float rescale, void* stream) {
-  const int blocks = (N + cato::kThreads - 1) / cato::kThreads;
-  fused_agg_infer_kernel<<<blocks, cato::kThreads, 0,
+  const int blocks = (N + kFlowsPerBlock - 1) / kFlowsPerBlock;
+  fused_agg_infer_kernel<<<blocks, kFlowsPerBlock * 32, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       agg, meta, op_table, feature, threshold, leaf, out, columns, N, F,
       forest_depth, T, K, block_t, n_trees_padded, rescale);

@@ -1,7 +1,7 @@
 // Feature columns of a stats plan over one flow's packet window, one warp
-// per flow: the warp-level counterpart of plan_columns.cuh (which B3 and B4
-// keep for now), used by fused_pipeline.cu (B2). Same op table, same
-// columns to the last bit.
+// per flow: the warp-level counterpart of plan_columns.cuh (which B4
+// keeps), used by fused_pipeline.cu (B2). Same op table, same columns to
+// the last bit.
 //
 // The warp stages its flow's packets in shared memory, kChunk (128) at a
 // time, with coalesced loads: size, winsize, ttl (float32), direction, the

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "decode_attention_launch": (
         [_VOID] * 6 + [_INT] * 8 + [_FLOAT, _VOID]),
     "mamba_scan_launch": (
-        [_VOID] * 7 + [_INT] * 7 + [_VOID]),
+        [_VOID] * 12 + [_INT] * 7 + [_VOID]),
     "flow_stats_launch": (
         [_VOID] * 3 + [_INT] * 2 + [_VOID]),
 }

@@ -21,11 +21,14 @@ CUDA tensors go to `fused_pipeline_call` (the kernel), CPU tensors to
 `_traverse` order, shared with `tree_infer.forest_infer_plain`.
 
 The aggregate entry (DESIGN.md §12) is the same pair for a refresh batch of
-the reuse path: `fused_agg_call` launches B3 (``csrc/fused_agg.cu``),
-which computes an incremental plan's columns from each flow's (53,)
-float32 aggregate row instead of its packet window;
+the reuse path: `fused_agg_call` launches B3 (``csrc/fused_agg.cu``, a
+warp per flow as B2), which computes an incremental plan's columns from
+each flow's (53,) float32 aggregate row instead of its packet window;
 `fused_agg_infer_plain` runs the torch `emit_agg_features` and the plain
-traversal; `fused_agg_infer` picks by device.
+traversal; `fused_agg_infer` picks by device. A plan with a median has no
+incremental form: `agg_op_table` refuses it on the host, once, before
+the table goes to the card, and `fused_agg_call` takes only CUDA tables
+made so, so that a launch never reads the card back.
 
 The multi-tenant entry (DESIGN.md §15) serves N tenants in one launch:
 `fused_multi_forest_call` launches B4 (``csrc/fused_multi.cu``), which
@@ -36,6 +39,8 @@ axis by `stack_multi_forests`, into the tenant's own output lanes.
 the plain traversal per tenant; `fused_multi_forest_infer` picks by device.
 """
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -55,7 +60,7 @@ from .tree_infer import (
     tree_blocking,
 )
 
-__all__ = ["encode_plan", "decode_plan", "fused_forest_infer",
+__all__ = ["agg_op_table", "encode_plan", "decode_plan", "fused_forest_infer",
            "fused_forest_infer_plain", "fused_pipeline_call",
            "fused_agg_call", "fused_agg_infer", "fused_agg_infer_plain",
            "encode_merged_plan", "decode_merged_plan", "stack_multi_forests",
@@ -244,6 +249,34 @@ def fused_forest_infer(
               columns=columns)
 
 
+# CUDA op tables that `agg_op_table` checked for a median on the host, by
+# identity and version (an edit in place makes a table new)
+_AGG_TABLES: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
+
+
+def _refuse_median(table: torch.Tensor) -> None:
+    """Raise if a host (F, 4) op table has a median column."""
+    stat = table[:, 3][table[:, 0] == _KINDS.index("stat")]
+    if bool((stat == _STATS.index("med")).any()):
+        raise ValueError("the plan has a median, which has no incremental "
+                         "form: the aggregate kernel takes incremental plans "
+                         "only")
+
+
+def agg_op_table(table, device) -> torch.Tensor:
+    """The (F, 4) int32 op table of an incremental plan on `device`, as
+    `fused_agg_call` takes it: `table` (from `encode_plan`, an array or a
+    CPU tensor) is checked for a median on the host before it goes there."""
+    host = torch.as_tensor(table)
+    if host.device.type != "cpu":
+        raise ValueError(f"the op table is on {host.device}: give the host's")
+    _refuse_median(host)
+    out = host.to(device=device, dtype=torch.int32).contiguous()
+    if out.is_cuda:
+        _AGG_TABLES[(id(out), out._version)] = out
+    return out
+
+
 def fused_agg_infer_plain(
     agg, meta, feature, threshold, leaf, *, op_table, forest_depth: int,
     block_t: int = 8, columns: torch.Tensor | None = None,
@@ -269,13 +302,14 @@ def fused_agg_call(
 
     Takes float32 `agg` (N, AGG_WIDTH) and `meta` (N, 3) = proto, s_port,
     d_port, the forest tables as `forest_infer_kernel_call` takes them, and
-    the int32 (F, 4) `op_table` from `encode_plan` of an incremental plan
-    (no median), all contiguous on one CUDA device. Padding rows may be all
-    zero: they yield an all-zero feature row. `columns`, if given, is an
-    (N, F) float32 buffer that receives the kernel's own feature columns.
-    Launches on the current stream; its one wait is the read-back of the
-    op table for the median check (a refresh batch resolves at once
-    anyway).
+    the int32 (F, 4) `op_table` of an incremental plan (no median) from
+    `agg_op_table`, all contiguous on one CUDA device. A host op table is
+    checked for a median here, so that one raises too; a CUDA one made
+    otherwise raises, since checking it would read the card. Padding rows
+    may be all zero: they yield an all-zero feature row. `columns`, if
+    given, is an (N, F) float32 buffer that receives the kernel's own
+    feature columns. Launches on the current stream, reads nothing back
+    and does not synchronise, so a CUDA graph can capture it.
     """
     dev = agg.device
     if agg.ndim != 2 or op_table.ndim != 2:
@@ -284,11 +318,12 @@ def fused_agg_call(
     nf = op_table.shape[0]
     if not 1 <= nf <= MAX_FEATURES:
         raise ValueError(f"plan has {nf} columns; the kernel takes 1..{MAX_FEATURES}")
-    stat = op_table[:, 3][op_table[:, 0] == _KINDS.index("stat")]
-    if bool((stat == _STATS.index("med")).any()):
-        raise ValueError("the plan has a median, which has no incremental "
-                         "form: the aggregate kernel takes incremental plans "
-                         "only")
+    if op_table.device.type == "cpu":
+        _refuse_median(op_table)
+    elif _AGG_TABLES.get((id(op_table), op_table._version)) is not op_table:
+        raise ValueError("a CUDA op table for the aggregate kernel comes from "
+                         "agg_op_table, which checks it for a median on the "
+                         "host")
     T, K = _check_forest(feature, threshold, leaf, forest_depth, dev)
     check_tensor("agg", agg, torch.float32, (N, AGG_WIDTH), dev)
     check_tensor("meta", meta, torch.float32, (N, 3), dev)

@@ -12,7 +12,10 @@ reference's zero padding: dt = 0, so decay 1 and no input) and return the
 final state beside y, which `repro_torch.models.ssm.mamba2_forward` needs.
 
 `mamba_scan_kernel_call` launches ``csrc/mamba_scan.cu`` (see the source
-note); `mamba_scan_plain` computes the same function with torch ops through
+note): a pass for each chunk's C B^T, a chunk-state pass, a state pass
+over the chunks in order and a chunk-scan pass, with a float32 scratch
+(`scan_scratch_shapes`) allocated here; `mamba_scan_plain` computes the same
+function with torch ops through
 `chunked_ssd`, the model-side chunked form (a copy of the reference's, which
 `repro_torch.models.ssm` re-exports), chunk by chunk, vectorised over batch
 and heads. `repro_torch.kernels.ops.mamba_scan` picks between them by the
@@ -25,12 +28,17 @@ import torch.nn.functional as F
 
 from ._build import check_tensor, launch
 
-__all__ = ["MAX_SHARED_BYTES", "chunked_ssd", "cumsum_in_order",
-           "mamba_scan_kernel_call", "mamba_scan_plain", "scan_shared_bytes"]
+__all__ = ["MAX_CHUNK", "MAX_SHARED_BYTES", "chunked_ssd", "cumsum_in_order",
+           "mamba_scan_kernel_call", "mamba_scan_plain", "scan_scratch_shapes",
+           "scan_shared_bytes"]
 
 MAX_SHARED_BYTES = 232_448   # the H100's shared memory per block
-_THREADS = 512               # kThreads in the source; a chunk fits in it
+MAX_CHUNK = 128              # kMaxChunk in the source
 _DTYPES = (torch.float32, torch.bfloat16)
+# the source's shared-memory layout (floats): kStrip, kGroupP and the row
+# lengths of its transposed arrays
+_STRIP, _GROUP_P = 32, 64
+_LD_T, _LD_STRIP, _LD_P = MAX_CHUNK + 4, _STRIP + 4, _GROUP_P + 4
 
 
 def _shapes(x, dt, A, Bm, Cm):
@@ -48,9 +56,35 @@ def _shapes(x, dt, A, Bm, Cm):
 
 
 def scan_shared_bytes(chunk: int, P: int, S: int) -> int:
-    """Dynamic shared memory of one block of the kernel, in bytes."""
-    c = chunk
-    return 4 * (c * P + c * (S + 1) + c * S + P * (S + 1) + c * c + 3 * c)
+    """Dynamic shared memory of the kernel's largest block, in bytes: the
+    C B^T pass holds 32 rows of C and up to 128 of B, transposed; the
+    chunk-state pass a chunk's dt o x and B (rows padded to 4 floats); the
+    chunk-scan pass C transposed, a strip's dt o x (32 steps x 64 columns),
+    two strips of M transposed and the entering state's 64 columns
+    transposed. The last two hold dt, L and one more row of MAX_CHUNK
+    floats."""
+    def r4(v):
+        return -(-v // 4) * 4
+    cb = S * _LD_STRIP + S * _LD_T
+    state = 3 * MAX_CHUNK + chunk * (r4(P) + r4(S))
+    scan = (3 * MAX_CHUNK + S * _LD_T + _STRIP * _GROUP_P + 2 * _STRIP * _LD_T
+            + S * _LD_P)
+    return 4 * max(cb, state, scan)
+
+
+def scan_scratch_shapes(B: int, T: int, H: int, P: int, S: int,
+                        chunk: int = 128) -> tuple[tuple, ...]:
+    """The float32 scratch the kernel call allocates: every chunk's state
+    (B, H, n_chunks, P, S), first its own update, then the state entering
+    it; every chunk's decay exp(L_c) (B, H, n_chunks); and, shared by the
+    heads, every chunk's C B^T (B, n_chunks, MAX_CHUNK, MAX_CHUNK), C
+    transposed (B, n_chunks, S, MAX_CHUNK) and B in float32, rows padded
+    to 4 floats (B, n_chunks, MAX_CHUNK, S4)."""
+    c = max(1, min(chunk, T))
+    n_chunks = -(-T // c)
+    return ((B, H, n_chunks, P, S), (B, H, n_chunks),
+            (B, n_chunks, MAX_CHUNK, MAX_CHUNK), (B, n_chunks, S, MAX_CHUNK),
+            (B, n_chunks, MAX_CHUNK, -(-S // 4) * 4))
 
 
 def cumsum_in_order(a: torch.Tensor) -> torch.Tensor:
@@ -123,9 +157,23 @@ def chunked_ssd(x, log_decay, scale, Bm, Cm, chunk: int = 128):
 def mamba_scan_plain(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """(y (B, T, H, P) in x's type, final state (B, H, P, S) float32);
     runs on any device. `chunked_ssd` with one shared group, log decay
-    ``dt * A`` and scale ``dt``, after zero-padding T to a chunk multiple."""
+    ``dt * A`` and scale ``dt``, after zero-padding T to a chunk multiple.
+
+    On the card its products are cuBLAS's float32 GEMMs, which add each
+    output's products in k order by FFMA, as the kernel's fmaf chains do,
+    when they run as a batch of matrices: a single GEMM (batch one) of
+    some shapes is split along k (cublasLt's split-K) and its parts added,
+    and one of a row or a column is a GEMV, whose sums are trees. So a
+    batch of one runs here as a batch of two equal sequences, and a T
+    below the chunk as one chunk of the full length, zero-padded: the same
+    values, since the padded steps add no term and keep L (dt = 0)."""
     B, T, H, P, S = _shapes(x, dt, A, Bm, Cm)
-    c = max(1, min(chunk, T))
+    if B == 1 and x.is_cuda:
+        y, h = mamba_scan_plain(*(t.expand(2, *t.shape[1:]) for t in (x, dt)),
+                                A, *(t.expand(2, *t.shape[1:]) for t in (Bm, Cm)),
+                                chunk=chunk)
+        return y[:1], h[:1]
+    c = max(1, chunk)
     pad = (-T) % c
     dtf = F.pad(dt.float(), (0, 0, 0, pad))
     y, h = chunked_ssd(F.pad(x, (0, 0, 0, 0, 0, pad)), dtf * A.float(), dtf,
@@ -139,14 +187,16 @@ def mamba_scan_kernel_call(x, dt, A, Bm, Cm, *, chunk: int = 128):
     x's type, final state (B, H, P, S) float32).
 
     x, Bm and Cm are contiguous and of one type (float32 or bfloat16); dt
-    and A are float32. The chunk's working set must fit in a block's shared
-    memory (`scan_shared_bytes`). Anything else raises. Launches on the
-    current stream and does not synchronise.
+    and A are float32. The chunk is at most MAX_CHUNK steps and the working
+    set must fit in a block's shared memory (`scan_shared_bytes`). Anything
+    else raises. Allocates the outputs and the scratch of
+    `scan_scratch_shapes`, launches on the current stream, reads nothing
+    back and does not synchronise, so a CUDA graph can capture it.
     """
     B, T, H, P, S = _shapes(x, dt, A, Bm, Cm)
     c = max(1, min(chunk, T))
-    if c > _THREADS:
-        raise ValueError(f"chunk {c}: the kernel takes at most {_THREADS}")
+    if c > MAX_CHUNK:
+        raise ValueError(f"chunk {c}: the kernel takes at most {MAX_CHUNK}")
     if scan_shared_bytes(c, P, S) > MAX_SHARED_BYTES:
         raise ValueError(f"chunk {c}, P {P}, S {S} need "
                          f"{scan_shared_bytes(c, P, S)} bytes of shared "
@@ -160,12 +210,15 @@ def mamba_scan_kernel_call(x, dt, A, Bm, Cm, *, chunk: int = 128):
     check_tensor("Bm", Bm, x.dtype, (B, T, S), dev)
     check_tensor("Cm", Cm, x.dtype, (B, T, S), dev)
     y = torch.empty_like(x)
+    if B * H * T * P * S == 0:   # no step: the state stays at zero
+        return y, torch.zeros((B, H, P, S), dtype=torch.float32, device=dev)
     h_last = torch.empty((B, H, P, S), dtype=torch.float32, device=dev)
-    if B * H == 0:
-        return y, h_last
+    scratch = [torch.empty(shape, dtype=torch.float32, device=dev)
+               for shape in scan_scratch_shapes(B, T, H, P, S, c)]
     launch("mamba_scan_launch", dev,
            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-           Cm.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, T, H, P, S, c,
+           Cm.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+           *(t.data_ptr() for t in scratch), B, T, H, P, S, c,
            int(x.dtype == torch.bfloat16))
     mamba_scan_kernel_call.launches += 1
     return y, h_last

@@ -38,7 +38,12 @@ from ..core.forest import DenseForest
 from ..core.search_space import FeatureRep
 from ..device import resolve_device
 from ..kernels import ops, ref
-from ..kernels.fused_pipeline import encode_plan, fused_agg_infer, fused_forest_infer
+from ..kernels.fused_pipeline import (
+    agg_op_table,
+    encode_plan,
+    fused_agg_infer,
+    fused_forest_infer,
+)
 from .extraction import (
     dataset_tensors,
     emit_agg_features,
@@ -156,7 +161,11 @@ def build_pipeline(
     incremental = plan_is_incremental(plan)
 
     if fused:
-        op_table = torch.from_numpy(encode_plan(plan)).to(dev)
+        # an incremental plan's table also serves B3, which takes it
+        # checked for a median on the host
+        table = encode_plan(plan)
+        op_table = (agg_op_table(table, dev) if incremental
+                    else torch.from_numpy(table).to(dev))
         conn_depth = int(rep.depth)
 
         def run(ds: TrafficDataset) -> torch.Tensor:

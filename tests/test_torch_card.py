@@ -7,6 +7,7 @@ port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
 """
 import functools
+import itertools
 
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from repro_torch.core.search_space import FeatureRep
 from repro_torch.kernels.fused_pipeline import (
     MAX_MERGED_COLUMNS,
     MAX_WINDOW,
+    agg_op_table,
     decode_merged_plan,
     encode_merged_plan,
     encode_plan,
@@ -47,6 +49,7 @@ from repro_torch.kernels.mamba_scan import mamba_scan_kernel_call, mamba_scan_pl
 from repro_torch.kernels.tree_infer import forest_infer_kernel_call, forest_infer_plain
 from repro_torch.traffic.extraction import (
     dataset_tensors,
+    emit_agg_features,
     extract_features,
     merge_stats_plans,
     stats_plan,
@@ -236,29 +239,88 @@ def _agg_rows(n_pkts=6000):
     return tbl.agg[live], meta
 
 
-@pytest.mark.parametrize("n", [1, 8, 37, 4096])
-def test_agg_kernel_matches_plain(cuda, n):  # noqa: F811
+INCREMENTAL = tuple(f for f in FEATURE_NAMES if not f.endswith("_med"))
+
+
+def _agg_case(cuda, n, names, T, D, K, seed):
+    """n aggregate rows (the last a padding row, as the dispatcher pads)
+    and their meta on the card, the checked op table of `names`, and a
+    forest whose thresholds are quantiles of the plain columns, so that a
+    column one ulp off would move some flow's path."""
     agg, meta = _agg_rows()
     idx = np.arange(n) % len(agg)
     a = torch.from_numpy(agg[idx].astype(np.float32)).to(cuda)
     m = torch.from_numpy(meta[idx]).to(cuda)
-    a[-1:] = 0.0                  # a padding row, as the dispatcher pads
+    a[-1:] = 0.0
     m[-1:] = 0.0
-    plan = stats_plan(tuple(f for f in FEATURE_NAMES if not f.endswith("_med")))
-    op_table = torch.from_numpy(encode_plan(plan)).to(cuda)
-    R = np.random.default_rng(n)
-    forest = _random_forest(R, 25, 8, 7, len(plan))
-    tables = forest_tables(forest, cuda)
+    plan = stats_plan(names)
+    x = torch.stack(emit_agg_features(plan, a, proto=m[:, 0], s_port=m[:, 1],
+                                      d_port=m[:, 2]), dim=1)
+    forest = quantile_forest(x.cpu().numpy(), np.random.default_rng(seed),
+                             T=T, D=D, K=K)
+    return a, m, agg_op_table(encode_plan(plan), cuda), forest
+
+
+def _agg_both(a, m, op_table, forest, cuda):
     outs = []
     for fn in (fused_agg_call, fused_agg_infer_plain):
-        cols = torch.empty((n, len(plan)), device=cuda)
-        p = fn(a, m, *tables, op_table=op_table, forest_depth=forest.depth,
-               columns=cols)
+        cols = torch.empty((a.shape[0], op_table.shape[0]), device=cuda)
+        p = fn(a, m, *forest_tables(forest, cuda), op_table=op_table,
+               forest_depth=forest.depth, columns=cols)
         outs.append((p.cpu().numpy(), cols.cpu().numpy()))
-    (pk, xk), (pp, xp) = outs
-    np.testing.assert_allclose(xk, xp, rtol=1e-5, atol=1e-6)
+    return outs
+
+
+@pytest.mark.parametrize("n", [1, 8, 37, 4096])
+def test_agg_kernel_matches_plain(cuda, n):  # noqa: F811
+    """The warp-per-flow kernel: columns and probabilities bitwise the
+    plain version's, the padding row's columns zero."""
+    a, m, op_table, forest = _agg_case(cuda, n, INCREMENTAL, 25, 8, 7, n)
+    n0 = fused_agg_call.launches
+    (pk, xk), (pp, xp) = _agg_both(a, m, op_table, forest, cuda)
+    assert fused_agg_call.launches == n0 + 1
+    np.testing.assert_array_equal(xk, xp)
+    np.testing.assert_array_equal(pk, pp)
     assert (xk[-1] == 0).all()
-    assert_straddle_parity(pp, pk, xp, xk, forest)
+
+
+@pytest.mark.parametrize("n,F,T,K", [
+    (37, 1, 1, 1), (8, 33, 31, 28), (4096, 97, 33, 33), (33, 128, 40, 64),
+    (5, 59, 32, 32)])
+def test_agg_kernel_where_lanes_change_hands(cuda, n, F, T, K):  # noqa: F811
+    """Columns over one, two, four lane slots (F 33, 97, 128: the 59
+    incremental features repeated), trees one either side of a warp's 32
+    (a lane's second tree) and 40, and classes 1, 28, 33 and 64 (a lane's
+    second class slot): columns and probabilities bitwise the plain
+    version's."""
+    names = (INCREMENTAL * 3)[:F] if F > 1 else ("s_iat_std",)
+    a, m, op_table, forest = _agg_case(cuda, n, names, T, 6, K, n + F)
+    (pk, xk), (pp, xp) = _agg_both(a, m, op_table, forest, cuda)
+    np.testing.assert_array_equal(xk, xp)
+    np.testing.assert_array_equal(pk, pp)
+
+
+def test_agg_kernel_in_a_cuda_graph(cuda):  # noqa: F811
+    """The launch reads nothing back (the op table was checked on the host
+    by `agg_op_table`), so a CUDA graph captures it: replayed after new
+    rows are copied in, it equals an eager call and the plain version."""
+    a, m, op_table, forest = _agg_case(cuda, 256, INCREMENTAL, 25, 8, 7, 1)
+    tables = forest_tables(forest, cuda)
+    kw = dict(op_table=op_table, forest_depth=forest.depth)
+    fused_agg_call(a, m, *tables, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_agg_call(a, m, *tables, **kw)
+    agg, meta = _agg_rows()
+    for shift in (0, 7, 101):
+        idx = (np.arange(256) + shift) % len(agg)
+        a.copy_(torch.from_numpy(agg[idx].astype(np.float32)))
+        m.copy_(torch.from_numpy(meta[idx]))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fused_agg_call(a, m, *tables, **kw))
+        assert torch.equal(out, fused_agg_infer_plain(a, m, *tables, **kw))
 
 
 def test_pinned_arenas_replay_matches_cpu(cuda):  # noqa: F811
@@ -604,24 +666,85 @@ def test_decode_attention_kernel_in_a_cuda_graph(cuda, dtype):  # noqa: F811
         assert torch.equal(out, decode_attention_plain(q, kc, vc, lens))
 
 
+def _scan_inputs(R, B, T, H, P, S, dev, dtype):
+    x = _randn(R, (B, T, H, P), dev, dtype, 0.5)
+    dt = (_randn(R, (B, T, H), dev, scale=0.1).abs() + 0.01).contiguous()
+    A = (-_randn(R, (H,), dev).abs() - 0.1).contiguous()
+    Bm = _randn(R, (B, T, S), dev, dtype, 0.3)
+    Cm = _randn(R, (B, T, S), dev, dtype, 0.3)
+    return x, dt, A, Bm, Cm
+
+
 @pytest.mark.parametrize("B,T,H,P,S,chunk", [
     (1, 128, 2, 16, 8, 32), (2, 256, 4, 32, 16, 64), (1, 192, 1, 64, 4, 64),
-    (2, 200, 3, 64, 16, 64), (2, 300, 4, 64, 64, 128)])
+    (2, 200, 3, 64, 16, 64), (2, 300, 4, 64, 64, 128),
+    (2, 2048, 64, 64, 64, 128),    # zamba2-1.2b's prefill: 2,048 blocks
+    (4, 512, 80, 64, 32, 128),     # 1,280 blocks, above 132 SMs x 8
+    (2, 100, 4, 64, 64, 128),      # one chunk shorter than the tile
+    (1, 1, 2, 64, 16, 128),        # one step
+    (2, 1000, 8, 64, 16, 128),     # a ragged last chunk
+    (1, 150, 2, 70, 10, 128)])     # two column groups, S not a multiple of 4
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba_scan_kernel_matches_plain(cuda, B, T, H, P, S, chunk,  # noqa: F811
                                          dtype):
+    """The three-pass kernel bitwise its plain version: y and the final
+    state. The plain version's cuBLAS GEMMs add each output's products in
+    k order by FFMA, as the kernel's fmaf chains do."""
     R = np.random.default_rng(T * H + S)
-    x = _randn(R, (B, T, H, P), cuda, dtype, 0.5)
-    dt = (_randn(R, (B, T, H), cuda, scale=0.1).abs() + 0.01).contiguous()
-    A = (-_randn(R, (H,), cuda).abs() - 0.1).contiguous()
-    Bm = _randn(R, (B, T, S), cuda, dtype, 0.3)
-    Cm = _randn(R, (B, T, S), cuda, dtype, 0.3)
+    x, dt, A, Bm, Cm = _scan_inputs(R, B, T, H, P, S, cuda, dtype)
+    n0 = mamba_scan_kernel_call.launches
     y, h = mamba_scan_kernel_call(x, dt, A, Bm, Cm, chunk=chunk)
     y_want, h_want = mamba_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
-    tol = 2e-2 if dtype == torch.bfloat16 else 3e-4
-    torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=0)
-    torch.testing.assert_close(h, h_want, atol=3e-4, rtol=0)
+    assert mamba_scan_kernel_call.launches == n0 + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    assert torch.equal(y, y_want)
+    assert torch.equal(h, h_want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernel_bitwise_over_a_sweep(cuda, dtype):  # noqa: F811
+    """Bitwise over 192 small shapes: batch 1 (a single GEMM in the plain
+    version, which cuBLAS may split along k) and 2, one step (a GEMV) to
+    ragged chunks, one and five heads, P 16 and 64, S 4 to 64, chunks 32
+    and 128."""
+    differ = []
+    for B, T, H, P, S, chunk in itertools.product(
+            (1, 2), (1, 17, 129, 300), (1, 5), (16, 64), (4, 16, 64),
+            (32, 128)):
+        R = np.random.default_rng(T * H + S + B)
+        x, dt, A, Bm, Cm = _scan_inputs(R, B, T, H, P, S, cuda, dtype)
+        y, h = mamba_scan_kernel_call(x, dt, A, Bm, Cm, chunk=chunk)
+        y_p, h_p = mamba_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+        if not (torch.equal(y, y_p) and torch.equal(h, h_p)):
+            differ.append((B, T, H, P, S, chunk))
+    assert differ == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernel_in_a_cuda_graph(cuda, dtype):  # noqa: F811
+    """The three launches read nothing back and the scratch is allocated
+    by the wrapper, so a CUDA graph captures the call: replayed after new
+    inputs are copied in, it equals an eager call and the plain version."""
+    B, T, H, P, S = 2, 512, 8, 64, 64
+    R = np.random.default_rng(5)
+    x, dt, A, Bm, Cm = _scan_inputs(R, B, T, H, P, S, cuda, dtype)
+    mamba_scan_kernel_call(x, dt, A, Bm, Cm)     # warm: attributes set
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, h = mamba_scan_kernel_call(x, dt, A, Bm, Cm)
+    for seed in (6, 7):
+        new = _scan_inputs(np.random.default_rng(seed), B, T, H, P, S, cuda,
+                           dtype)
+        for dst, src in zip((x, dt, A, Bm, Cm), new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        y_e, h_e = mamba_scan_kernel_call(x, dt, A, Bm, Cm)
+        y_p, h_p = mamba_scan_plain(x, dt, A, Bm, Cm)
+        assert torch.equal(y, y_e) and torch.equal(h, h_e)
+        assert torch.equal(y, y_p) and torch.equal(h, h_p)
 
 
 @pytest.mark.parametrize("n,P", [(73, 17), (5, 8), (256, 12), (1000, 128),

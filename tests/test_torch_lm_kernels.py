@@ -25,8 +25,16 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_kernel_call,
     flash_attention_plain,
 )
-from repro_torch.kernels.mamba_scan import mamba_scan_kernel_call, mamba_scan_plain
-from repro_torch.models.ssm import chunked_ssd
+from repro_torch import configs
+from repro_torch.kernels.mamba_scan import (
+    MAX_CHUNK,
+    MAX_SHARED_BYTES,
+    mamba_scan_kernel_call,
+    mamba_scan_plain,
+    scan_scratch_shapes,
+    scan_shared_bytes,
+)
+from repro_torch.models.ssm import _HEAD_P, chunked_ssd
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -426,3 +434,72 @@ def test_cpu_tensors_take_the_plain_versions():
         decode_attention_kernel_call(qd, kc, kc, lens)
     with pytest.raises(ValueError, match="CUDA"):
         mamba_scan_kernel_call(x, dt, A, Bm, Cm, chunk=16)
+
+
+# an H100 SM's shared memory; each resident block also reserves 1 KB
+SM_SHARED_BYTES, BLOCK_RESERVED_BYTES = 233_472, 1024
+# every registered config whose layers reach B8 (the hybrid family's
+# Mamba-2 layers), at full and reduced scale
+B8_CONFIGS = tuple(
+    (name, scale) for name in configs.all_arch_ids()
+    for scale, get in (("full", configs.get), ("reduced", configs.get_reduced))
+    if get(name).family == "hybrid")
+
+
+@pytest.mark.parametrize("name,scale", B8_CONFIGS)
+def test_scan_shared_memory_fits_every_config_reaching_b8(name, scale):
+    """The scan's blocks fit a block's shared memory at every config that
+    runs it, and two of them fit an SM."""
+    cfg = (configs.get if scale == "full" else configs.get_reduced)(name)
+    assert cfg.ssd_chunk <= MAX_CHUNK
+    need = scan_shared_bytes(cfg.ssd_chunk, _HEAD_P, cfg.ssm_state)
+    assert need <= MAX_SHARED_BYTES
+    assert 2 * (need + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
+    assert ("zamba2-1.2b", "full") in B8_CONFIGS
+
+
+@pytest.mark.parametrize("chunk,P,S,want", [
+    (128, 64, 64, 94_720),    # zamba2-1.2b: the chunk scan's block
+    (128, 64, 16, 56_320),    # its reduced config
+    (40, 8, 4, 46_720),
+    (128, 254, 4, 134_656),   # the chunk state's, rows padded to 4 floats
+])
+def test_scan_shared_bytes_of_the_layout(chunk, P, S, want):
+    """`scan_shared_bytes` counts the source's layout: the largest of the
+    C B^T pass's (C and B transposed), the chunk state's (dt, L, W; dt o x
+    and B, rows padded to 4 floats) and the chunk scan's (dt, L, exp L; C
+    transposed, 132-float rows; a strip's dt o x; two strips of M
+    transposed; the state's 64 columns)."""
+    assert scan_shared_bytes(chunk, P, S) == want
+
+
+@pytest.mark.parametrize("B,T,H,P,S,chunk,n_chunks", [
+    (2, 2048, 64, 64, 64, 128, 16),   # zamba2-1.2b's prefill
+    (2, 1000, 8, 64, 16, 128, 8),     # a ragged last chunk
+    (2, 200, 3, 64, 16, 64, 4),
+    (1, 40, 2, 8, 4, 128, 1),         # T below the chunk: one chunk of T
+    (1, 1, 1, 64, 64, 128, 1),
+])
+def test_scan_scratch_shapes(B, T, H, P, S, chunk, n_chunks):
+    """The scratch the kernel call allocates: every chunk's state and
+    decay, 33.5 MB at zamba2-1.2b's prefill, and every chunk's C B^T, C
+    transposed and B in float32, shared by the heads (2.1, 1.0 and 1.0 MB
+    there)."""
+    states, decay, cb, ct, bt = scan_scratch_shapes(B, T, H, P, S, chunk)
+    assert states == (B, H, n_chunks, P, S) and decay == (B, H, n_chunks)
+    assert cb == (B, n_chunks, MAX_CHUNK, MAX_CHUNK)
+    assert ct == (B, n_chunks, S, MAX_CHUNK)
+    assert bt == (B, n_chunks, MAX_CHUNK, -(-S // 4) * 4)
+    if T == 2048:
+        assert 4 * int(np.prod(states)) == 33_554_432
+        assert 4 * int(np.prod(cb)) == 2_097_152
+        assert 4 * int(np.prod(ct)) == 4 * int(np.prod(bt)) == 1_048_576
+
+
+@pytest.mark.parametrize("S,chunk,match", [(4, MAX_CHUNK + 1, "at most"),
+                                           (300, 128, "shared memory")])
+def test_scan_kernel_refuses_what_its_blocks_do_not_hold(S, chunk, match):
+    R = np.random.default_rng(3)
+    (_, x), (_, dt), (_, A), (_, Bm), (_, Cm) = _mamba_inputs(R, 1, 300, 2, 8, S)
+    with pytest.raises(ValueError, match=match):
+        mamba_scan_kernel_call(x, dt, A, Bm, Cm, chunk=chunk)

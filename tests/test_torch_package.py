@@ -253,9 +253,10 @@ def test_lm_wrappers_refuse_what_they_cannot_take():
                                      lens)
 
     B, T, H = 1, 256, 2
-    with pytest.raises(ValueError, match="shared memory"):   # S = 128, c = 128
-        mamba_scan_kernel_call(t(B, T, H, 64), t(B, T, H), t(H), t(B, T, 128),
-                               t(B, T, 128))
-    with pytest.raises(ValueError, match="CUDA"):
-        mamba_scan_kernel_call(t(B, T, H, 64), t(B, T, H), t(H), t(B, T, 64),
-                               t(B, T, 64))
+    with pytest.raises(ValueError, match="shared memory"):   # S = 240, c = 128
+        mamba_scan_kernel_call(t(B, T, H, 64), t(B, T, H), t(H), t(B, T, 240),
+                               t(B, T, 240))
+    for S in (64, 128):   # the chunk scan streams its strips: S = 128 fits
+        with pytest.raises(ValueError, match="CUDA"):
+            mamba_scan_kernel_call(t(B, T, H, 64), t(B, T, H), t(H),
+                                   t(B, T, S), t(B, T, S))

@@ -19,6 +19,7 @@ from _torch_parity import PROB_ATOL, assert_straddle_parity
 from repro_torch.convert import forest_from_numpy, forest_tables
 from repro_torch.core.search_space import FeatureRep
 from repro_torch.kernels.fused_pipeline import (
+    agg_op_table,
     encode_plan,
     fused_agg_call,
     fused_agg_infer,
@@ -160,6 +161,38 @@ def test_aggregate_kernel_refuses_a_median(rows):
     with pytest.raises(ValueError, match="no incremental form"):
         fused_agg_infer_plain(*args, op_table=torch.from_numpy(
             encode_plan(plan)), forest_depth=forest.depth)
+
+
+@pytest.mark.parametrize("form", ["array", "tensor"])
+def test_agg_op_table_refuses_a_median_on_the_host(form):
+    """The median check runs on the host table before it goes anywhere."""
+    table = encode_plan(stats_plan(("dur", "s_bytes_med", "d_iat_std")))
+    if form == "tensor":
+        table = torch.from_numpy(table)
+    with pytest.raises(ValueError, match="median"):
+        agg_op_table(table, "cpu")
+
+
+def test_agg_op_table_keeps_an_incremental_plan():
+    table = encode_plan(stats_plan(PLANS["all59"]))
+    got = agg_op_table(table, "cpu")
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert torch.equal(got, torch.from_numpy(table))
+
+
+def test_aggregate_kernel_takes_no_unchecked_device_table():
+    """A table off the host that `agg_op_table` did not make is refused
+    before anything reads it, and `agg_op_table` takes only host tables."""
+    plan = stats_plan(PLANS["bytes"])
+    off_host = torch.from_numpy(encode_plan(plan)).to("meta")
+    forest = _forest_on(np.zeros((4, len(plan)), np.float32), seed=0)
+    with pytest.raises(ValueError, match="agg_op_table"):
+        fused_agg_call(torch.zeros((4, AGG_WIDTH), device="meta"),
+                       torch.zeros((4, 3), device="meta"),
+                       *forest_tables(forest, "cpu"), op_table=off_host,
+                       forest_depth=forest.depth)
+    with pytest.raises(ValueError, match="host"):
+        agg_op_table(off_host, "cpu")
 
 
 def test_predict_agg_fused_and_unfused_agree(world, rows):  # noqa: F811
