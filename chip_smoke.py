@@ -32,14 +32,16 @@ Phases, each printing one JSON line:
    queued behind a spin of the card (`device_ms`).
    The multi-forest kernel (B4) on both multi-tenant deployments at 4096
    and 32 flows: its merged columns bitwise equal to the plain ones, no
-   flow straddled, and every tenant's lane bitwise equal to solo B2 on
-   that tenant's own plan and forest; then its time at 4096 and 32 flows.
+   flow straddled, probabilities bitwise the plain version's, and every
+   tenant's lane bitwise equal to solo B2 on that tenant's own plan and
+   forest; then its time at 4096 and 32 flows, also queued behind a spin
+   of the card.
    The same on `wide_merge`, four tenants over the registry at depths 5,
    10, 15 and 20 on the iot-class window: 259 merged columns, more than
-   B4's per-thread array holds. Then `long_window`: B2 on the stream
+   one thread per flow once held. Then `long_window`: B2 on the stream
    phase's trace with the registry's plan (all eight medians) at depths
-   129, 256 and 4000, above the kernels' 128-packet per-thread sample
-   buffer, columns and probabilities bitwise the plain version's; B4 on
+   129, 256 and 4000, above the kernels' 128-packet shared-memory chunk,
+   columns and probabilities bitwise the plain version's; B4 on
    the registry at depths 100 and 4000 the same way, its lanes bitwise
    solo B2; B2's time at depth 4000 beside its byte bound; and one
    replayed profiler evaluation at depth 256 on the card, counted.
@@ -62,9 +64,10 @@ Phases, each printing one JSON line:
    PyTorch call computing the same function (scaled_dot_product_
    attention for B6 and B7; the port never calls it) and its bound, and
    B6's achieved TFLOP/s; B7's and B8's times also with the launch
-   queued behind a spin of the card (`device_ms`, the card's time alone).
-   The build's ptxas report for B2's, B3's, B7's and B8's kernels
-   (registers, stack, spills) is the `build_ptxas` line.
+   queued behind a spin of the card (`device_ms`, the card's time alone),
+   as are B1's, B2's, B3's and B4's. The build's ptxas report for B1's,
+   B2's, B3's, B4's, B7's and B8's kernels (registers, stack, spills) is
+   the `build_ptxas` line.
    The flow statistics kernel (B5) through `ops.flow_stats`, bitwise
    against its plain version, on the main path's two windows (packet
    sizes of the iot-class set, 4000 x 128, masked by each flow's valid
@@ -237,16 +240,16 @@ CTRL_REP_B = (("dur", "s_load", "s_pkt_cnt", "d_bytes_med", "psh_cnt"), 12)
 # the selftune phase: examples/selftune_fleet.py at the size of
 # benchmarks/bench_runtime.py's self-tune gate, under the example's clock
 ST_FLOWS, ST_PKTS, ST_PPS = 600, 32, 2e5
-# windows above B2's and B4's per-thread sample buffer (128 packets), on
-# the stream phase's trace; B4's two tenants (the registry at both depths)
+# windows above B2's and B4's shared-memory chunk (128 packets), on the
+# stream phase's trace; B4's two tenants (the registry at both depths)
 LW_DEPTHS, LW_TENANT_DEPTHS = (129, 256, 4000), (100, 4000)
 # one replayed profiler evaluation above the buffer: a median-bearing
 # configuration over a zipf app-class trace of flows of up to 512 packets
 LW_PROFILE_FLOWS, LW_PROFILE_PKTS, LW_PROFILE_DEPTH = 200, 512, 256
 LW_PROFILE_POOL = ("dur", "s_load", "ack_cnt", "s_bytes_mean", "s_bytes_med",
                    "d_iat_med")
-# more merged columns than B4's per-thread array (256): four tenants over
-# the registry at four depths, 3 meta + 4 x 64 = 259 columns
+# more merged columns than one thread per flow once held (256): four
+# tenants over the registry at four depths, 3 meta + 4 x 64 = 259 columns
 WM_DEPTHS = (5, 10, 15, 20)
 
 
@@ -303,8 +306,11 @@ LM_B8_CASES = (("zamba2-1.2b", (2, 2048, 64, 64, 64), torch.bfloat16),
 
 def ptxas_entries(log: str, names: tuple[str, ...]) -> list[dict]:
     """Registers, stack and spills of each kernel entry in nvcc's build log
-    whose (mangled) name holds one of `names`."""
-    out, cur = [], None
+    whose (mangled) name holds one of `names`. Only the lines under the
+    entry's own "Function properties" header count: a `__noinline__`
+    device function compiled into the same source prints its own header
+    and its own stack and spill line after the entry's."""
+    out, cur, own = [], None, False
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
@@ -312,8 +318,13 @@ def ptxas_entries(log: str, names: tuple[str, ...]) -> list[dict]:
                 n in m.group(1) for n in names) else None
             if cur is not None:
                 out.append(cur)
+            own = False
             continue
-        if cur is None:
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            own = cur is not None and m.group(1) == cur["entry"]
+            continue
+        if not own:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", ln)
@@ -549,6 +560,8 @@ def b4_check(config: str, ds, reps, forests, dev, flush,
                           columns_bitwise=True, straddled=0,
                           probs_bitwise=bool(np.array_equal(pk_, pp)),
                           lanes_bitwise_vs_solo_b2=lanes_bitwise))
+        check(cases[-1]["probs_bitwise"], f"B4 {config} N={n}: probabilities "
+              "differ from the plain version's")
         if n == 4096:
             x_plain, batch_4096 = xp, batch
     if not timed:
@@ -571,15 +584,19 @@ def b4_check(config: str, ds, reps, forests, dev, flush,
         _, nodes, leaves = forest_touch(x_plain[:, list(c)], f)
         n_bytes += 8 * nodes + 4 * f.n_out * leaves
     bound_ms, bound_by = bound(n_bytes, n_ops)
+    # the kernel at 4096 and 32 flows: with the wrapper's host time, and
+    # the card's alone
+    calls = {sfx: (lambda n=n: fused_multi_forest_call(
+        *packets[n], *tables, **kw)) for sfx, n in (("", 4096), ("_32", 32))}
     timing = dict(
-        ms=time_ms(lambda: fused_multi_forest_call(*packets[4096], *tables,
-                                                   **kw), KERNEL_REPS, flush),
+        ms=time_ms(calls[""], KERNEL_REPS, flush),
         plain_ms=time_ms(lambda: fused_multi_forest_infer_plain(
             *packets[4096], *tables, **kw), PLAIN_REPS, flush),
-        ms_32=time_ms(lambda: fused_multi_forest_call(*packets[32], *tables,
-                                                      **kw), KERNEL_REPS, flush),
+        ms_32=time_ms(calls["_32"], KERNEL_REPS, flush),
         plain_ms_32=time_ms(lambda: fused_multi_forest_infer_plain(
             *packets[32], *tables, **kw), PLAIN_REPS, flush),
+        **{f"device_ms{k}": time_ms(fn, KERNEL_REPS, flush, queued=True)
+           for k, fn in calls.items()},
         # the same flows through solo B2 once per tenant, for comparison
         solo_b2_sum_ms=sum(time_ms(
             lambda tabs=tabs, o=o, r=r, f=f: fused_pipeline_call(
@@ -595,8 +612,8 @@ def b4_check(config: str, ds, reps, forests, dev, flush,
 
 
 def long_window_phase(ds_s, dev, flush, counters) -> dict:
-    """B2 and B4 at windows above their per-thread sample buffer, which
-    the card once refused: on the stream phase's trace with the registry's
+    """B2 and B4 at windows above their shared-memory chunk, which the
+    card once refused: on the stream phase's trace with the registry's
     plan (every median among it), columns and probabilities bitwise the
     plain versions'; B4's lanes bitwise solo B2; B2's time at depth 4000;
     then one replayed profiler evaluation above the buffer."""
@@ -1883,8 +1900,9 @@ def main() -> None:
          ptxas=[ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln])
     emit("build_ptxas", entries=ptxas_entries(log, (
-        "decode_split_kernel", "decode_merge_kernel",
+        "decode_split_kernel", "decode_merge_kernel", "forest_infer_kernel",
         "fused_forest_infer_kernel", "fused_agg_infer_kernel",
+        "fused_multi_forest_kernel",
         "chunk_cb_kernel", "chunk_state_kernel", "state_pass_kernel",
         "chunk_scan_kernel")))
 
@@ -1976,23 +1994,21 @@ def main() -> None:
     x_main = extract_features(big, rep.features, conn_depth, device="cuda")
     x_main_t = torch.from_numpy(x_main).to(dev)
 
-    # B1 on one and the same x: every flow agrees
+    # B1 on one and the same x: the plain version's bits
     b1_err = 0.0
     b1_cases = []
     for name, n, n_trees in (("main", 4096, 25), ("ragged", 257, 12)):
         tables = [t[:n_trees].contiguous() for t in forest_tables(deep, dev)]
         x = x_main_t[:n].contiguous()
-        got = forest_infer_kernel_call(x, *tables, deep.depth)
         want = forest_infer_plain(x, *tables, deep.depth)
-        torch.cuda.synchronize()
-        got, want = got.cpu().numpy(), want.cpu().numpy()
-        err = float(np.abs(got - want).max())
+        got = forest_infer_kernel_call(x, *tables, deep.depth)
+        err = float((got - want).abs().max())
         mism = int((got.argmax(1) != want.argmax(1)).sum())
         b1_cases.append(dict(case=name, N=n, F=67, T=n_trees, D=deep.depth,
                              K=deep.n_out, max_abs_err=err,
                              argmax_mismatches=mism,
-                             bitwise=bool((got == want).all())))
-        check(err <= PROB_ATOL and mism == 0, f"B1 {name}: {b1_cases[-1]}")
+                             bitwise=torch.equal(got, want)))
+        check(b1_cases[-1]["bitwise"], f"B1 {name}: {b1_cases[-1]}")
         b1_err = max(b1_err, err)
     emit("kernel_check", kernel="forest_infer", cases=b1_cases)
 
@@ -2111,14 +2127,17 @@ def main() -> None:
     packets_128 = [t[:128].contiguous() for t in packets]
     # and a micro-batch of 8, the stream phase's size
     packets_8 = [t[:8].contiguous() for t in packets]
+    # B1 at 4096 and 128 flows, with the wrapper's host time and without
+    b1_calls = {sfx: (lambda x=x: forest_infer_kernel_call(
+        x, *deep_tables, D)) for sfx, x in (("", x_main_t), ("_128", x_128))}
     timing = {
         "forest_infer": dict(
-            ms=time_ms(lambda: forest_infer_kernel_call(
-                x_main_t, *deep_tables, D), KERNEL_REPS, flush),
             plain_ms=time_ms(lambda: forest_infer_plain(
                 x_main_t, *deep_tables, D), PLAIN_REPS, flush),
-            ms_128=time_ms(lambda: forest_infer_kernel_call(
-                x_128, *deep_tables, D), KERNEL_REPS, flush),
+            **{f"ms{k}": time_ms(fn, KERNEL_REPS, flush)
+               for k, fn in b1_calls.items()},
+            **{f"device_ms{k}": time_ms(fn, KERNEL_REPS, flush, queued=True)
+               for k, fn in b1_calls.items()},
             bytes=b1_bytes, ops=b1_ops),
         "fused_forest_infer": dict(
             ms=time_ms(lambda: fused_pipeline_call(
@@ -2196,8 +2215,8 @@ def main() -> None:
          reps=dict(kernel=KERNEL_REPS, plain=PLAIN_REPS),
          seconds=time.perf_counter() - t0)
 
-    # B4 beyond its per-thread column array: four tenants over the
-    # registry at four depths on the iot-class window, 259 merged columns
+    # B4 beyond the 256 columns one thread per flow held: four tenants over
+    # the registry at four depths on the iot-class window, 259 merged columns
     t0 = time.perf_counter()
     reps_wm = [FeatureRep(tuple(FEATURE_NAMES), depth=d) for d in WM_DEPTHS]
     rng_wm = np.random.default_rng(259)
@@ -2212,7 +2231,7 @@ def main() -> None:
          reps=dict(kernel=KERNEL_REPS, plain=PLAIN_REPS),
          seconds=time.perf_counter() - t0)
 
-    # B2 and B4 at windows above their per-thread sample buffer, and a
+    # B2 and B4 at windows above their shared-memory chunk, and a
     # replayed profiler evaluation there
     lw = long_window_phase(ds_s, dev, flush, {
         "forest_infer": forest_infer_kernel_call,
@@ -2499,6 +2518,8 @@ def main() -> None:
              ms=timing["forest_infer"]["ms"],
              plain_ms=timing["forest_infer"]["plain_ms"],
              ms_128_flows=timing["forest_infer"]["ms_128"],
+             device_ms=timing["forest_infer"]["device_ms"],
+             device_ms_128_flows=timing["forest_infer"]["device_ms_128"],
              bound_ms=timing["forest_infer"]["bound_ms"],
              bound_us=timing["forest_infer"]["bound_ms"] * 1e3,
              bound_by=timing["forest_infer"]["bound_by"],
@@ -2562,16 +2583,21 @@ def main() -> None:
              plain_ms=b4["wide"]["timing"]["plain_ms"],
              ms_32_flows=b4["wide"]["timing"]["ms_32"],
              plain_ms_32_flows=b4["wide"]["timing"]["plain_ms_32"],
+             device_ms=b4["wide"]["timing"]["device_ms"],
+             device_ms_32_flows=b4["wide"]["timing"]["device_ms_32"],
              bound_ms=b4["wide"]["timing"]["bound_ms"],
              bound_us=b4["wide"]["timing"]["bound_ms"] * 1e3,
              bound_by=b4["wide"]["timing"]["bound_by"],
              fleet_ms=b4["fleet"]["timing"]["ms"],
              fleet_plain_ms=b4["fleet"]["timing"]["plain_ms"],
              fleet_ms_32_flows=b4["fleet"]["timing"]["ms_32"],
+             fleet_device_ms=b4["fleet"]["timing"]["device_ms"],
+             fleet_device_ms_32_flows=b4["fleet"]["timing"]["device_ms_32"],
              fleet_bound_ms=b4["fleet"]["timing"]["bound_ms"],
              library_ms=None,
              wide_merge={k: wm["timing"][k] for k in (
-                 "ms", "plain_ms", "ms_32", "bound_ms", "bound_by", "shape")},
+                 "ms", "plain_ms", "ms_32", "device_ms", "device_ms_32",
+                 "bound_ms", "bound_by", "shape")},
              long_window_windows=[c["union_window"]
                                   for c in lw["b4"]["cases"]]),
         dict(name="flow_stats", route="cuda",

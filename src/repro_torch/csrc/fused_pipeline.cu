@@ -4,7 +4,7 @@
 // `fused_forest_infer` -> `fused_pipeline_call` (body `_fused_kernel` +
 // `_traverse`). For each flow it computes the columns of a feature plan
 // (src/repro/traffic/extraction.py `emit_feature_columns`) from the flow's
-// packets and runs the B1 traversal (forest_common.cuh) on them. The (N, F)
+// packets and runs the forest traversal (forest_common.cuh) on them. The (N, F)
 // feature matrix is never written on the serving path.
 //
 // The plan. The JAX kernel is specialised per static plan by jit. Compiling
@@ -25,10 +25,11 @@
 // ...; lane k on classes k and k + 32, in tree order) and writes the
 // flow's output row coalesced. Sums keep packet order and std its fmaf,
 // the tree sums their block order: columns and probabilities are bitwise
-// the per-thread design's (which B4 keeps) and the plain version's. A
-// window W = min(P, depth) above 128 packets is staged 128 at a time, and
-// a median's samples go to the flow's row of the wrapper's (N, W) scratch
-// (contiguous per flow, so the warp's accesses coalesce).
+// the plain version's, and B4's lanes of a tenant with the same plan and
+// forest are bitwise these. A window W = min(P, depth) above 128 packets
+// is staged 128 at a time, and a median's samples go to the flow's row of
+// the wrapper's (N, W) scratch (contiguous per flow, so the warp's
+// accesses coalesce).
 //
 // Bound on the H100. Memory: the valid packets of each flow (4 float32
 // fields, 1 direction byte, 8 flag bytes: 25 bytes a packet), 16 bytes of
@@ -78,7 +79,7 @@ __global__ void __launch_bounds__(kFlowsPerBlock * 32) fused_forest_infer_kernel
                     winsize + base, flags + base * 8,
                     max(0, min(min(flow_len[n], depth), P))};
   cato::warp_columns(
-      r, op_table, F, proto[n], s_port[n], d_port[n], sh.win,
+      r, op_table, nullptr, F, proto[n], s_port[n], d_port[n], sh.win,
       scratch != nullptr ? scratch + static_cast<size_t>(n) * window : nullptr,
       sh.x, columns != nullptr ? columns + static_cast<size_t>(n) * F : nullptr,
       lane);

@@ -1,7 +1,13 @@
 // Feature columns of a stats plan over one flow's packet window, one warp
-// per flow: the warp-level counterpart of plan_columns.cuh (which B4
-// keeps), used by fused_pipeline.cu (B2). Same op table, same columns to
-// the last bit.
+// per flow: the counterpart of src/repro/traffic/extraction.py
+// `emit_feature_columns`, used by fused_pipeline.cu (B2) for a plan and by
+// fused_multi.cu (B4) for each depth group of a merged plan. Every column
+// is the same IEEE operations in the same order as the plain version's.
+//
+// A plan is an int32 op table, one row per column (kind, direction, field,
+// stat; repro_torch/kernels/fused_pipeline.py `encode_plan`; B4's merged
+// table adds a fifth field, the column's connection depth), which the
+// kernels interpret: one compiled kernel serves every plan.
 //
 // The warp stages its flow's packets in shared memory, kChunk (128) at a
 // time, with coalesced loads: size, winsize, ttl (float32), direction, the
@@ -11,37 +17,71 @@
 // A window of at most kChunk packets is staged once; a longer one again
 // for each pass below, chunk by chunk in packet order.
 //
-// Lane c owns op-table rows c, c + 32, c + 64, c + 96 (F <= 128). One pass
-// over the window, every lane at the same packet, adds each of its
-// columns' samples (selected by direction and field, or a flag byte) in
-// packet order: sum, count, min, max, by selects rather than branches, so
-// the lanes' different columns do not split the warp. A second pass, taken when some lane
-// has a std column, adds std's squares by fmaf around the mean. So sums,
-// means, loads, counts and std round exactly as plan_columns.cuh's
-// per-thread loops and the plain version's `_seq_sum` do. The medians are
+// Lane c owns the op-table rows at places c, c + 32, c + 64, c + 96 of
+// its list (at most 128 rows a call: B2's whole plan, or a slice of one of
+// B4's depth groups). One pass over the window, every lane at the same
+// packet, adds each of its columns' samples (selected by direction and
+// field, or a flag byte) in packet order: sum, count, min, max, by selects
+// rather than branches, so the lanes' different columns do not split the
+// warp. A second pass, taken when some lane has a std column, adds std's
+// squares by fmaf around the mean. So sums, means, loads, counts and std
+// round exactly as the plain version's `_seq_sum` does. The medians are
 // the warp's together, one at a time: the column's samples are compacted
 // (ballot and popcount) into a buffer, shared memory when the window fits
 // a chunk, else the flow's row of a (N, W) scratch in device memory, and
 // the samples of ranks (c-1)/2 and c/2 are selected: up to kChunk samples
 // by counting each one's rank against all (one sweep for both ranks), more
 // by a radix select over the samples' order-preserving keys (4 passes of
-// 8 bits, a 256-bin histogram in shared memory). A median is an exact sample pair, so any
-// exact selection gives the same bits as the heap sort of plan_columns.cuh.
+// 8 bits, a 256-bin histogram in shared memory). A median is an exact
+// sample pair, so any exact selection gives the plain version's bits.
 // Duration and the handshake's first matches (ballot, first set lane) are
 // taken while the first pass stages the window.
+//
+// Parity with the reference, where it is most likely to break:
+// - directional inter-arrival times use the *exclusive* running max of the
+//   same-direction timestamps, with the -3.4e38 sentinel and
+//   has_prev = prev > -3.4e38 / 2 (extraction.py `dir_iat`);
+// - handshake times take the first matching packet in packet order;
+// - the median averages the sorted samples at (c-1)/2 and c/2, 0 when c=0;
+// - std is two-pass (mean first), load divides by max(dur, 1e-9);
+// - sums run left to right in packet order, as the plain version's
+//   `_seq_sum` and the reference's XLA reduction on the CPU (for windows up
+//   to 32 packets) add them; std's squares accumulate by an explicit fmaf,
+//   as both of those do. nvcc runs with --fmad=false, so no other product
+//   is contracted into a multiply-add.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "plan_columns.cuh"
-
 namespace cato {
+
+constexpr float kBig = 3.4e38f;
+
+// op table: kind, direction (0 = src, 1 = dst), field, stat
+enum Kind { kDur = 0, kMeta = 1, kLoad = 2, kPktCnt = 3, kHandshake = 4,
+            kFlagCnt = 5, kStat = 6 };
+enum Field { kBytes = 0, kIat = 1, kWinsize = 2, kTtl = 3 };  // kind kStat
+enum Meta { kProto = 0, kSPort = 1, kDPort = 2 };             // kind kMeta
+enum Shake { kTcpRtt = 0, kSynAck = 1, kAckDat = 2 };         // kHandshake
+enum Stat { kSum = 0, kMean = 1, kMin = 2, kMax = 3, kMed = 4, kStd = 5 };
+constexpr int kAckFlag = 3;  // FLAG_NAMES: cwr ece urg ack psh rst syn fin
+constexpr int kSynFlag = 6;
+
+struct Row {  // one flow's packets
+  const float* ts;
+  const float* size;
+  const uint8_t* dir;
+  const float* ttl;
+  const float* win;
+  const uint8_t* flags;  // 8 per packet
+  int L;                 // valid packets
+};
 
 constexpr int kChunk = 128;          // packets a warp stages at a time
 constexpr int kChunkPad = kChunk + 1;  // lanes reading different fields of
                                        // one packet hit different banks
-constexpr int kWarpSlots = 4;        // op-table rows a lane owns: F <= 128
+constexpr int kWarpSlots = 4;        // op-table rows a lane owns: <= 128 a call
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // One warp's shared memory for its flow's window.
@@ -230,10 +270,11 @@ __device__ inline void warp_rank_pair(const float* buf, int c, int lo, int hi,
 // by the warp: the samples compacted into `buf` in packet order (the
 // window restaged when it is longer than a chunk), then ranks (c-1)/2 and
 // c/2 selected. Not inlined: each column slot calls it, and one copy of
-// its code keeps the kernel small enough for the instruction cache.
-__device__ __noinline__ float warp_median(const Row r, WarpWindow* sp,
-                                          float* buf, int md, int mf, int c,
-                                          int lane) {
+// its code keeps the kernel small enough for the instruction cache. Static:
+// B2's and B4's objects each hold a copy.
+static __device__ __noinline__ float warp_median(const Row r, WarpWindow* sp,
+                                                 float* buf, int md, int mf,
+                                                 int c, int lane) {
   WarpWindow& s = *sp;
   const bool one_chunk = r.L <= kChunk;
   const unsigned lt_mask = (1u << lane) - 1u;
@@ -264,19 +305,25 @@ __device__ __noinline__ float warp_median(const Row r, WarpWindow* sp,
   return 0.5f * (a_lo + a_hi);
 }
 
-// The F columns of op table `op_table` (F, 4) over the window `r`, by the
-// warp: column f goes to x[f] (shared memory) and, when `col_out` is not
-// null, to col_out[f]. proto, s_port and d_port are the flow's meta
-// columns. `samples_g` is the flow's row of W floats of the scratch, null
-// when the window W fits a chunk.
+// The columns of F rows (F <= kWarpSlots * 32) of op table `op_table`
+// over the window `r`, by the warp. Without kIndexed the rows are 0..F-1
+// (B2's plan); with it, rows[0..F) (shared memory) lists them (a slice of
+// one of B4's depth groups). A row is kOpStride ints, of which the first
+// four are read. Row f's column goes to x[f] (shared or global memory) and,
+// when `col_out` is not null, to col_out[f]. proto, s_port and d_port are
+// the flow's meta columns. `samples_g` is the flow's row of W floats of the
+// scratch, null when the window W fits a chunk.
+template <int kOpStride = 4, bool kIndexed = false>
 __device__ inline void warp_columns(const Row& r,
-                                    const int* __restrict__ op_table, int F,
+                                    const int* __restrict__ op_table,
+                                    const int* rows, int F,
                                     float proto, float s_port, float d_port,
                                     WarpWindow& s, float* samples_g, float* x,
                                     float* col_out, int lane) {
   const int nslots = (F + 31) / 32;
   const bool one_chunk = r.L <= kChunk;
   int kind[kWarpSlots], dd[kWarpSlots], fld[kWarpSlots], st[kWarpSlots];
+  int row[kWarpSlots];    // the op-table row of each slot
   int mode[kWarpSlots];   // 0 none, 1 by direction, 2 iat, 3 flag byte
   float sum[kWarpSlots], mn[kWarpSlots], mx[kWarpSlots], sq[kWarpSlots];
   int cnt[kWarpSlots];
@@ -285,11 +332,14 @@ __device__ inline void warp_columns(const Row& r,
     const int f = lane + 32 * sl;
     kind[sl] = -1;
     dd[sl] = fld[sl] = st[sl] = 0;
+    row[sl] = f;
     if (sl < nslots && f < F) {
-      kind[sl] = __ldg(op_table + 4 * f);
-      dd[sl] = __ldg(op_table + 4 * f + 1);
-      fld[sl] = __ldg(op_table + 4 * f + 2);
-      st[sl] = __ldg(op_table + 4 * f + 3);
+      if (kIndexed) row[sl] = rows[f];
+      const int* op = op_table + kOpStride * row[sl];
+      kind[sl] = __ldg(op);
+      dd[sl] = __ldg(op + 1);
+      fld[sl] = __ldg(op + 2);
+      st[sl] = __ldg(op + 3);
     }
     mode[sl] = kind[sl] == kLoad || kind[sl] == kPktCnt ? 1
                : kind[sl] == kFlagCnt                   ? 3
@@ -442,8 +492,8 @@ __device__ inline void warp_columns(const Row& r,
   for (int sl = 0; sl < kWarpSlots; ++sl) {
     const int f = lane + 32 * sl;
     if (sl < nslots && f < F) {
-      x[f] = col[sl];
-      if (col_out != nullptr) col_out[f] = col[sl];
+      x[row[sl]] = col[sl];
+      if (col_out != nullptr) col_out[row[sl]] = col[sl];
     }
   }
 }

@@ -31,8 +31,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("forest_infer.cu", "fused_pipeline.cu", "fused_agg.cu",
            "fused_multi.cu", "flash_attention.cu", "decode_attention.cu",
            "mamba_scan.cu", "flow_stats.cu")
-HEADERS = ("forest_common.cuh", "plan_columns.cuh", "plan_warp.cuh",
-           "lm_common.cuh")
+HEADERS = ("forest_common.cuh", "plan_warp.cuh", "lm_common.cuh")
 # --fmad=false: no multiply and add is contracted into one rounding, so
 # the forest kernels round as their plain versions do (the one fused
 # multiply-add they use, std's, is an explicit fmaf that the plain version

@@ -31,10 +31,11 @@ the table goes to the card, and `fused_agg_call` takes only CUDA tables
 made so, so that a launch never reads the card back.
 
 The multi-tenant entry (DESIGN.md §15) serves N tenants in one launch:
-`fused_multi_forest_call` launches B4 (``csrc/fused_multi.cu``), which
-computes a merged plan's columns once per flow, each depth group over its
-own window slice, then walks every tenant's forest, stacked on the tree
-axis by `stack_multi_forests`, into the tenant's own output lanes.
+`fused_multi_forest_call` launches B4 (``csrc/fused_multi.cu``, a warp per
+flow as B2), which computes a merged plan's columns once per flow, each
+depth group over its own window slice, then walks every tenant's forest,
+stacked on the tree axis by `stack_multi_forests`, into the tenant's own
+output lanes.
 `fused_multi_forest_infer_plain` runs the torch `emit_merged_columns` and
 the plain traversal per tenant; `fused_multi_forest_infer` picks by device.
 """
@@ -69,12 +70,13 @@ __all__ = ["agg_op_table", "encode_plan", "decode_plan", "fused_forest_infer",
            "MAX_MERGED_COLUMNS", "MAX_WINDOW", "SPEC_FIELDS"]
 
 MAX_FEATURES = 128  # kMaxFeatures in csrc/fused_pipeline.cu and fused_agg.cu
-# kMaxMergedColumns in csrc/fused_multi.cu: B4's per-thread column array;
-# a wider merged plan keeps its columns in the (N, F) `columns` buffer
-MAX_MERGED_COLUMNS = 256
-# kMaxWindow in csrc/plan_columns.cuh (B4's per-thread sample buffer) and
-# kChunk in csrc/plan_warp.cuh (B2's shared-memory window); a longer window
-# W = min(P, depth) takes a scratch of W x N samples instead
+# kMaxMergedColumns in csrc/fused_multi.cu: the most merged columns B4 keeps
+# in shared memory; a wider merged plan keeps them in the (N, F) `columns`
+# buffer
+MAX_MERGED_COLUMNS = 4096
+# kChunk in csrc/plan_warp.cuh (B2's and B4's shared-memory window); a
+# longer window W = min(P, depth) keeps a median's samples in an (N, W)
+# scratch instead
 MAX_WINDOW = 128
 # B4's per-tenant spec row (csrc/fused_multi.cu `Spec`): tree offset, trees,
 # padded trees, forest depth, tree block, classes, lane offset
@@ -148,12 +150,12 @@ def _check_forest(feature, threshold, leaf, forest_depth: int, dev) -> tuple:
 
 
 def _window_scratch(N: int, window: int, dev) -> torch.Tensor | None:
-    """A window's sample scratch of window x N floats, or None when the
-    window fits the kernels' own buffers: B4 indexes it (window, N), a
-    thread's samples strided by N; B2 (N, window), a warp's contiguous."""
+    """A window's (N, window) float32 sample scratch, or None when the
+    window fits the kernels' shared-memory buffer: B2 and B4 put a median's
+    samples in the flow's row, contiguous for the warp that owns it."""
     if window <= MAX_WINDOW:
         return None
-    return torch.empty((window, N), dtype=torch.float32, device=dev)
+    return torch.empty((N, window), dtype=torch.float32, device=dev)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -473,9 +475,9 @@ def fused_multi_forest_call(
     back). `columns`, if given, is an (N, F) float32 buffer that receives
     the kernel's own merged columns; above MAX_MERGED_COLUMNS columns the
     kernel keeps its columns there, in one allocated here if none is
-    given. Above MAX_WINDOW packets (``min(P, depth)``) a statistic's
-    samples go to a scratch allocated here. Launches on the current stream
-    and does not synchronise.
+    given. Above MAX_WINDOW packets (``min(P, depth)``) a median's samples
+    go to a scratch allocated here. Launches on the current stream, reads
+    nothing back and does not synchronise.
     """
     dev = ts.device
     if (ts.ndim != 2 or op_table.ndim != 2 or feature.ndim != 2

@@ -6,8 +6,9 @@ arithmetic over the depth:
 
     node <- 2*node + 1 + (x[feat[node]] > thresh[node])
 
-`forest_infer_kernel_call` launches ``csrc/forest_infer.cu`` (one thread
-per flow, the tree axis a loop inside the thread, see the source note);
+`forest_infer_kernel_call` launches ``csrc/forest_infer.cu`` (one warp
+per flow: its lanes over the trees, then over the classes, see the source
+note);
 `forest_infer_plain` computes the same function with torch ops, in the
 same order: per block of `block_t` trees, the block's votes summed in tree
 order, divided by the padded tree count and added to the accumulator, then
@@ -93,8 +94,9 @@ def forest_infer_kernel_call(x, feature, threshold, leaf, depth: int, *,
     Checks device, dtype, shape and contiguity and raises on anything the
     kernel does not take. Feature ids are not checked here (that would
     cost a device reduction per call): `repro_torch.convert.forest_tables`
-    checks them once, when the tables are made. Launches on the current
-    stream and does not synchronise.
+    checks them once, when the tables are made. Each warp reads its
+    flow's row of x from device memory. Launches on the current stream,
+    reads nothing back and does not synchronise.
     """
     dev = x.device
     if x.ndim != 2 or feature.ndim != 2 or leaf.ndim != 3:

@@ -14,7 +14,6 @@ import pytest
 import torch
 
 from _torch_parity import (  # noqa: F401
-    PROB_ATOL,
     assert_straddle_parity,
     cuda,
     quantile_forest,
@@ -77,19 +76,23 @@ def _packets(ds, dev):
                            "flow_len", "proto", "s_port", "d_port")]
 
 
-@pytest.mark.parametrize("n,T,depth,K", [(4096, 25, 10, 28), (257, 12, 6, 7),
-                                         (1, 3, 4, 2)])
-def test_forest_kernel_matches_plain(cuda, n, T, depth, K):  # noqa: F811
-    R = np.random.default_rng(n)
+@pytest.mark.parametrize("T", [1, 25, 33, 70])
+@pytest.mark.parametrize("K", [1, 28, 33, 64])
+@pytest.mark.parametrize("depth", [0, 1, 4, 6, 10])
+def test_forest_kernel_matches_plain(cuda, T, K, depth):  # noqa: F811
+    """The same x and the same order of additions: the plain version's
+    bits, at trees either side of a warp's 32 lanes, one class slot a lane
+    or two, forests of one leaf, middle depths and the main path's, and
+    batches of one flow, under a warp, across blocks and at the main
+    path's 4096."""
+    R = np.random.default_rng(1000 * T + 10 * K + depth)
     tables = forest_tables(_random_forest(R, T, depth, K, 67), cuda)
-    x = torch.from_numpy(R.standard_normal((n, 67)).astype(np.float32)).to(cuda)
-    got = forest_infer_kernel_call(x, *tables, depth)
-    want = forest_infer_plain(x, *tables, depth)
-    torch.cuda.synchronize()
-    # the same x and the same order of additions: every flow agrees
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
-                               atol=PROB_ATOL)
-    np.testing.assert_array_equal(got.argmax(1).cpu(), want.argmax(1).cpu())
+    for n in (1, 31, 257, 4096):
+        x = torch.from_numpy(
+            R.standard_normal((n, 67)).astype(np.float32)).to(cuda)
+        want = forest_infer_plain(x, *tables, depth)
+        assert torch.equal(forest_infer_kernel_call(x, *tables, depth),
+                           want), n
 
 
 @pytest.mark.parametrize("conn_depth", [1, 8, 50])
@@ -121,8 +124,8 @@ def _stream_trace():
 
 @pytest.mark.parametrize("depth", [129, 256, 4000])
 def test_fused_kernel_long_window_bitwise(cuda, depth):  # noqa: F811
-    """Windows above the per-thread sample buffer (MAX_WINDOW) go through
-    the kernel's scratch: columns, medians among them, and probabilities
+    """Windows above the shared-memory chunk (MAX_WINDOW) go through the
+    kernel's scratch: columns, medians among them, and probabilities
     bitwise the plain version's."""
     ds = _stream_trace()
     assert min(depth, ds.max_pkts) > MAX_WINDOW
@@ -427,7 +430,7 @@ def test_multi_kernel_matches_plain_and_solo(cuda, case):  # noqa: F811
 
 def _tenants_case(case):
     """Flows, tenant feature reps and random quantile forests of the B4
-    cases beyond the per-thread arrays: two tenants whose union window is
+    cases beyond the old per-thread arrays: two tenants whose union window is
     129, 256 or 4000 packets (the registry at depth 100 beside a median
     plan at the long depth), and four tenants over the registry at depths
     5, 10, 15 and 20, whose merged plan has 259 columns."""
@@ -449,12 +452,14 @@ def _tenants_case(case):
 @pytest.mark.parametrize("case", ["129", "256", "4000", "259_columns"])
 def test_multi_kernel_beyond_its_arrays_bitwise(cuda, case):  # noqa: F811
     """Merged columns and lanes bitwise the plain version's, and each
-    tenant's lanes bitwise solo B2, where the window or the merged plan
-    outgrows B4's per-thread arrays."""
+    tenant's lanes bitwise solo B2, where the window outgrows the
+    shared-memory chunk or the merged plan the 256 columns that one thread
+    per flow once held (past the shared-memory limit:
+    `test_multi_kernel_warp_cases_bitwise`)."""
     ds, reps, forests = _tenants_case(case)
     plans = [stats_plan(r.features) for r in reps]
     merged, cols = merge_stats_plans(plans, [r.depth for r in reps])
-    assert (len(merged) > MAX_MERGED_COLUMNS if case == "259_columns" else
+    assert (len(merged) == 259 if case == "259_columns" else
             min(max(r.depth for r in reps), ds.max_pkts) > MAX_WINDOW)
     tables = multi_forest_tables(forests, cols, cuda)[:5]
     op_table = torch.from_numpy(encode_merged_plan(merged)).to(cuda)
@@ -482,6 +487,116 @@ def test_multi_kernel_beyond_its_arrays_bitwise(cuda, case):  # noqa: F811
         np.testing.assert_array_equal(pk[:, lo:lo + f.n_out],
                                       solo.cpu().numpy())
         lo += f.n_out
+
+
+def _merged_unshared(plans, depths):
+    """A merged table that shares nothing: every tenant's entries in turn
+    (meta columns at depth 0), so that one depth group can hold more rows
+    than a warp's 128, interleaved in table order with other depths."""
+    merged, cols = [], []
+    for plan, d in zip(plans, depths):
+        cols.append(tuple(range(len(merged), len(merged) + len(plan))))
+        merged += [(e, 0 if e[0] == "meta" else int(d)) for e in plan]
+    return tuple(merged), tuple(cols)
+
+
+def _warp_multi_case(case):
+    """Flows, tenant reps, the merged table, its column maps and forests of
+    B4's warp cases: a depth group of 192 rows (the registry three times at
+    depth 50, unshared, around a tenant at depth 8); a union window of 300
+    packets; and 4163 merged columns (the registry at depths 1..65), past
+    what shared memory holds. Each has a tenant of 64 classes and 40 trees
+    (two class slots a lane, a lane's second tree)."""
+    if case == "group_over_128":
+        ds = make_dataset("iot-class", n_flows=150, max_pkts=64, seed=7)
+        depths = (50, 8, 50, 50)
+    elif case == "window_over_128":
+        ds = _stream_trace().take(np.arange(64))
+        depths = (100, 300)
+    else:
+        ds = make_dataset("iot-class", n_flows=64, max_pkts=128, seed=8)
+        depths = tuple(range(1, 66))
+    reps = [FeatureRep(FEATURE_NAMES, d) for d in depths]
+    plans = [stats_plan(r.features) for r in reps]
+    if case == "past_shared_limit":
+        merged, cols = merge_stats_plans(plans, depths)
+    else:
+        merged, cols = _merged_unshared(plans, depths)
+    rng = np.random.default_rng(len(merged))
+    forests = []
+    for t, r in enumerate(reps):
+        x = extract_features(ds, r.features, r.depth, device="cpu")
+        T, K = (40, 64) if t == 1 else (3 + t % 7, 2 + t % 5)
+        forests.append(quantile_forest(x, rng, T=T, D=6, K=K))
+    return ds, reps, plans, merged, cols, forests
+
+
+@pytest.mark.parametrize("case", ["group_over_128", "window_over_128",
+                                  "past_shared_limit"])
+def test_multi_kernel_warp_cases_bitwise(cuda, case):  # noqa: F811
+    """The warp-per-flow B4 where its lists, its shared memory and its
+    lanes run out: merged columns and lanes equal to the plain version's,
+    each tenant's lanes equal to solo B2 on its own plan and forest; past
+    the shared-memory limit also with no `columns` passed, as serving
+    calls it."""
+    ds, reps, plans, merged, cols, forests = _warp_multi_case(case)
+    if case == "group_over_128":
+        assert sum(d == 50 for _, d in merged) == 192
+    elif case == "window_over_128":
+        assert min(max(r.depth for r in reps), ds.max_pkts) > MAX_WINDOW
+    else:
+        assert len(merged) > MAX_MERGED_COLUMNS
+    tables = multi_forest_tables(forests, cols, cuda)[:5]
+    op_table = torch.from_numpy(encode_merged_plan(merged)).to(cuda)
+    kw = dict(op_table=op_table, depth=max(r.depth for r in reps),
+              n_out=sum(f.n_out for f in forests))
+    packets = _packets(ds, cuda)
+    c_plain = torch.empty((ds.n_flows, len(merged)), device=cuda)
+    want = fused_multi_forest_infer_plain(*packets, *tables, columns=c_plain,
+                                          **kw)
+    c = torch.empty((ds.n_flows, len(merged)), device=cuda)
+    got = fused_multi_forest_call(*packets, *tables, columns=c, **kw)
+    assert torch.equal(c, c_plain)
+    assert torch.equal(got, want)
+    if case == "past_shared_limit":
+        assert torch.equal(fused_multi_forest_call(*packets, *tables, **kw),
+                           want)
+    lo = 0
+    for plan, r, f in zip(plans, reps, forests):
+        solo = fused_pipeline_call(
+            *packets, *forest_tables(f, cuda),
+            op_table=torch.from_numpy(encode_plan(plan)).to(cuda),
+            depth=r.depth, forest_depth=f.depth)
+        assert torch.equal(want[:, lo:lo + f.n_out], solo)
+        lo += f.n_out
+
+
+def test_multi_kernel_in_a_cuda_graph(cuda):  # noqa: F811
+    """B4 reads nothing back, so a CUDA graph captures it: replayed after
+    other flows' packets are copied in, it equals an eager call and the
+    plain version."""
+    ds, reps, forests = _multi_case("tenants")
+    plans = [stats_plan(r.features) for r in reps]
+    merged, cols = merge_stats_plans(plans, [r.depth for r in reps])
+    tables = multi_forest_tables(forests, cols, cuda)[:5]
+    kw = dict(op_table=torch.from_numpy(encode_merged_plan(merged)).to(cuda),
+              depth=max(r.depth for r in reps),
+              n_out=sum(f.n_out for f in forests))
+    packets = _packets(ds.take(np.arange(64)), cuda)
+    fused_multi_forest_call(*packets, *tables, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_multi_forest_call(*packets, *tables, **kw)
+    for shift in (0, 7, 31):
+        new = _packets(ds.take((np.arange(64) + shift) % ds.n_flows), cuda)
+        for dst, src in zip(packets, new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fused_multi_forest_call(*packets, *tables, **kw))
+        assert torch.equal(out, fused_multi_forest_infer_plain(
+            *packets, *tables, **kw))
 
 
 def test_multi_pipeline_on_card_matches_cpu(cuda):  # noqa: F811
@@ -515,8 +630,8 @@ def test_multi_kernel_refuses_what_it_does_not_take(cuda):  # noqa: F811
     fused_multi_forest_call(*args, **kw)        # the base case launches
     with pytest.raises(ValueError, match="CUDA"):
         fused_multi_forest_call(*_multi_args("cpu")[0], **kw)
-    # a plan wider than the per-thread column array, and a window longer
-    # than the per-thread sample buffer, launch
+    # a plan wider than shared memory holds, and a window longer than the
+    # shared-memory chunk, launch
     wide = MAX_MERGED_COLUMNS + 1
     assert fused_multi_forest_call(*_multi_args(cuda, F=wide)[0], **{
         **kw, "op_table": torch.zeros((wide, 5), dtype=torch.int32,

@@ -96,7 +96,7 @@ def test_op_table_round_trips_every_feature():
 
 
 # a plan in which every stat family has a median, at windows above the
-# kernel's per-thread sample buffer (MAX_WINDOW = 128 packets)
+# kernel's shared-memory chunk (MAX_WINDOW = 128 packets)
 WINDOW_FEATURES = ("dur", "s_load", "ack_cnt", "tcp_rtt", "s_bytes_mean",
                    "s_bytes_med", "s_bytes_std", "d_iat_sum", "d_iat_med",
                    "s_winsize_med", "d_ttl_med")

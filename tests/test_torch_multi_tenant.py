@@ -333,7 +333,7 @@ def test_fused_columns_and_wide_window(world):
 
 
 # four tenants over the whole registry at four depths: 3 meta columns and
-# 4 x 64 windowed ones, above B4's 256-column per-thread array
+# 4 x 64 windowed ones, above the 256 columns B4 once held a flow
 WIDE_DEPTHS = (5, 10, 15, 20)
 
 

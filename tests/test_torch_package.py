@@ -4,6 +4,7 @@ import ast
 import dataclasses
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -260,3 +261,29 @@ def test_lm_wrappers_refuse_what_they_cannot_take():
         with pytest.raises(ValueError, match="CUDA"):
             mamba_scan_kernel_call(t(B, T, H, 64), t(B, T, H), t(H),
                                    t(B, T, S), t(B, T, S))
+
+
+@pytest.mark.parametrize("py_name,source,c_name", [
+    ("MAX_MERGED_COLUMNS", "fused_multi.cu", "kMaxMergedColumns"),
+    ("MAX_WINDOW", "plan_warp.cuh", "kChunk"),
+    ("MAX_FEATURES", "fused_pipeline.cu", "kMaxFeatures"),
+    ("MAX_CLASSES", "forest_common.cuh", "kMaxClasses")])
+def test_wrapper_limits_are_the_sources(py_name, source, c_name):
+    """The wrappers decide on the host what the kernels take (a merged plan
+    past shared memory gets a `columns` buffer, a long window a scratch):
+    their limits are the constants the CUDA sources were built with."""
+    from repro_torch.kernels import fused_pipeline, tree_infer
+
+    mod = tree_infer if py_name == "MAX_CLASSES" else fused_pipeline
+    text = (PKG / "csrc" / source).read_text()
+    m = re.search(rf"constexpr int {c_name} = (\d+);", text)
+    assert m is not None and int(m.group(1)) == getattr(mod, py_name)
+
+
+def test_no_per_thread_forest_code_is_left():
+    """Every forest kernel runs a warp per flow (B1-B4): the per-thread
+    traversal and column code are gone from the sources."""
+    text = "".join(p.read_text() for p in (PKG / "csrc").glob("*.cu*"))
+    for name in ("traverse_forest(", "traverse_forest_strided(", "kThreads = 32",
+                 "column_value(", "median_of(", "kMaxWindow"):
+        assert name not in text, name
