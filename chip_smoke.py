@@ -114,6 +114,18 @@ Phases, each printing one JSON line:
    served on the card through B4 with the classes of the CPU plain
    pipeline; one replayed-throughput measurement of tenant 0's knee on
    the card, which launches B2.
+8b. fig5: the paper's Fig. 5c through the port
+   (benchmarks/fig5_serving_perf.py `run_replayed` at
+   benchmarks/bench_runtime.py's full size: the uniform app-class trace of
+   1500 flows of up to 48 packets, seed 1, `tree-fast`, one worker). CATO
+   searches 25 iterations against the modeled throughput metric; then each
+   of its Pareto points and the ALL, MI10 and RFE10 baselines at depths 10
+   and 48 is measured on the card: service constants timed through B2,
+   then the zero-loss rate by 10 bisection steps. One `fig5` line per
+   point, then `fig5_summary` (CATO's best rate over each baseline's, the
+   F1-matched ratios, B2's launches). Checked: 0 drops at every reported
+   rate, B2 launched, and the profiler's feature matrices on the card
+   bitwise the CPU plain version's at every depth the phase used.
 9. control: the JAX package's control-plane skew gate at full size
    (benchmarks/bench_runtime.py `--scenario zipf --shards 4`: the zipf
    app-class trace of 1000 flows of up to 256 packets) with
@@ -215,6 +227,17 @@ _CORE = ("s_bytes_mean", "s_iat_mean", "s_load", "dur")
 CO_POOLS = (_CORE + ("proto", "ack_cnt"), _CORE + ("s_bytes_max", "psh_cnt"),
             _CORE + ("d_pkt_cnt", "d_iat_std"))
 CO_ITERS, CO_SOLO = 24, 16
+# the fig5 phase: benchmarks/bench_runtime.py:run's full-size settings for
+# fig5_serving_perf.run_replayed (Fig. 5c), one worker; depth 48 is the
+# trace's whole connection (ds.max_pkts), where the paper says 50
+FIG5 = dict(use_case="app", iters=25, n_flows=1500, max_pkts=48,
+            depths=(10, 48), bisect_iters=10, cost_mode="measured",
+            model="tree-fast", seed=1)
+# fig5_serving_perf.REPLAYED_HEADER
+FIG5_HEADER = ("method", "depth", "n_features", "f1", "zero_loss_gbps",
+               "zero_loss_pps", "p50_s", "p99_s", "drops", "compiles",
+               "shard", "scenario", "control", "imbalance",
+               "share_ingest", "share_infer", "share_flush")
 # the drift gate's configurations per op family of the incremental plan
 AGG_PLANS = (
     ("dur", "proto", "s_port", "d_port"),
@@ -978,6 +1001,155 @@ def cotune_phase(counters) -> dict:
                       seconds=time.perf_counter() - tr),
         seconds=time.perf_counter() - t0)
     emit("cotune", **out)
+    return out
+
+
+def fig5_priors(space, prof, delta=0.4):
+    """`benchmarks/common.py:priors_for`: the priors from the profiler's
+    training columns at the space's deepest depth."""
+    from repro_torch.core import build_priors
+
+    X = prof.matrices_at_depth(space.max_depth)[0]
+    idx = [prof.feature_names.index(f) for f in space.feature_names]
+    return build_priors(space, X[:, idx], prof.train_ds.label, delta=delta)
+
+
+def fig5_baselines(space, prof, depths) -> dict:
+    """`fig5_serving_perf._baselines`: ALL, MI10 and RFE10 at each depth,
+    selected on the profiler's training columns."""
+    from repro_torch.core.baselines import (
+        select_all,
+        select_mi_topk,
+        select_rfe_topk,
+    )
+
+    prof.matrices_at_depth(space.max_depth)  # warm the full-depth cache
+    y = prof.train_ds.label
+    out = {}
+    for n in depths:
+        Xd = prof.matrices_at_depth(n)[0]
+        out[f"ALL@{n}"] = select_all(space, n)
+        out[f"MI10@{n}"] = select_mi_topk(space, n, Xd, y, k=10)
+        out[f"RFE10@{n}"] = select_rfe_topk(space, n, Xd, y, k=10)
+    return out
+
+
+def fig5_summarize(rows) -> dict:
+    """`fig5_serving_perf.summarize`: each baseline's rate over the
+    slowest CATO point whose F1 is at least the baseline's less 0.01."""
+    cato = [(r[4], r[3]) for r in rows if r[0] == "CATO"]
+    out = {}
+    for label, cost, f1 in ((r[0], r[4], r[3]) for r in rows if r[0] != "CATO"):
+        elig = [c for c, p in cato if p >= f1 - 0.01]
+        if elig:
+            out[label] = cost / min(elig)
+    return out
+
+
+def fig5_replayed(device, *, use_case="app", iters=25, n_flows=1500,
+                  max_pkts=48, depths=(10,), bisect_iters=8,
+                  cost_mode="measured", model="tree-fast", seed=1):
+    """Fig. 5c measured through the port's streaming runtime on one worker,
+    `benchmarks/fig5_serving_perf.py:run_replayed` step for step: CATO
+    searches against the modeled throughput metric; then each Pareto point
+    and each ALL / MI10 / RFE10 baseline at each of `depths` is trained and
+    its zero-loss rate bisected by `TrafficProfiler.replayed_throughput_gbps`
+    (the fused pipeline, B2 on the card, under `cost_mode`'s clock).
+    Returns (rows in FIG5_HEADER order, the profiler)."""
+    from repro_torch.core import CatoOptimizer, SearchSpace
+    from repro_torch.traffic import FEATURE_NAMES, TrafficProfiler
+    from repro_torch.traffic.synth import make_scenario_dataset
+
+    name = "app-class" if use_case == "app" else "iot-class"
+    ds = make_scenario_dataset(name, "uniform", n_flows=n_flows,
+                               max_pkts=max_pkts, seed=seed)
+    prof = TrafficProfiler(ds, FEATURE_NAMES, model=model,
+                           cost_metric="throughput", cost_mode="modeled",
+                           scenario="uniform", seed=seed, device=device)
+    space = SearchSpace(FEATURE_NAMES, max_depth=min(50, max_pkts))
+    res = CatoOptimizer(space, prof, fig5_priors(space, prof),
+                        seed=0).run(iters)
+    prof.cost_mode = cost_mode
+
+    def measure(label, rep):
+        f1, forest = prof.perf_f1(rep)
+        gbps, st = prof.replayed_throughput_gbps(
+            rep, forest, bisect_iters=bisect_iters, n_shards=1)
+        total = sum(st.stage_seconds.values()) if st.stage_seconds else 0.0
+        shares = tuple(round(st.stage_seconds.get(k, 0.0) / total, 4)
+                       if total > 0 else 0.0
+                       for k in ("ingest", "infer", "flush"))
+        return (label, rep.depth, len(rep.features), round(f1, 4),
+                round(gbps, 4), round(st.offered_pps, 1),
+                round(st.latency_p50_s, 6), round(st.latency_p99_s, 6),
+                st.drops, st.metrics.compile_count(), "agg", "uniform",
+                "static", round(st.load_imbalance, 4), *shares)
+
+    rows = [measure("CATO", o.x) for o in res.pareto_observations()]
+    # the baselines' space reaches the trace's whole connection (space_cap)
+    whole = SearchSpace(FEATURE_NAMES, max_depth=ds.max_pkts)
+    for label, rep in fig5_baselines(whole, prof, depths).items():
+        rows.append(measure(label, rep))
+    return rows, prof
+
+
+def fig5_phase(counters) -> dict:
+    """The paper's Fig. 5c on the card: CATO's Pareto points against the
+    ALL / MI10 / RFE10 baselines at depths 10 and 48, each measured through
+    B2; 0 drops at every reported rate, the profiler's feature matrices
+    bitwise the CPU's at every depth the phase used, and B2 launched."""
+    from repro_torch.traffic.extraction import extract_features
+
+    t0 = time.perf_counter()
+    reset_launches(*counters.values())
+    rows, prof = fig5_replayed("cuda", **FIG5)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    seconds = time.perf_counter() - t0
+    recs = [dict(zip(FIG5_HEADER, r)) for r in rows]
+    for r in recs:
+        emit("fig5", **r)
+    check(all(r["drops"] == 0 for r in recs),
+          "fig5: drops at a reported zero-loss rate")
+    check(launches["fused_forest_infer"] > 0, "fig5: B2 was not launched")
+
+    # the card's feature matrices at every depth the phase used, bitwise
+    # the CPU plain version's
+    t1 = time.perf_counter()
+    depths = sorted(prof._matrix_cache)
+    differ = {}
+    for d in depths:
+        for side, part, got in zip(("train", "test"),
+                                   (prof.train_ds, prof.test_ds),
+                                   prof._matrix_cache[d]):
+            want = extract_features(part, prof.feature_names, d, device="cpu")
+            bad = np.nonzero((got != want).any(axis=0))[0]
+            if len(bad):
+                differ[f"{side}@{d}"] = [prof.feature_names[i] for i in bad]
+    check(not differ, f"fig5: card matrices differ from the CPU's: {differ}")
+
+    cato = [r for r in recs if r["method"] == "CATO"]
+    best = max(cato, key=lambda r: r["zero_loss_gbps"])
+    base = [r for r in recs if r["method"] != "CATO"]
+    out = dict(
+        config=FIG5, nvidia_smi=nvidia_smi(), cato_points=len(cato),
+        cato_best_gbps=best["zero_loss_gbps"], cato_best_f1=best["f1"],
+        cato_best_depth=best["depth"],
+        gain_vs_baseline={r["method"]: best["zero_loss_gbps"] / r["zero_loss_gbps"]
+                          for r in base if r["zero_loss_gbps"] > 0},
+        f1_matched=fig5_summarize(rows),
+        # the fastest CATO point within 0.01 of each baseline's F1, over it
+        f1_matched_gain={r["method"]: max(
+            (c["zero_loss_gbps"] for c in cato if c["f1"] >= r["f1"] - 0.01),
+            default=0.0) / r["zero_loss_gbps"]
+            for r in base if r["zero_loss_gbps"] > 0},
+        cato_best_f1_matched={r["method"]: best["f1"] >= r["f1"] - 0.01
+                              for r in base},
+        zero_drops_at_reported_rate=True,
+        matrices_bitwise_cpu_depths=depths,
+        matrices_check_seconds=time.perf_counter() - t1,
+        launches=launches, seconds=seconds)
+    emit("fig5_summary", **out)
     return out
 
 
@@ -2474,6 +2646,9 @@ def main() -> None:
     # 8. cotune: CATO's joint loop on the port ------------------------------
     co = cotune_phase(counters)
 
+    # 8b. fig5: CATO against its baselines, measured through B2 -------------
+    fig5 = fig5_phase(counters)
+
     # 9. control: the adaptive fleet, deploy and observability --------------
     ctl = control_phase(counters)
 
@@ -2531,6 +2706,7 @@ def main() -> None:
              max_abs_err=max(b2_err, *(c["max_abs_err"] for c in lw["cases"])),
              straddled=b2_straddled, argmax_mismatches=b2_mism,
              max_col_rel_err=b2_col_err,
+             fig5_launches=fig5["launches"]["fused_forest_infer"],
              control_launches=ctl["launches"]["fused_forest_infer"],
              selftune_launches=tune["launches"]["fused_forest_infer"],
              ms=timing["fused_forest_infer"]["ms"],

@@ -5,8 +5,9 @@ Optimizer (multi-objective BO with MI-based dimensionality reduction and
 πBO prior injection), the memoized evaluator, the priors, Pareto utilities,
 the random-forest surrogate, the search-space encoding and the dense forest
 trainer. The traffic-analysis Profiler lives in
-`repro_torch.traffic.profiler`. The reference's `baselines` and `tuner`
-are not ported yet (ROADMAP A11).
+`repro_torch.traffic.profiler`; the baseline searches and feature
+selectors in `repro_torch.core.baselines` and the LM serving-config tuner
+in `repro_torch.core.tuner`, imported from there as in the reference.
 """
 from .search_space import FeatureRep, SearchSpace
 from .optimizer import CatoOptimizer, CatoResult, Observation

@@ -33,8 +33,8 @@ Two loop shapes exist:
 
 The optimizer is space-generic: any object implementing the `SearchSpace`
 protocol (encode / sample_uniform / sample_from_priors / mutate) works —
-the reference's `repro.core.tuner` reuses it for LM serving-pipeline
-configuration search (its port waits, ROADMAP A11).
+`repro_torch.core.tuner` reuses it for LM serving-pipeline configuration
+search.
 
 The port's own copy of `repro.core.optimizer` (numpy only), so that the
 port never imports the JAX package.

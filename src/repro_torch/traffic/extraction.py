@@ -73,6 +73,15 @@ def _seq_sum(v, square: bool = False):
     return acc
 
 
+def _sqrt_f32(v):
+    """The correctly rounded float32 square root of float32 `v`: the root
+    in float64 rounded once to float32 is exact to the last bit. The CPU's
+    vectorized float32 `torch.sqrt` is not always correctly rounded (one
+    ulp off on about 0.7% of values); the card's and the kernels' `sqrtf`
+    are, so this leaves the card's bits as they were."""
+    return torch.sqrt(v.double()).float()
+
+
 def _masked_sum(v, m):
     return _seq_sum(torch.where(m, v, 0.0))
 
@@ -99,7 +108,7 @@ def _masked_std(v, m):
     mean = _masked_sum(v, m) / c.clamp(min=1)
     d = torch.where(m, v - mean[:, None], 0.0)
     var = _seq_sum(d, square=True) / c.clamp(min=1)
-    return torch.where(c > 0, torch.sqrt(var), 0.0)
+    return torch.where(c > 0, _sqrt_f32(var), 0.0)
 
 
 def _masked_median(v, m):
@@ -519,7 +528,7 @@ def _emit_agg_torch(plan, agg, *, proto, s_port, d_port):
             return torch.where(c > 0, dcol(di, cells[stat]), 0.0)
         if stat == "std":
             var = m2 / c.clamp(min=1.0)
-            return torch.where(c > 0, torch.sqrt(var.clamp(min=0.0)), 0.0)
+            return torch.where(c > 0, _sqrt_f32(var.clamp(min=0.0)), 0.0)
         raise ValueError(f"stat {stat!r} has no incremental form")
 
     def hs(i):

@@ -35,6 +35,8 @@ from repro_torch.traffic.synth import make_dataset
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+# the port's example drives
+DRIVES = sorted((ROOT / "examples_torch").glob("*.py"))
 
 
 def _modules():
@@ -53,12 +55,14 @@ SLICE_MODULES = (
     "repro_torch.traffic.profiler",
     "repro_torch.traffic.backends",
     "repro_torch.core.acquisition",
+    "repro_torch.core.baselines",
     "repro_torch.core.evaluator",
     "repro_torch.core.mutual_info",
     "repro_torch.core.optimizer",
     "repro_torch.core.pareto",
     "repro_torch.core.priors",
     "repro_torch.core.surrogate",
+    "repro_torch.core.tuner",
     "repro_torch.configs.qwen3_8b",
     "repro_torch.configs.zamba2_1_2b",
     "repro_torch.kernels.flash_attention",
@@ -117,8 +121,8 @@ def test_import_scan_covers_the_slice():
     assert set(SLICE_MODULES) <= scanned
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
-                         ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + DRIVES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     roots = set(_imported_roots(path))
     # `repro_torch` is a root of its own and must not match `repro`
@@ -148,6 +152,26 @@ def test_entry_points_default_to_the_card(monkeypatch):
     build_multi_tenant_pipeline([rep, rep], [forest, forest], fused=True,
                                 device="cpu")
     TrafficProfiler(ds, rep.features, device="cpu")
+
+
+def test_the_seven_drives_are_there():
+    assert [p.stem for p in DRIVES] == sorted((
+        "serve_stream", "quickstart", "optimize_app_class", "tune_serving",
+        "tune_multitenant", "tune_lm_config", "serve_lm"))
+
+
+@pytest.mark.parametrize("path", DRIVES, ids=lambda p: p.stem)
+def test_drives_default_to_the_card(path, monkeypatch):
+    """Each drive's `--device` defaults to cuda: without a card its main
+    raises before any work, and never moves to the CPU on its own."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"drive_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
 
 
 def test_kernel_wrappers_take_only_cuda_tensors():
