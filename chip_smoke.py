@@ -52,33 +52,38 @@ Phases, each printing one JSON line:
    kernel) and in bf16, causal and not; decode attention (B7)
    at (B 8, 32 q heads, 8 kv heads, S 4096, D 128) in bf16 with random
    lengths in [1, S], at zamba2-1.2b's served batch (B 8, 32 and 32 heads,
-   S 168, D 64, every length 159) in bf16, and at S = 300 in float32,
-   each bitwise its plain version (which repeats the split kernel's
-   arithmetic), with its split count; the Mamba scan (B8) at
-   zamba2-1.2b's prefill shape (B 2, T 2048, 64 heads of P 64, S 64) in
-   bf16 and at a ragged T with S 16 in float32, y and the final state
-   each bitwise its plain version (torch.equal), with its block count and
-   scratch bytes;
-   then each one's time at the main-path shapes (B7 at qwen3-8b's shape
-   and at zamba2-1.2b's served cache) beside its plain version, one
-   PyTorch call computing the same function (scaled_dot_product_
-   attention for B6 and B7; the port never calls it) and its bound, and
-   B6's achieved TFLOP/s; B7's and B8's times also with the launch
-   queued behind a spin of the card (`device_ms`, the card's time alone),
-   as are B1's, B2's, B3's and B4's. The build's ptxas report for B1's,
-   B2's, B3's, B4's, B7's and B8's kernels (registers, stack, spills) is
-   the `build_ptxas` line.
+   S 168, D 64, every length 159) in bf16, and at S = 300 in float32; the
+   Mamba scan (B8) at zamba2-1.2b's prefill shape (B 2, T 2048, 64 heads
+   of P 64, S 64) in bf16 and at a ragged T with S 16 in float32; then B6
+   and B7 at the small head dims, on rows zero-padded to the kernels' 32
+   wide tiles: at the reduced qwen3-8b's heads and head dim 16 in float32
+   (B6 4 / 2 heads at T 2048, B7 (8, 4 / 2, S 4096)), and at head dims 8,
+   12, 16 and 20 in float32 and bf16 with 7 query heads a kv head at
+   ragged lengths. Each is bitwise its plain version (torch.equal; B7's
+   with its split count, B8's y and final state with its block count and
+   scratch bytes);
+   then each one's time at the main-path shapes (B6 and B7 at qwen3-8b's
+   shape, at zamba2-1.2b's (B7's served cache) and at the reduced
+   qwen3-8b's heads) beside its plain version, one PyTorch call computing
+   the same function (scaled_dot_product_attention for B6 and B7; the
+   port never calls it) and its bound, and B6's achieved TFLOP/s; B6's,
+   B7's and B8's times also with the launch queued behind a spin of the
+   card (`device_ms`, the card's time alone), as are B1's, B2's, B3's and
+   B4's. The build's ptxas report for B1's, B2's, B3's, B4's, B7's and
+   B8's kernels (registers, stack, spills) is the `build_ptxas` line.
    The flow statistics kernel (B5) through `ops.flow_stats`, bitwise
    against its plain version, on the main path's two windows (packet
    sizes of the iot-class set, 4000 x 128, masked by each flow's valid
    packets, with bool, uint8 and int32 masks; the stream phase's trace
    padded to 600 x 4000), on ragged shapes (73 x 17, 5 x 8, 256 x 12,
-   1000 x 128) and on an all-empty mask; then its time at the two windows
-   beside its plain version and the five masked torch reductions that
-   compute the same function (`torch_ops_ms`; no single PyTorch call does,
-   so `library_ms` is null). B5's path comes first: the entry point on
-   the two windows, counted, held against the plain version run on the
-   CPU.
+   1000 x 128), at the edges of its split (64 x 511, 512 and 513, 32 x
+   2047, 16 x 4097) and on an all-empty mask; then its time at the two
+   windows beside its plain version and the five masked torch reductions
+   that compute the same function (`torch_ops_ms`; no single PyTorch call
+   does, so `library_ms` is null), its device time queued behind a spin
+   and that of an empty launch (the floor under any kernel). B5's path
+   comes first: the entry point on the two windows,
+   counted, held against the plain version run on the CPU.
 5. main path: `build_pipeline(..., fused=True)` and `fused=False` on the
    card for both forests, warmed on buckets 1..128, serving 16
    micro-batches of 128 flows, one batch of 4096 and the held-out split,
@@ -170,6 +175,15 @@ Phases, each printing one JSON line:
    float32 copy at 4 layers whose decode reproduces
    its prefill (atol = rtol = 2e-3) and whose decode on the plain path
    reproduces the kernel path's (atol = rtol = 1e-4, argmax equal).
+12. lm_reduced: every reduced config the port serves with attention
+   (qwen3-8b, starcoder2-7b, phi3-medium-14b, yi-34b: head dims 16, 12,
+   20, 8; zamba2-1.2b: 32), in float32 and in bf16, weights from seed 0 on
+   the card: a prefill of 2 x 40 tokens through B6, then the prompt
+   teacher-forced and 8 greedy tokens through B7 (and B8 for zamba2), the
+   launch counters set to 0 just before and read just after; the prefill
+   logits, every decode step's logits and the tokens bitwise the same run
+   under the plain versions (checked), and each config's B6 and B7
+   launches above 0.
 
 Probabilities of pipelines whose feature columns agree only to float32
 rounding are compared by the straddle rule
@@ -251,8 +265,11 @@ AGG_PLANS = (
 )
 
 
-# B5's ragged and edge cases beside the main path's two windows
-B5_RAGGED = ((73, 17), (5, 8), (256, 12), (1000, 128))
+# B5's ragged and edge cases beside the main path's two windows, the last
+# ones at its split's edges (a part of 512 packets; 2 parts from 513, 8
+# from 4097; 2047 not a multiple of 4)
+B5_RAGGED = ((73, 17), (5, 8), (256, 12), (1000, 128), (64, 511), (64, 512),
+             (64, 513), (32, 2047), (16, 4097))
 B5_OPS_PER_ELEMENT = 8    # count add, v*m and add, v*v, *m and add, min, max
 # the control phase: the JAX package's control-plane skew gate at full size
 # (benchmarks/bench_runtime.py:88-92 with benchmarks/fig5_serving_perf.py:143)
@@ -303,16 +320,20 @@ LM_TRUTH_ARGMAX_SLACK, LM_TRUTH_GAP_RATIO = 0.01, 1.1
 # own invariant, tests/test_models.py) and decode on the kernel path
 # against the plain path, where orders of summation differ by ~1e-6
 LM_F32_DECODE_TOL, LM_F32_PLAIN_TOL = 2e-3, 1e-4
-# B6 against its plain version (tests/test_kernels.py's tolerances); B7
-# and B8 repeat their plain versions' order of arithmetic and are held to
-# them bitwise
-LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# B6, B7 and B8 repeat their plain versions' order of arithmetic and are
+# held to them bitwise
 # their cases: B6 (B, Hq, Hkv, Tq, Tk, D) with the causal flags checked,
 # B7 (B, Hq, Hkv, S, D) with every length or None for lengths drawn in
 # [1, S], B8 (B, T, H, P, S). The qwen3-8b and zamba2-1.2b cases are the
 # main path's shapes (B7's zamba2 case the served batch's cache, at the
 # length of its last served step); the first two B6 and B7 cases and the
-# first B8 case are also timed
+# first B8 case are also timed. Then the small head dims (drawn after
+# those, so that their inputs stay as they were): the qwen3-8b-reduced
+# cases are the reduced config's heads and head dim (16, rows padded to
+# 32) at the full config's timed lengths, and are timed too; then the
+# reduced configs' head dims (8 yi-34b, 12 starcoder2-7b, 16 qwen3-8b, 20
+# phi3-medium-14b), each in both types at ragged lengths with 7 query
+# heads a kv head (yi-34b's)
 LM_B6_CASES = (
     ("qwen3-8b", (2, 32, 8, 2048, 2048, 128), torch.bfloat16, (True,)),
     ("zamba2-1.2b", (2, 32, 32, 2048, 2048, 64), torch.bfloat16, (True,)),
@@ -323,6 +344,23 @@ LM_B7_CASES = (
     ("zamba2-1.2b", (LM_SERVE_B, 32, 32, LM_CACHE_LEN, 64), torch.bfloat16,
      LM_PROMPT + LM_GEN - 1),
     ("ragged", (4, 32, 8, 300, 128), torch.float32, None))
+LM_SMALL_DIMS = (8, 12, 16, 20)
+LM_SMALL_B6_CASES = (
+    ("qwen3-8b-reduced", (2, 4, 2, 2048, 2048, 16), torch.float32, (True,)),
+    *((f"d{D}_{str(dt)[6:]}", (2, 7, 1, 200, 328, D), dt, (True, False))
+      for D in LM_SMALL_DIMS for dt in (torch.float32, torch.bfloat16)))
+LM_SMALL_B7_CASES = (
+    ("qwen3-8b-reduced", (8, 4, 2, 4096, 16), torch.float32, None),
+    *((f"d{D}_{str(dt)[6:]}", (4, 7, 1, 300, D), dt, None)
+      for D in LM_SMALL_DIMS for dt in (torch.float32, torch.bfloat16)))
+LM_TIMED = ("qwen3-8b", "zamba2-1.2b", "qwen3-8b-reduced")
+# the lm_reduced phase: every reduced config the port serves with
+# attention (the dense family and the hybrid), in its own float32 and in
+# bf16: a prefill of B x T through B6, then the prompt teacher-forced and
+# LM_REDUCED_GEN greedy tokens decoded through B7
+LM_REDUCED_ARCHS = ("qwen3-8b", "starcoder2-7b", "phi3-medium-14b", "yi-34b",
+                    "zamba2-1.2b")
+LM_REDUCED_B, LM_REDUCED_T, LM_REDUCED_GEN = 2, 40, 8
 LM_B8_CASES = (("zamba2-1.2b", (2, 2048, 64, 64, 64), torch.bfloat16),
                ("ragged", (2, 1000, 8, 64, 16), torch.float32))
 
@@ -1239,9 +1277,18 @@ def b5_check(cases: dict, dev, flush) -> dict:
         v, m = cases[name]
         N, P = v.shape
         vt, mt = ins[name]
+
+        def kernel():
+            return flow_stats_kernel_call(vt, mt)
+
         # each value and mask byte read once, five floats written a row
-        t = dict(ms=time_ms(lambda: flow_stats_kernel_call(vt, mt),
-                            KERNEL_REPS, flush),
+        t = dict(ms=time_ms(kernel, KERNEL_REPS, flush),
+                 device_ms=time_ms(kernel, KERNEL_REPS, flush, queued=True),
+                 # the floor under any launch: a kernel that does nothing
+                 # (the card's spin kernel asked for 0 cycles), queued
+                 empty_launch_device_ms=time_ms(
+                     lambda: torch.cuda._sleep(0), KERNEL_REPS, flush,
+                     queued=True),
                  plain_ms=time_ms(lambda: flow_stats_plain(vt, mt),
                                   PLAIN_REPS, flush),
                  torch_ops_ms=time_ms(lambda: flow_stats_ref(vt, mt),
@@ -1640,6 +1687,7 @@ def lm_kernel_phase(dev, flush) -> dict:
     from repro_torch.kernels.flash_attention import (
         flash_attention_kernel_call,
         flash_attention_plain,
+        tile_width,
     )
     from repro_torch.kernels.mamba_scan import (
         mamba_scan_kernel_call,
@@ -1655,43 +1703,54 @@ def lm_kernel_phase(dev, flush) -> dict:
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
 
-    # B6: (B, Hq, Hkv, Tq, Tk, D)
-    fa_inputs, cases = {}, []
-    for name, (B, Hq, Hkv, Tq, Tk, D), dtype, causals in LM_B6_CASES:
-        q = randn((B, Hq, Tq, D), dtype)
-        k, v = randn((B, Hkv, Tk, D), dtype), randn((B, Hkv, Tk, D), dtype)
-        fa_inputs[name] = (q, k, v)
-        for causal in causals:
-            e = err(flash_attention_kernel_call(q, k, v, causal=causal),
-                    flash_attention_plain(q, k, v, causal=causal))
-            cases.append(dict(kernel="flash_attention", case=name,
-                              shape=[B, Hq, Hkv, Tq, Tk, D], causal=causal,
-                              dtype=str(dtype), max_abs_err=e,
-                              tol=LM_TOL[dtype]))
-            check(e <= LM_TOL[dtype], f"B6 {cases[-1]}")
+    # B6: (B, Hq, Hkv, Tq, Tk, D); its plain version repeats each
+    # instantiation's arithmetic (a small D on rows zero-padded to the
+    # kernel's tile width), so the two agree to the last bit
+    fa_inputs, da_inputs, cases = {}, {}, []
+
+    def check_b6(case_list):
+        for name, (B, Hq, Hkv, Tq, Tk, D), dtype, causals in case_list:
+            q = randn((B, Hq, Tq, D), dtype)
+            k, v = randn((B, Hkv, Tk, D), dtype), randn((B, Hkv, Tk, D), dtype)
+            fa_inputs[name] = (q, k, v)
+            for causal in causals:
+                got = flash_attention_kernel_call(q, k, v, causal=causal)
+                want = flash_attention_plain(q, k, v, causal=causal)
+                cases.append(dict(
+                    kernel="flash_attention", case=name,
+                    shape=[B, Hq, Hkv, Tq, Tk, D], causal=causal,
+                    dtype=str(dtype), max_abs_err=err(got, want),
+                    bitwise=bool(torch.equal(got, want)), tol=0.0,
+                    tile_width=tile_width(D)))
+                check(cases[-1]["bitwise"], f"B6 {cases[-1]}")
+
     # B7: (B, Hq, Hkv, S, D), lengths in [1, S]; the plain version repeats
     # the split kernel's arithmetic, so the two agree to the last bit
-    da_inputs = {}
-    for name, (B, Hq, Hkv, S, D), dtype, length in LM_B7_CASES:
-        q = randn((B, Hq, D), dtype)
-        kc, vc = randn((B, S, Hkv, D), dtype), randn((B, S, Hkv, D), dtype)
-        if length is None:
-            lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
-                                 dtype=torch.int32)
-            lens[-1] = S
-        else:
-            lens = torch.full((B,), length, device=dev, dtype=torch.int32)
-        da_inputs[name] = (q, kc, vc, lens)
-        got = decode_attention_kernel_call(q, kc, vc, lens)
-        want = decode_attention_plain(q, kc, vc, lens)
-        n_split, split_len = split_plan(B, Hkv, S)
-        cases.append(dict(kernel="decode_attention", case=name,
-                          shape=[B, Hq, Hkv, S, D], lengths=lens.tolist(),
-                          dtype=str(dtype), max_abs_err=err(got, want),
-                          bitwise=bool(torch.equal(got, want)), tol=0.0,
-                          n_split=n_split, split_len=split_len,
-                          blocks=B * Hkv * n_split))
-        check(cases[-1]["bitwise"], f"B7 {cases[-1]}")
+    def check_b7(case_list):
+        for name, (B, Hq, Hkv, S, D), dtype, length in case_list:
+            q = randn((B, Hq, D), dtype)
+            kc, vc = randn((B, S, Hkv, D), dtype), randn((B, S, Hkv, D), dtype)
+            if length is None:
+                lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                                     dtype=torch.int32)
+                lens[-1] = S
+            else:
+                lens = torch.full((B,), length, device=dev, dtype=torch.int32)
+            da_inputs[name] = (q, kc, vc, lens)
+            got = decode_attention_kernel_call(q, kc, vc, lens)
+            want = decode_attention_plain(q, kc, vc, lens)
+            n_split, split_len = split_plan(B, Hkv, S)
+            cases.append(dict(kernel="decode_attention", case=name,
+                              shape=[B, Hq, Hkv, S, D], lengths=lens.tolist(),
+                              dtype=str(dtype), max_abs_err=err(got, want),
+                              bitwise=bool(torch.equal(got, want)), tol=0.0,
+                              n_split=n_split, split_len=split_len,
+                              blocks=B * Hkv * n_split,
+                              tile_width=tile_width(D)))
+            check(cases[-1]["bitwise"], f"B7 {cases[-1]}")
+
+    check_b6(LM_B6_CASES)
+    check_b7(LM_B7_CASES)
     # B8: (B, T, H, P, S)
     ms_inputs = {}
     for name, (B, T, H, P, S), dtype in LM_B8_CASES:
@@ -1712,32 +1771,41 @@ def lm_kernel_phase(dev, flush) -> dict:
                           scratch_bytes=4 * sum(map(math.prod, scratch))))
         check(cases[-1]["bitwise"] and cases[-1]["state_bitwise"],
               f"B8 {cases[-1]}")
+    # the small head dims, on rows zero-padded to the kernels' tile width
+    check_b6(LM_SMALL_B6_CASES)
+    check_b7(LM_SMALL_B7_CASES)
     torch.cuda.synchronize()
     for c in cases:
         emit("lm_kernel_check", **c)
 
     # times at the main-path shapes, with bounds from these inputs
     timing = {}
-    for name in ("qwen3-8b", "zamba2-1.2b"):
+    for name in LM_TIMED:
         q, k, v = fa_inputs[name]
         B, Hq, T, D = q.shape
         pairs = T * (T + 1) // 2              # causal, Tq = Tk
+
+        def kernel():
+            return flash_attention_kernel_call(q, k, v)
+
         t = dict(
-            ms=time_ms(lambda: flash_attention_kernel_call(q, k, v),
-                       KERNEL_REPS, flush),
+            ms=time_ms(kernel, KERNEL_REPS, flush),
+            device_ms=time_ms(kernel, KERNEL_REPS, flush, queued=True),
             plain_ms=time_ms(lambda: flash_attention_plain(q, k, v),
                              PLAIN_REPS, flush),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), KERNEL_REPS, flush),
-            bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
-            ops=4 * D * pairs * B * Hq, shape=list(q.shape) + [k.shape[1]])
+            bytes=q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
+            ops=4 * D * pairs * B * Hq, shape=list(q.shape) + [k.shape[1]],
+            dtype=str(q.dtype))
         t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
                                              ops_rate(q.dtype))
         t["tflops"] = t["ops"] / (t["ms"] * 1e-3) / 1e12
         t["library_tflops"] = t["ops"] / (t["library_ms"] * 1e-3) / 1e12
         timing[f"flash_attention/{name}"] = t
-    # B7 at qwen3-8b's timed shape and at zamba2-1.2b's served cache
-    for name in ("qwen3-8b", "zamba2-1.2b"):
+    # B7 at qwen3-8b's timed shape, at zamba2-1.2b's served cache and at
+    # the reduced qwen3-8b's heads and head dim
+    for name in LM_TIMED:
         q, kc, vc, lens = da_inputs[name]
         B, Hq, D = q.shape
         S, Hkv = kc.shape[1], kc.shape[2]
@@ -1761,8 +1829,10 @@ def lm_kernel_phase(dev, flush) -> dict:
             library_device_ms=time_ms(library, KERNEL_REPS, flush,
                                       queued=True),
             # q and out, the valid K and V rows, the lengths
-            bytes=2 * (2 * q.numel() + 2 * n_valid * Hkv * D) + 4 * B,
+            bytes=q.element_size() * (2 * q.numel() + 2 * n_valid * Hkv * D)
+            + 4 * B,
             ops=4 * D * Hq * n_valid, shape=[B, Hq, Hkv, S, D],
+            dtype=str(q.dtype),
             valid_positions=n_valid, split=list(split_plan(B, Hkv, S)))
         t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
                                              ops_rate(q.dtype))
@@ -2005,6 +2075,91 @@ def lm_serve_phase(dev) -> dict:
         emit("lm_serve", **res)
         out[arch] = res
     return out
+
+
+def lm_reduced_phase(dev) -> dict:
+    """Each reduced config the port serves with attention, in float32 (its
+    own type) and in bf16, weights from seed 0 on the card: a prefill of
+    LM_REDUCED_B x LM_REDUCED_T through `make_prefill` (B6 at the config's
+    head dim, on rows padded to the kernels' tile width), then a fresh
+    cache, the prompt teacher-forced and LM_REDUCED_GEN greedy tokens
+    through `decode_step` (B7). Held bitwise against the same run under
+    `plain_kernels()`: the prefill logits, every decode step's logits and
+    the greedy tokens. B6's and B7's launches (and B8's, for the hybrid)
+    are counted from 0 over the kernel run and must be above 0."""
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import decode_attention_kernel_call
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_kernel_call,
+        tile_width,
+    )
+    from repro_torch.kernels.mamba_scan import mamba_scan_kernel_call
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.serve import make_prefill
+
+    counters = {"flash_attention": flash_attention_kernel_call,
+                "decode_attention": decode_attention_kernel_call,
+                "mamba_scan": mamba_scan_kernel_call}
+    B, T, n_gen = LM_REDUCED_B, LM_REDUCED_T, LM_REDUCED_GEN
+    out = []
+    for arch in LM_REDUCED_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(configs.get_reduced(arch), dtype=dtype)
+            params = init_params(cfg, seed=0)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                                 device=dev)
+            prefill = make_prefill(cfg)
+
+            def run():
+                logits = prefill(params, {"tokens": toks})
+                cache = init_cache(cfg, B, T + n_gen)
+                steps, tokens = [], []
+                tok = toks[:, 0].to(torch.int32)
+                for i in range(T + n_gen - 1):
+                    step_logits, cache = decode_step(params, cache, tok, cfg)
+                    steps.append(step_logits)
+                    if i + 1 < T:
+                        tok = toks[:, i + 1].to(torch.int32)
+                    else:
+                        tok = step_logits.argmax(-1).to(torch.int32)
+                        tokens.append(tok)
+                return logits, torch.stack(steps, 1), torch.stack(tokens, 1)
+
+            reset_launches(*counters.values())
+            got = run()
+            torch.cuda.synchronize()
+            launches = {k: f.launches for k, f in counters.items()}
+            with plain_kernels():
+                want = run()
+            torch.cuda.synchronize()
+            res = dict(
+                arch=arch, dtype=dtype, layers=cfg.n_layers,
+                heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.hd,
+                tile_width=tile_width(cfg.hd), batch=B, prompt=T,
+                generated=n_gen, launches=launches,
+                prefill_bitwise=bool(torch.equal(got[0], want[0])),
+                decode_bitwise=bool(torch.equal(got[1], want[1])),
+                tokens_equal=bool(torch.equal(got[2], want[2])),
+                max_abs_err=max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(got[:2], want[:2])),
+                finite=bool(torch.isfinite(got[0]).all()
+                            and torch.isfinite(got[1]).all()),
+                first_tokens=got[2][0].tolist(),
+                seconds=time.perf_counter() - t0)
+            emit("lm_reduced", **res)
+            check(res["prefill_bitwise"] and res["decode_bitwise"]
+                  and res["tokens_equal"] and res["finite"],
+                  f"{arch} reduced ({dtype}) kernel vs plain path: {res}")
+            want_k = ["flash_attention", "decode_attention"] + (
+                ["mamba_scan"] if cfg.family == "hybrid" else [])
+            check(all(launches[k] > 0 for k in want_k),
+                  f"{arch} reduced ({dtype}) launches {launches}")
+            out.append(res)
+            del params, got, want
+    return dict(cases=out, launches={
+        k: sum(r["launches"][k] for r in out) for k in counters})
 
 
 def main() -> None:
@@ -2660,13 +2815,20 @@ def main() -> None:
     lm_serve = lm_serve_phase(dev)
     emit("lm_serve_seconds", seconds=time.perf_counter() - t0)
 
-    def lm_entry(name, source, replaces, main_case, extra_case=None):
+    # 12. lm_reduced: every reduced config with attention, through B6/B7 --
+    t0 = time.perf_counter()
+    lm_red = lm_reduced_phase(dev)
+    emit("lm_reduced_summary", launches=lm_red["launches"],
+         configs=len(lm_red["cases"]), seconds=time.perf_counter() - t0)
+
+    def lm_entry(name, source, replaces, main_case, extra_cases=()):
         t = lm["timing"][f"{name}/{main_case}"]
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(r["launches"][name] for r in lm_serve.values()),
             launches_by_model={a: r["launches"][name]
                                for a, r in lm_serve.items()},
+            reduced_launches=lm_red["launches"][name],
             max_abs_err=max(c["max_abs_err"] for c in lm["cases"]
                             if c["kernel"] == name),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -2677,12 +2839,15 @@ def main() -> None:
         extra = ("device_ms", "library_device_ms", "split", "blocks",
                  "scratch_bytes", "passes")
         entry.update({k: t[k] for k in extra if k in t})
-        if extra_case:
-            e = lm["timing"][f"{name}/{extra_case}"]
-            entry[extra_case] = {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                   "bound_by", "library_ms",
-                                                   "shape", *extra) if k in e}
+        for case in extra_cases:
+            e = lm["timing"][f"{name}/{case}"]
+            entry[case] = {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms",
+                                             "shape", "dtype", *extra)
+                           if k in e}
         return entry
+
+    from repro_torch.kernels.feature_extract import split_plan as b5_split
 
     kernels = [
         dict(name="forest_infer", route="cuda",
@@ -2782,21 +2947,29 @@ def main() -> None:
              launches=b5["launches"], max_abs_err=b5["max_abs_err"],
              bitwise=all(c["bitwise"] for c in b5["cases"]),
              ms=b5["timing"]["iot_window"]["ms"],
+             device_ms=b5["timing"]["iot_window"]["device_ms"],
+             empty_launch_device_ms=b5["timing"]["iot_window"][
+                 "empty_launch_device_ms"],
              plain_ms=b5["timing"]["iot_window"]["plain_ms"],
              bound_ms=b5["timing"]["iot_window"]["bound_ms"],
              bound_by=b5["timing"]["iot_window"]["bound_by"],
              library_ms=None,
              torch_ops_ms=b5["timing"]["iot_window"]["torch_ops_ms"],
              shape=b5["timing"]["iot_window"]["shape"],
-             stream_trace={k: b5["timing"]["stream_trace"][k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "torch_ops_ms",
-                 "shape")}),
+             split=list(b5_split(b5["timing"]["iot_window"]["shape"][1])),
+             stream_trace=dict(
+                 {k: b5["timing"]["stream_trace"][k] for k in (
+                     "ms", "device_ms", "empty_launch_device_ms",
+                     "plain_ms", "bound_ms",
+                     "bound_by", "torch_ops_ms", "shape")},
+                 split=list(b5_split(
+                     b5["timing"]["stream_trace"]["shape"][1])))),
         lm_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:83", "qwen3-8b",
-                 "zamba2-1.2b"),
+                 ("zamba2-1.2b", "qwen3-8b-reduced")),
         lm_entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:70", "qwen3-8b",
-                 "zamba2-1.2b"),
+                 ("zamba2-1.2b", "qwen3-8b-reduced")),
         lm_entry("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
                  "src/repro/kernels/mamba_scan.py:78", "zamba2-1.2b"),
     ]

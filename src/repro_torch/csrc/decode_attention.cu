@@ -55,6 +55,16 @@
 // evenly loaded) and each block keeps up to two 16 KB tiles loading while
 // it computes. Tensor cores are not needed: g is 4 or 1
 // on the main path.
+//
+// Head dims. The kernel is compiled for the tile widths Dp = 32, 64 and
+// 128 (4, 8 or 16 lanes a row). Any other even D up to 128 (the reduced
+// configs' 8, 12, 16 and 20) runs the next width's kernel with its rows
+// zero-padded to Dp inside shared memory: the loads fill columns below D
+// (16-, 8- or 4-byte cp.async pieces, the widest that divides a row: a
+// bf16 row of D 12 or 20 is not 16-byte aligned), the padding is zeroed
+// once, and only columns below D reach the workspace. A zero column adds
+// an exact 0 to every chain, so the result is bitwise the Dp kernel's on
+// the zero-padded inputs, which is what the plain version computes.
 #include <type_traits>
 
 #include "lm_common.cuh"
@@ -71,6 +81,21 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem));
+}
+// a piece of 16, 8 or 4 bytes (the padded rows' loads)
+__device__ __forceinline__ void cp_async_piece(void* smem, const void* gmem,
+                                               int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+  } else if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem));
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -120,32 +145,39 @@ __device__ __forceinline__ float lane_dot(const float (&a)[kVec],
 }
 
 // Dynamic shared memory of one split block: the two tile buffers, the
-// split's g x split_len scores, the warps' partial sums.
-template <typename T, int D, int G>
+// split's g x split_len scores, the warps' partial sums (rows of Dp).
+template <typename T, int Dp, int G>
 size_t split_smem_bytes(int split_len) {
-  return 2 * kTile * D * sizeof(T) + sizeof(float) * G * split_len +
-         sizeof(float) * kWarps * G * (D + 1);
+  return 2 * kTile * Dp * sizeof(T) + sizeof(float) * G * split_len +
+         sizeof(float) * kWarps * G * (Dp + 1);
 }
 
-template <typename T, int D, int G>
+// Dp is the tile width; kPad runs a head dim d_arg < Dp on rows padded to
+// Dp (else D = Dp), its cache rows loaded in `piece`-byte pieces.
+template <typename T, int Dp, int G, bool kPad>
 __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const T* __restrict__ q,          // (B, Hq, D)
     const T* __restrict__ k_cache,    // (B, S, Hkv, D)
     const T* __restrict__ v_cache,    // (B, S, Hkv, D)
     const int* __restrict__ lengths,  // (B,)
     float* __restrict__ ws,           // (B, Hq, n_split, D + 2)
-    int Hq, int Hkv, int S, int split_len, int n_split, float scale) {
-  constexpr int kLanesPerRow = D / kVec;           // 16, 8, 4
+    int Hq, int Hkv, int S, int split_len, int n_split, float scale,
+    int d_arg, int piece) {
+  constexpr int kLanesPerRow = Dp / kVec;          // 16, 8, 4
   constexpr int kRowsPerWarp = 32 / kLanesPerRow;  // 2, 4, 8
   constexpr int kStripes = kWarps * kRowsPerWarp;  // 8, 16, 32
-  constexpr int kPieces = D * sizeof(T) / 16;      // 16-byte pieces a row
-  constexpr int kPer = 16 / sizeof(T);             // elements a piece
   static_assert(kTile % kStripes == 0, "a tile holds whole stripe rounds");
+  const int D = kPad ? d_arg : Dp;
+  // cp.async pieces a row and elements a piece
+  const int pieces = kPad ? D * static_cast<int>(sizeof(T)) / piece
+                          : Dp * static_cast<int>(sizeof(T)) / 16;
+  const int per = kPad ? piece / static_cast<int>(sizeof(T))
+                       : 16 / static_cast<int>(sizeof(T));
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tiles = reinterpret_cast<T*>(smem_raw);
-  float* sc = reinterpret_cast<float*>(smem_raw + 2 * kTile * D * sizeof(T));
-  float* part = sc + G * split_len;     // kWarps x G x D
-  float* lpart = part + kWarps * G * D; // kWarps x G
+  float* sc = reinterpret_cast<float*>(smem_raw + 2 * kTile * Dp * sizeof(T));
+  float* part = sc + G * split_len;      // kWarps x G x Dp
+  float* lpart = part + kWarps * G * Dp; // kWarps x G
   __shared__ float sm_m[G];
 
   const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
@@ -172,14 +204,24 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
   const size_t base = (static_cast<size_t>(b) * S * Hkv + kvh) * D +
                       static_cast<size_t>(start) * pos_stride;
   const int n_tiles = (len + kTile - 1) / kTile;
+  if constexpr (kPad) {
+    // the padding columns stay 0: no load writes them
+    for (int i = threadIdx.x; i < 2 * kTile * Dp; i += kThreads)
+      tiles[i] = cato::from_float<T>(0.f);
+    __syncthreads();
+  }
   auto load_tile = [&](const T* src, int t) {
-    T* dst = tiles + (t & 1) * kTile * D;
+    T* dst = tiles + (t & 1) * kTile * Dp;
     const int rows = min(kTile, len - t * kTile);
-    for (int i = threadIdx.x; i < rows * kPieces; i += kThreads) {
-      const int row = i / kPieces, c = i % kPieces;
-      cp_async16(dst + row * D + c * kPer,
-                 src + static_cast<size_t>(t * kTile + row) * pos_stride +
-                     c * kPer);
+    for (int i = threadIdx.x; i < rows * pieces; i += kThreads) {
+      const int row = i / pieces, c = i % pieces;
+      const T* from = src + static_cast<size_t>(t * kTile + row) * pos_stride +
+                      c * per;
+      if constexpr (kPad) {
+        cp_async_piece(dst + row * Dp + c * per, from, piece);
+      } else {
+        cp_async16(dst + row * Dp + c * per, from);
+      }
     }
     cp_async_commit();
   };
@@ -205,7 +247,11 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
                        static_cast<size_t>(kvh) * g) * D + slot * kVec;
 #pragma unroll
     for (int r = 0; r < G; ++r) {
-      if (r < g) {
+      if (r < g && kPad) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          qr[r][e] = slot * kVec + e < D ? cato::to_float(qp[r * D + e]) : 0.f;
+      } else if (r < g) {
         load8(qp + r * D, qr[r]);
       } else {
 #pragma unroll
@@ -216,7 +262,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     if (n_tiles > 1) load_tile(k_cache + base, 1);
     for (int t = 0; t < n_tiles; ++t) {
       arrive(t);
-      const T* tile = tiles + (t & 1) * kTile * D;
+      const T* tile = tiles + (t & 1) * kTile * Dp;
       const int rows = min(kTile, len - t * kTile);
       // warp-uniform bound: every lane of the warp takes part in the
       // butterfly; a row group past the tile's rows computes on zeros
@@ -225,7 +271,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
         const bool valid = row < rows;
         float kv[kVec];
         if (valid) {
-          load8(tile + row * D + slot * kVec, kv);
+          load8(tile + row * Dp + slot * kVec, kv);
         } else {
 #pragma unroll
           for (int e = 0; e < kVec; ++e) kv[e] = 0.f;
@@ -297,11 +343,11 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
   }
   for (int t = 0; t < n_tiles; ++t) {
     arrive(t);
-    const T* tile = tiles + (t & 1) * kTile * D;
+    const T* tile = tiles + (t & 1) * kTile * Dp;
     const int rows = min(kTile, len - t * kTile);
     for (int row = stripe; row < rows; row += kStripes) {
       float vv[kVec];
-      load8(tile + row * D + slot * kVec, vv);
+      load8(tile + row * Dp + slot * kVec, vv);
       const float* pr = sc + t * kTile + row;
 #pragma unroll
       for (int r = 0; r < G; ++r) {
@@ -334,15 +380,16 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
       if (r >= g) break;
 #pragma unroll
       for (int e = 0; e < kVec; ++e)
-        part[(warp * G + r) * D + slot * kVec + e] = acc[r][e];
+        part[(warp * G + r) * Dp + slot * kVec + e] = acc[r][e];
       if (slot == 0) lpart[warp * G + r] = l[r];
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < g * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    float a = part[r * D + d];
-    for (int w = 1; w < kWarps; ++w) a = __fadd_rn(a, part[(w * G + r) * D + d]);
+    float a = part[r * Dp + d];
+    for (int w = 1; w < kWarps; ++w)
+      a = __fadd_rn(a, part[(w * G + r) * Dp + d]);
     wrow[r * row_stride + d] = a;
     if (d == 0) {
       float ls = lpart[r];
@@ -373,19 +420,22 @@ __global__ void decode_merge_kernel(const float* __restrict__ ws,
   }
 }
 
-template <typename T, int D, int G>
+template <typename T, int Dp, int G, bool kPad>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           float* ws, void* out, int B, int Hq, int Hkv, int S,
+           float* ws, void* out, int B, int Hq, int Hkv, int S, int D,
            int split_len, int n_split, float scale, cudaStream_t stream) {
-  const size_t bytes = split_smem_bytes<T, D, G>(split_len);
+  const size_t bytes = split_smem_bytes<T, Dp, G>(split_len);
   cudaError_t err =
-      cato::allow_shared_memory(decode_split_kernel<T, D, G>, bytes);
+      cato::allow_shared_memory(decode_split_kernel<T, Dp, G, kPad>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_split_kernel<T, D, G>
+  // the widest cp.async piece that divides a row of D elements
+  const int row_bytes = D * static_cast<int>(sizeof(T));
+  const int piece = row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : 4;
+  decode_split_kernel<T, Dp, G, kPad>
       <<<dim3(Hkv, B, n_split), kThreads, bytes, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), lengths, ws, Hq, Hkv, S, split_len,
-          n_split, scale);
+          n_split, scale, D, piece);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_merge_kernel<T><<<B * Hq, D, 0, stream>>>(ws, static_cast<T*>(out),
@@ -393,34 +443,46 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int Dp, bool kPad>
 int launch_g(const void* q, const void* k, const void* v, const int* lengths,
-             float* ws, void* out, int B, int Hq, int Hkv, int S,
+             float* ws, void* out, int B, int Hq, int Hkv, int S, int D,
              int split_len, int n_split, float scale, cudaStream_t stream) {
   return Hq / Hkv <= 4
-             ? launch<T, D, 4>(q, k, v, lengths, ws, out, B, Hq, Hkv, S,
-                               split_len, n_split, scale, stream)
-             : launch<T, D, 16>(q, k, v, lengths, ws, out, B, Hq, Hkv, S,
-                                split_len, n_split, scale, stream);
+             ? launch<T, Dp, 4, kPad>(q, k, v, lengths, ws, out, B, Hq, Hkv,
+                                      S, D, split_len, n_split, scale, stream)
+             : launch<T, Dp, 16, kPad>(q, k, v, lengths, ws, out, B, Hq, Hkv,
+                                       S, D, split_len, n_split, scale,
+                                       stream);
 }
 
+// D 32, 64 and 128 run their own width; any other even D up to 128 the
+// next width, padded
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, const int* lengths,
              float* ws, void* out, int B, int Hq, int Hkv, int S, int D,
              int split_len, int n_split, float scale, cudaStream_t stream) {
+  if (D < 2 || D > 128 || D % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define CATO_DECODE_LAUNCH(DP, PAD)                                        \
+  return launch_g<T, DP, PAD>(q, k, v, lengths, ws, out, B, Hq, Hkv, S, D, \
+                              split_len, n_split, scale, stream)
   switch (D) {
-    case 32: return launch_g<T, 32>(q, k, v, lengths, ws, out, B, Hq, Hkv, S, split_len, n_split, scale, stream);
-    case 64: return launch_g<T, 64>(q, k, v, lengths, ws, out, B, Hq, Hkv, S, split_len, n_split, scale, stream);
-    case 128: return launch_g<T, 128>(q, k, v, lengths, ws, out, B, Hq, Hkv, S, split_len, n_split, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 32: CATO_DECODE_LAUNCH(32, false);
+    case 64: CATO_DECODE_LAUNCH(64, false);
+    case 128: CATO_DECODE_LAUNCH(128, false);
+    default:
+      if (D < 32) CATO_DECODE_LAUNCH(32, true);
+      if (D < 64) CATO_DECODE_LAUNCH(64, true);
+      CATO_DECODE_LAUNCH(128, true);
   }
+#undef CATO_DECODE_LAUNCH
 }
 
 }  // namespace
 
 // Launches the split kernel and the merge on `stream`, allocates nothing,
 // does not synchronise and reads nothing back. `bf16` selects bfloat16 q
-// and caches (else float32); D is 32, 64 or 128; Hq is a multiple of Hkv
+// and caches (else float32); D is even, 2 to 128; Hq is a multiple of Hkv
 // with Hq / Hkv <= 16; q and the caches start on 16-byte boundaries.
 // `workspace` is float32 (B, Hq, n_split, D + 2); split_len is a multiple
 // of 64 with n_split * split_len >= S. Returns cudaGetLastError() after

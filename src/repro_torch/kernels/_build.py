@@ -60,7 +60,7 @@ _SIGNATURES = {
     "mamba_scan_launch": (
         [_VOID] * 12 + [_INT] * 7 + [_VOID]),
     "flow_stats_launch": (
-        [_VOID] * 3 + [_INT] * 2 + [_VOID]),
+        [_VOID] * 3 + [_INT] * 4 + [_VOID]),
 }
 
 

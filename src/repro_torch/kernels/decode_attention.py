@@ -27,6 +27,9 @@ kernel's arithmetic, step by step:
 
 On the card the two agree to the last bit in float32 and bfloat16 (bf16
 products are exact in float32; float32 ones round once on both sides).
+A head dim below a tile width (`flash_attention.tile_width`: the reduced
+configs' 8, 12, 16, 20) runs the next width's layout on zero-padded rows
+in both.
 `repro_torch.kernels.ops.decode_attention` picks between them by the
 device of `q`.
 """
@@ -37,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check_tensor, launch
-from .flash_attention import HEAD_DIMS
+from .flash_attention import check_head_dim, pad_head, tile_width
 
 __all__ = ["MAX_GROUP", "MAX_SPLIT_LEN", "SPLIT_TILE", "decode_attention_kernel_call",
            "decode_attention_plain", "split_plan"]
@@ -87,9 +90,9 @@ def _shapes(q, k_cache, v_cache, lengths):
 
 def _layout(D: int) -> tuple[int, int, int]:
     """(lanes a row, columns a lane, row groups a warp) of the kernel at
-    head dim D. A D that no kernel takes (the reduced test configs' 12, 16,
-    20) gets one lane a row and D 128's stripes."""
-    if D in HEAD_DIMS:
+    tile width D (32, 64 or 128). A D that no kernel takes (odd, or above
+    128) gets one lane a row and D 128's stripes."""
+    if tile_width(D) == D:
         return D // VEC, VEC, 32 * VEC // D
     return 1, D, 2
 
@@ -104,8 +107,15 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *,
     """(B, Hq, D) attention output in q's type; runs on any device, in the
     kernel's order (see the module note)."""
     B, Hq, Hkv, S, D = _shapes(q, k_cache, v_cache, lengths)
-    g = Hq // Hkv
     scale = _scale(scale, D)
+    width = tile_width(D) or D
+    if width != D:     # the kernel's zero-padded rows
+        out = decode_attention_plain(pad_head(q, width),
+                                     pad_head(k_cache, width),
+                                     pad_head(v_cache, width), lengths,
+                                     scale=scale)
+        return out[..., :D].contiguous()
+    g = Hq // Hkv
     n_split, L = split_plan(B, Hkv, S)
     lanes, vec, rows_per_warp = _layout(D)
     stripes = WARPS * rows_per_warp
@@ -176,7 +186,7 @@ def decode_attention_kernel_call(q, k_cache, v_cache, lengths, *,
     type.
 
     q and the caches are contiguous, of one type (float32 or bfloat16),
-    start on 16-byte boundaries, with D in `HEAD_DIMS` and at most
+    start on 16-byte boundaries, with an even D from 2 to 128 and at most
     `MAX_GROUP` query heads per kv head; lengths is int32 (B,). Anything
     else raises. Allocates the (B, Hq, n_split, D + 2) float32 workspace of
     the splits' partial states and the output with `torch.empty`, launches
@@ -185,8 +195,7 @@ def decode_attention_kernel_call(q, k_cache, v_cache, lengths, *,
     call.
     """
     B, Hq, Hkv, S, D = _shapes(q, k_cache, v_cache, lengths)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernel takes D in {HEAD_DIMS}")
+    check_head_dim(D)
     if Hq // Hkv > MAX_GROUP:
         raise ValueError(f"{Hq // Hkv} query heads per kv head: the kernel "
                          f"takes at most {MAX_GROUP}")

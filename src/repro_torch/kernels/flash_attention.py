@@ -28,6 +28,16 @@ On the card each agrees with its kernel to the last bit; a difference of
 one bf16 rounding, carried through a deep random bf16 model, would move
 some of its argmaxes. On the CPU the bf16 GEMMs are float32 products, one
 rounding from the card's.
+
+Head dims: the kernels are compiled for the tile widths `TILE_HEAD_DIMS`
+(32, 64, 128) and take any even D up to `MAX_HEAD_DIM` (the reduced
+configs' 8, 12, 16 and 20 among them) by running the next width
+(`tile_width`) on rows zero-padded in shared memory: the float32 kernel
+pads as it loads, the bf16 kernel's TMA boxes reach past the rows' ends.
+TMA needs rows of a multiple of 16 bytes, so the wrapper first zero-pads
+a bf16 D that is not a multiple of 8 (12, 20) to the next one, and keeps
+the first D columns of the result. The plain versions pad to the tile
+width: zero columns, the tile width's arithmetic, the first D columns.
 `repro_torch.kernels.ops.flash_attention` picks between kernel and plain
 version by the device of `q`.
 """
@@ -41,10 +51,12 @@ import torch.nn.functional as F
 
 from ._build import check_tensor, launch
 
-__all__ = ["HEAD_DIMS", "TILE_K", "flash_attention_kernel_call",
-           "flash_attention_plain"]
+__all__ = ["MAX_HEAD_DIM", "TILE_HEAD_DIMS", "TILE_K", "check_head_dim",
+           "flash_attention_kernel_call", "flash_attention_plain",
+           "pad_head", "tile_width"]
 
-HEAD_DIMS = (32, 64, 128)   # the head sizes the kernel is compiled for
+TILE_HEAD_DIMS = (32, 64, 128)   # the tile widths the kernels are compiled for
+MAX_HEAD_DIM = 128
 TILE_K = 64                 # keys per tile, kBK and kWgBK in the source
 _DTYPES = (torch.float32, torch.bfloat16)
 _LOG2E = 1.4426950408889634   # the kernel's float32 factor is scale * this
@@ -61,6 +73,28 @@ def _shapes(q, k, v):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)}: batch "
                          "and head size must match and Hq be a multiple of Hkv")
     return B, Hq, Hkv, Tq, Tk, D
+
+
+def tile_width(D: int) -> int | None:
+    """The tile width B6's and B7's kernels run head dim D at: D itself
+    for 32, 64 and 128, the next of those for any other even D up to 128
+    (its rows zero-padded), None where no kernel takes D (odd, or above
+    128)."""
+    if D < 2 or D > MAX_HEAD_DIM or D % 2:
+        return None
+    return next(w for w in TILE_HEAD_DIMS if w >= D)
+
+
+def check_head_dim(D: int) -> None:
+    """Raise where no kernel takes head dim D (`tile_width` is None)."""
+    if tile_width(D) is None:
+        raise ValueError(f"head dim {D}: the kernels take an even head dim "
+                         f"from 2 to {MAX_HEAD_DIM}")
+
+
+def pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x with its last axis zero-padded to `width`."""
+    return F.pad(x, (0, width - x.shape[-1]))
 
 
 def _lane_sum(p: torch.Tensor) -> torch.Tensor:
@@ -83,6 +117,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     (`_plain_bf16`), float32 inputs the scalar kernel (`_plain_f32`)."""
     B, Hq, Hkv, Tq, Tk, D = _shapes(q, k, v)
     scale = scale if scale is not None else D ** -0.5
+    width = tile_width(D) or D
+    if width != D:     # the kernel's zero-padded rows
+        out = flash_attention_plain(pad_head(q, width), pad_head(k, width),
+                                    pad_head(v, width), causal=causal,
+                                    scale=scale)
+        return out[..., :D].contiguous()
     if q.dtype == torch.bfloat16:
         return _plain_bf16(q, k, v, causal, scale)
     return _plain_f32(q, k, v, causal, scale)
@@ -187,14 +227,21 @@ def flash_attention_kernel_call(q, k, v, *, causal: bool = True,
     """Launch the B6 CUDA kernel on CUDA tensors; returns (B, Hq, Tq, D) in
     q's type.
 
-    q, k and v are contiguous, of one type (float32 or bfloat16), with head
-    size D in `HEAD_DIMS`; bfloat16 tensors start on 16-byte boundaries
-    (TMA reads them); anything else raises. Launches on the current stream
-    and does not synchronise.
+    q, k and v are contiguous, of one type (float32 or bfloat16), with an
+    even head size D from 2 to `MAX_HEAD_DIM` (`check_head_dim`); bfloat16
+    tensors start on 16-byte boundaries (TMA reads them); anything else
+    raises; a bfloat16 D that is not a multiple of 8 runs on copies
+    zero-padded to the next one. Launches on the current stream and does
+    not synchronise.
     """
     B, Hq, Hkv, Tq, Tk, D = _shapes(q, k, v)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernel takes D in {HEAD_DIMS}")
+    check_head_dim(D)
+    if q.dtype == torch.bfloat16 and D % 8:
+        width = D + 8 - D % 8
+        out = flash_attention_kernel_call(
+            pad_head(q, width), pad_head(k, width), pad_head(v, width),
+            causal=causal, scale=scale if scale is not None else D ** -0.5)
+        return out[..., :D].contiguous()
     if q.dtype not in _DTYPES:
         raise TypeError(f"dtype {q.dtype}: the kernel takes float32 or bfloat16")
     dev = q.device

@@ -781,6 +781,90 @@ def test_decode_attention_kernel_in_a_cuda_graph(cuda, dtype):  # noqa: F811
         assert torch.equal(out, decode_attention_plain(q, kc, vc, lens))
 
 
+# the reduced configs' head dims (yi-34b 8, starcoder2-7b 12, qwen3-8b 16,
+# phi3-medium-14b 20), and two padded to the wider tiles (40 -> 64, 96 ->
+# 128)
+SMALL_HEAD_DIMS = (8, 12, 16, 20, 40, 96)
+
+
+@pytest.mark.parametrize("D", SMALL_HEAD_DIMS)
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk", [(2, 7, 1, 200, 328),
+                                            (1, 4, 2, 77, 77)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_small_head_dims_bitwise(cuda, D, B, Hq, Hkv, Tq,  # noqa: F811
+                                                 Tk, causal, dtype):
+    """A head dim below the kernels' tile width runs on rows zero-padded
+    to it (the float32 kernel pads as it loads, the bf16 kernel's TMA boxes
+    reach past the rows' ends; a bf16 D of 12 or 20 is first copied to 16
+    or 24, as TMA needs 16-byte rows): bitwise the plain version, which
+    pads to the tile width, at ragged lengths and with 7 query heads a kv
+    head."""
+    R = np.random.default_rng(D * 7 + Tq)
+    q = _randn(R, (B, Hq, Tq, D), cuda, dtype)
+    k = _randn(R, (B, Hkv, Tk, D), cuda, dtype)
+    v = _randn(R, (B, Hkv, Tk, D), cuda, dtype)
+    n0 = flash_attention_kernel_call.launches
+    got = flash_attention_kernel_call(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel_call.launches == n0 + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("D", SMALL_HEAD_DIMS)
+@pytest.mark.parametrize("B,Hq,Hkv,S", [(2, 14, 2, 700), (4, 7, 1, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_small_head_dims_bitwise(cuda, D, B, Hq, Hkv, S,  # noqa: F811
+                                                  dtype):
+    """B7 at a small head dim (rows zero-padded to the tile width in
+    shared memory, loaded in 8- or 4-byte pieces where a row is not
+    16-byte aligned) bitwise its plain version, at lengths 0, 1, S and
+    either side of each split boundary, with 7 query heads a kv head."""
+    n_split, split_len = split_plan(B, Hkv, S)
+    R = np.random.default_rng(S + D)
+    q = _randn(R, (B, Hq, D), cuda, dtype)
+    kc = _randn(R, (B, S, Hkv, D), cuda, dtype)
+    vc = _randn(R, (B, S, Hkv, D), cuda, dtype)
+    edges = {0, 1, S}
+    for e in range(split_len, S, split_len):
+        edges.update((e - 1, e, e + 1))
+    edges = sorted(edges)
+    for i in range(0, len(edges), B):
+        lens = torch.tensor((edges[i:i + B] * B)[:B], dtype=torch.int32,
+                            device=cuda)
+        got = decode_attention_kernel_call(q, kc, vc, lens)
+        assert got.shape == q.shape and got.dtype == dtype
+        assert torch.equal(got, decode_attention_plain(q, kc, vc, lens)), \
+            lens.tolist()
+
+
+@pytest.mark.parametrize("D", [8, 12, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_small_head_dim_in_a_cuda_graph(cuda, D, dtype):  # noqa: F811
+    """At a padded head dim the launch still reads nothing back: replayed
+    in a captured CUDA graph after new lengths are copied in, it equals an
+    eager call and the plain version."""
+    B, Hq, Hkv, S = 4, 7, 1, 1024
+    R = np.random.default_rng(D)
+    q = _randn(R, (B, Hq, D), cuda, dtype)
+    kc = _randn(R, (B, S, Hkv, D), cuda, dtype)
+    vc = _randn(R, (B, S, Hkv, D), cuda, dtype)
+    lens = torch.from_numpy(R.integers(1, S + 1, B).astype(np.int32)).to(cuda)
+    decode_attention_kernel_call(q, kc, vc, lens)    # warm: attributes set
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_kernel_call(q, kc, vc, lens)
+    for new in (R.integers(0, S + 1, B), np.full(B, S), np.arange(B) * 97):
+        lens.copy_(torch.from_numpy(new.astype(np.int32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, decode_attention_kernel_call(q, kc, vc, lens))
+        assert torch.equal(out, decode_attention_plain(q, kc, vc, lens))
+
+
 def _scan_inputs(R, B, T, H, P, S, dev, dtype):
     x = _randn(R, (B, T, H, P), dev, dtype, 0.5)
     dt = (_randn(R, (B, T, H), dev, scale=0.1).abs() + 0.01).contiguous()
@@ -877,3 +961,28 @@ def test_flow_stats_kernel_bitwise_plain(cuda, n, P, mask_dtype):  # noqa: F811
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.all(got[0] == 0) and torch.all(empty == 0)
+
+
+@pytest.mark.parametrize("P", [127, 128, 129, 511, 512, 513, 1023, 2047, 2048,
+                               2049, 4095, 4096, 4097, 5003])
+def test_flow_stats_kernel_at_split_edges(cuda, P):  # noqa: F811
+    """B5 bitwise its plain version just below, at and above the multiples
+    of its split (parts of 128-packet steps: one part up to 512 packets,
+    two from 513, four from 1025, eight from 2049), at P not a multiple of
+    4 (the scalar loads) and on a row whose start is not 16-byte aligned
+    (a view one row in); a masked non-finite value makes the sums NaN, as
+    in the reference."""
+    R = np.random.default_rng(P)
+    v = torch.from_numpy((R.random((41, P)) * 1500).astype(np.float32)).to(cuda)
+    m = torch.from_numpy(R.random((41, P)) < 0.4).to(cuda)
+    m[0] = False
+    got = flow_stats_kernel_call(v, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, flow_stats_plain(v, m))
+    assert torch.equal(flow_stats_kernel_call(v[1:], m[1:]),
+                       flow_stats_plain(v[1:], m[1:]))
+    v[3, P // 2], m[3, P // 2] = float("inf"), False
+    got = flow_stats_kernel_call(v, m)
+    want = flow_stats_plain(v, m)
+    assert torch.isnan(got[3, 1]) and torch.isnan(want[3, 1])
+    assert torch.equal(got[:, [0, 3, 4]], want[:, [0, 3, 4]])

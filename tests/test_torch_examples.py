@@ -250,9 +250,10 @@ def test_serve_lm():
     from repro_torch.convert import lm_params_from_numpy
 
     d = drive("serve_lm")
-    jcfg = jconfigs.get_reduced("zamba2-1.2b")
+    assert d.DEFAULT_ARCH == "qwen3-8b"        # examples/serve_lm.py's
+    jcfg = jconfigs.get_reduced(d.DEFAULT_ARCH)
     jp = j_init_params(jcfg, jax.random.PRNGKey(0))
-    cfg = configs.get_reduced("zamba2-1.2b")
+    cfg = configs.get_reduced(d.DEFAULT_ARCH)
     params = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), cfg,
                                   device="cpu")
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,

@@ -19,9 +19,12 @@ from repro.kernels.feature_extract import flow_stats_kernel_call as j_kernel_cal
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.feature_extract import (
+    MAX_PARTS,
+    SPAN,
     flow_stats_kernel_call,
     flow_stats_plain,
     mask_u8,
+    split_plan,
 )
 from repro_torch.traffic.synth import make_dataset
 
@@ -95,19 +98,94 @@ def test_flow_stats_on_packet_sizes():
 
 
 def test_flow_stats_lane_order():
-    """The plain version sums each lane's packets in stride order, then the
-    lanes in the kernel's butterfly order, not the row left to right: with
-    values whose sums round differently in the two orders, it keeps the
+    """The plain version sums each lane's groups of 4 consecutive packets
+    in order, then the lanes in the kernel's butterfly order, not the row
+    left to right nor lane l over packets l, l + 32, ...: with values whose
+    sums round differently in the three orders, it keeps the groups' and
     butterfly's result."""
-    P = 32
+    P = 128
     v = np.ones((1, P), np.float32)
-    v[0, 0], v[0, 16] = 1e8, -1e8
+    v[0, 0], v[0, 64] = 1e8, -1e8      # lanes 0 and 16, first in their group
     m = np.ones((1, P), bool)
     got = flow_stats_plain(torch.from_numpy(v), torch.from_numpy(m))
-    # lanes 0 and 16 cancel first (offset 16), so all 30 ones survive; left
-    # to right, the 15 ones after 1e8 are lost
-    assert float(got[0, 1]) == 30.0
-    assert float(np.cumsum(v[0], dtype=np.float32)[-1]) == 15.0
+    # lane 0 holds 1e8 and lane 16 -1e8, each having lost its 3 ones; they
+    # cancel first in the butterfly (offset 16), and the other 30 lanes'
+    # 4 ones each survive
+    assert float(got[0, 1]) == 120.0
+    # left to right, the 63 ones after 1e8 are lost
+    assert float(np.cumsum(v[0], dtype=np.float32)[-1]) == 63.0
+    # lane l over packets l, l + 32, ... (the kernel's earlier order): lane
+    # 0 keeps 1 of its ones, every other lane its 4
+    strided = [np.cumsum(v[0, lane::32], dtype=np.float32)[-1]
+               for lane in range(32)]
+    assert float(strided[0]) == 1.0 and sum(strided[1:]) == 124.0
+
+
+def _split_order_reference(v: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """The kernel's order written out with scalar float32 steps: each part
+    of `split_plan`, each lane's groups of 4 and their packets in order
+    (packets past the row skipped), the xor butterfly, the parts in
+    order."""
+    N, P = v.shape
+    parts, part_len = split_plan(P)
+    f32 = np.float32
+    out = np.zeros((N, 5), np.float32)
+    for n in range(N):
+        per_part = []
+        for w in range(parts):
+            lanes = []
+            for lane in range(32):
+                c = s = sq = f32(0)
+                mn, mx = f32(3.4e38), f32(-3.4e38)
+                for p0 in range(w * part_len + 4 * lane,
+                                min((w + 1) * part_len, P), SPAN):
+                    for p in range(p0, min(p0 + 4, P)):
+                        x, mf = f32(v[n, p]), f32(m[n, p])
+                        c, s, sq = c + mf, s + x * mf, sq + (x * x) * mf
+                        if m[n, p]:
+                            mn, mx = min(mn, x), max(mx, x)
+                lanes.append([c, s, sq, mn, mx])
+            width = 32
+            while width > 1:
+                width //= 2
+                lanes = [[a + b for a, b in zip(lo[:3], hi[:3])]
+                         + [min(lo[3], hi[3]), max(lo[4], hi[4])]
+                         for lo, hi in zip(lanes[:width], lanes[width:])]
+            per_part.append(lanes[0])
+        acc = per_part[0]
+        for x in per_part[1:]:
+            acc = [acc[0] + x[0], acc[1] + x[1], acc[2] + x[2],
+                   min(acc[3], x[3]), max(acc[4], x[4])]
+        if acc[0] == 0:
+            acc[3] = acc[4] = f32(0)
+        out[n] = acc
+    return out
+
+
+@pytest.mark.parametrize("P", [0, 1, 17, 127, 128, 129, 511, 512, 513, 1000,
+                               4000, 4097, 5000])
+def test_flow_stats_plain_repeats_the_split_order(P):
+    """The plain version's vectorised parts, groups and merges give, bit
+    for bit, the order written out step by step, below, at and above the
+    split's multiples (scaled normals, so that the order shows in the
+    sums)."""
+    v, m = _inputs(3, P, seed=P + 7, scale=1e3)
+    got = flow_stats_plain(torch.from_numpy(v), torch.from_numpy(m)).numpy()
+    np.testing.assert_array_equal(got, _split_order_reference(v, m))
+
+
+@pytest.mark.parametrize("P,want", [
+    (0, (1, 128)), (128, (1, 128)), (512, (1, 512)), (513, (2, 384)),
+    (1000, (2, 512)), (2048, (4, 512)), (4000, (8, 512)), (4097, (8, 640)),
+    (100_000, (8, 12_544))])
+def test_split_plan(P, want):
+    """The fewest parts (at most 8) that keep a warp at 4 steps of 128
+    packets; the parts cover the row, each whole steps (the last parts may
+    lie past the row: each adds the empty statistics)."""
+    parts, part_len = split_plan(P)
+    assert (parts, part_len) == want
+    assert parts in (1, 2, 4, MAX_PARTS) and part_len % SPAN == 0
+    assert parts * part_len >= P
 
 
 def test_flow_stats_kernel_call_refuses_cpu_and_bad_inputs():

@@ -22,8 +22,11 @@ from repro_torch.kernels.decode_attention import (
     split_plan,
 )
 from repro_torch.kernels.flash_attention import (
+    TILE_HEAD_DIMS,
     flash_attention_kernel_call,
     flash_attention_plain,
+    pad_head,
+    tile_width,
 )
 from repro_torch import configs
 from repro_torch.kernels.mamba_scan import (
@@ -191,6 +194,110 @@ def test_flash_attention_row_without_keys_is_zero():
     assert np.all(got[:, :, :8] == 0)
     want = _np(jref.flash_attention_ref(jq, jk, jv, causal=True))
     np.testing.assert_allclose(got[:, :, 8:], want[:, :, 8:], atol=2e-5)
+
+
+# the reduced configs' head dims: yi-34b 8, starcoder2-7b 12, qwen3-8b 16,
+# phi3-medium-14b 20; each runs the 32-wide kernels on zero-padded rows
+SMALL_HEAD_DIMS = (8, 12, 16, 20)
+
+
+@pytest.mark.parametrize("D", SMALL_HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_small_head_dims(D, causal, dtype):
+    """B6's plain version at the reduced configs' head dims, 7 query heads
+    a kv head (yi-34b's): against the Pallas kernel in interpret mode at
+    block multiples (chunked prefill, Tq < Tk) and the jnp oracle at
+    ragged lengths, within the D 32-128 cases' tolerances."""
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    R = np.random.default_rng(D * 10 + causal)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(R, (1, h, t, D), dtype) for h, t in
+                                    ((7, 64), (1, 128), (1, 128)))
+    got = flash_attention_plain(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                block_k=64)
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(R, (2, h, t, D), dtype) for h, t in
+                                    ((7, 77), (1, 200), (1, 200)))
+    got = flash_attention_plain(tq, tk, tv, causal=causal)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol)
+
+
+@pytest.mark.parametrize("D", SMALL_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_small_head_dims(D, dtype):
+    """B7's plain version at the reduced configs' head dims: against the
+    Pallas kernel in interpret mode (G 7, the reference's padded cache
+    path), and against the jnp oracle at lengths 0, 1, S and either side
+    of each split boundary (0 where the length is 0)."""
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    R = np.random.default_rng(D + 1)
+    B, Hq, Hkv, S = 2, 14, 2, 300
+    jq, tq = _pair(R, (B, Hq, D), dtype)
+    jk, tk = _pair(R, (B, S, Hkv, D), dtype)
+    jv, tv = _pair(R, (B, S, Hkv, D), dtype)
+    lens = R.integers(1, S + 1, B).astype(np.int32)
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(lens), block_s=128)
+    got = decode_attention_plain(tq, tk, tv, torch.from_numpy(lens))
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol)
+    n_split, split_len = split_plan(1, 1, S)
+    assert n_split > 1
+    jq, tq = _pair(R, (1, 7, D), dtype)
+    jk, tk = _pair(R, (1, S, 1, D), dtype)
+    jv, tv = _pair(R, (1, S, 1, D), dtype)
+    for n in _split_lengths(S, split_len):
+        lens = np.array([n], np.int32)
+        got = _np(decode_attention_plain(tq, tk, tv, torch.from_numpy(lens)))
+        if n == 0:
+            assert np.all(got == 0)
+            continue
+        want = _np(jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens)))
+        np.testing.assert_allclose(got, want, atol=tol)
+
+
+@pytest.mark.parametrize("D", [2, 8, 12, 16, 20, 40, 96])
+def test_small_head_dims_run_the_tile_width_on_padded_rows(D):
+    """Both plain versions at a head dim below a tile width are, bit for
+    bit, their own run at the tile width on zero-padded rows, sliced: the
+    layout the kernels use."""
+    width = tile_width(D)
+    assert width == next(w for w in TILE_HEAD_DIMS if w >= D)
+    R = np.random.default_rng(D)
+    _, q = _pair(R, (1, 6, 70, D))
+    _, k = _pair(R, (1, 2, 90, D))
+    scale = D ** -0.5
+    got = flash_attention_plain(q, k, k, scale=scale)
+    want = flash_attention_plain(pad_head(q, width), pad_head(k, width),
+                                 pad_head(k, width), scale=scale)[..., :D]
+    assert torch.equal(got, want)
+    qd, kc = q[:, :, 0].contiguous(), k.transpose(1, 2).contiguous()
+    lens = torch.tensor([61], dtype=torch.int32)
+    got = decode_attention_plain(qd, kc, kc, lens)
+    want = decode_attention_plain(pad_head(qd, width), pad_head(kc, width),
+                                  pad_head(kc, width), lens,
+                                  scale=scale)[..., :D]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("D", [0, 7, 13, 130, 256])
+def test_kernel_calls_refuse_head_dims_no_kernel_takes(D):
+    """An odd head dim or one above 128 raises with the rule before any
+    device check; the plain versions still compute it."""
+    assert tile_width(D) is None
+    R = np.random.default_rng(1)
+    _, q = _pair(R, (1, 2, 5, D))
+    with pytest.raises(ValueError, match="even head dim from 2 to 128"):
+        flash_attention_kernel_call(q, q, q)
+    qd, kc = q[:, :, 0].contiguous(), q.transpose(1, 2).contiguous()
+    lens = torch.tensor([3], dtype=torch.int32)
+    with pytest.raises(ValueError, match="even head dim from 2 to 128"):
+        decode_attention_kernel_call(qd, kc, kc, lens)
+    if D:
+        assert flash_attention_plain(q, q, q).shape == q.shape
+        assert decode_attention_plain(qd, kc, kc, lens).shape == qd.shape
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,S,D,bs", [

@@ -122,6 +122,7 @@ def test_import_scan_covers_the_slice():
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + [ROOT / "tools" / "ab_kernels.py"]
                          + DRIVES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     roots = set(_imported_roots(path))
@@ -257,7 +258,9 @@ def test_lm_wrappers_refuse_what_they_cannot_take():
     def t(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype)
 
-    with pytest.raises(ValueError, match="head dim 48"):
+    with pytest.raises(ValueError, match="head dim 47"):       # odd
+        flash_attention_kernel_call(t(1, 2, 8, 47), t(1, 1, 8, 47), t(1, 1, 8, 47))
+    with pytest.raises(ValueError, match="CUDA"):   # 48 runs on 64-wide rows
         flash_attention_kernel_call(t(1, 2, 8, 48), t(1, 1, 8, 48), t(1, 1, 8, 48))
     with pytest.raises(TypeError, match="float16"):
         flash_attention_kernel_call(*(t(1, 2, 8, 64, dtype=torch.float16),) * 3)
@@ -270,7 +273,10 @@ def test_lm_wrappers_refuse_what_they_cannot_take():
     with pytest.raises(ValueError, match="at most 16"):
         decode_attention_kernel_call(t(1, 32, 64), t(1, 8, 1, 64), t(1, 8, 1, 64),
                                      lens)
-    with pytest.raises(ValueError, match="head dim 96"):
+    with pytest.raises(ValueError, match="head dim 130"):      # above 128
+        decode_attention_kernel_call(t(1, 2, 130), t(1, 8, 1, 130),
+                                     t(1, 8, 1, 130), lens)
+    with pytest.raises(ValueError, match="CUDA"):   # 96 runs on 128-wide rows
         decode_attention_kernel_call(t(1, 2, 96), t(1, 8, 1, 96), t(1, 8, 1, 96),
                                      lens)
     with pytest.raises(ValueError, match="CUDA"):
@@ -299,6 +305,26 @@ def test_wrapper_limits_are_the_sources(py_name, source, c_name):
     from repro_torch.kernels import fused_pipeline, tree_infer
 
     mod = tree_infer if py_name == "MAX_CLASSES" else fused_pipeline
+    text = (PKG / "csrc" / source).read_text()
+    m = re.search(rf"constexpr int {c_name} = (\d+);", text)
+    assert m is not None and int(m.group(1)) == getattr(mod, py_name)
+
+
+@pytest.mark.parametrize("module,py_name,source,c_name", [
+    ("feature_extract", "GROUP", "flow_stats.cu", "kGroup"),
+    ("feature_extract", "MAX_STEPS", "flow_stats.cu", "kRound"),
+    ("feature_extract", "MAX_PARTS", "flow_stats.cu", "kWarps"),
+    ("decode_attention", "VEC", "decode_attention.cu", "kVec"),
+    ("decode_attention", "WARPS", "decode_attention.cu", "kWarps"),
+    ("decode_attention", "SPLIT_TILE", "decode_attention.cu", "kTile"),
+    ("flash_attention", "TILE_K", "flash_attention.cu", "kBK")])
+def test_plain_layouts_are_the_sources(module, py_name, source, c_name):
+    """The plain versions repeat their kernels' layouts (B5's split, B7's
+    lanes, warps and tiles, B6's key tile): the constants they use are the
+    ones the CUDA sources were built with."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
     text = (PKG / "csrc" / source).read_text()
     m = re.search(rf"constexpr int {c_name} = (\d+);", text)
     assert m is not None and int(m.group(1)) == getattr(mod, py_name)
