@@ -59,12 +59,17 @@ Phases, each printing one JSON line:
    wide tiles: at the reduced qwen3-8b's heads and head dim 16 in float32
    (B6 4 / 2 heads at T 2048, B7 (8, 4 / 2, S 4096)), and at head dims 8,
    12, 16 and 20 in float32 and bf16 with 7 query heads a kv head at
-   ragged lengths. Each is bitwise its plain version (torch.equal; B7's
+   ragged lengths; then whisper-small's shapes (12 and 12 heads of 64,
+   bf16): B6 non-causal at its encoder's 2 x 1024 and at 448 decoder
+   positions against 1500 frames of memory (Tq != Tk), B7 at its served
+   cross-attention decode (every length mem_len = 168) and at mem_len
+   1500. Each is bitwise its plain version (torch.equal; B7's
    with its split count, B8's y and final state with its block count and
    scratch bytes);
    then each one's time at the main-path shapes (B6 and B7 at qwen3-8b's
-   shape, at zamba2-1.2b's (B7's served cache) and at the reduced
-   qwen3-8b's heads) beside its plain version, one PyTorch call computing
+   shape, at zamba2-1.2b's (B7's served cache), at the reduced
+   qwen3-8b's heads and at whisper-small's encoder and cross attention
+   (B6) and served cross-attention decode (B7)) beside its plain version, one PyTorch call computing
    the same function (scaled_dot_product_attention for B6 and B7; the
    port never calls it) and its bound, and B6's achieved TFLOP/s; B6's,
    B7's and B8's times also with the launch queued behind a spin of the
@@ -134,7 +139,7 @@ Phases, each printing one JSON line:
 9. control: the JAX package's control-plane skew gate at full size
    (benchmarks/bench_runtime.py `--scenario zipf --shards 4`: the zipf
    app-class trace of 1000 flows of up to 256 packets) with
-   examples/serve_control.py's acts, on a 4-shard fleet of fused pipelines
+   examples_torch/serve_control.py's acts (its step functions), on a 4-shard fleet of fused pipelines
    (B2) under service constants measured on the card: the zero-loss rate
    by 8 bisection steps of the static fleet and of one under the control
    plane (`ControlConfig(interval_pkts=512, imbalance_trigger=1.04)`),
@@ -150,40 +155,52 @@ Phases, each printing one JSON line:
    `compile_multi_tenant` (B4) and hot-swapped by `make_swap` onto the
    bundle with the lanes in the other order (0 drops, every flow answered
    once for both tenants). B2's and B4's launch counters are set to 0
-   before the first search and read after the last replay.
-10. selftune: examples/selftune_fleet.py at the size of the JAX package's
-   self-tune gate (the drift app-class trace of 600 flows of up to 32
+   before the first search and read after the last replay. Then the drive
+   itself, `serve_control.py --device cuda` at its reference's size (120
+   flows, fixed constants), passing its own checks (a `drive` line; B2
+   counted).
+10. selftune: examples_torch/selftune_fleet.py with `--device cuda`, at
+   the size of the JAX package's self-tune gate (the drift app-class trace of 600 flows of up to 32
    packets, 2 shards, the example's clock constants): a fleet frozen on a
    stale knee against one whose `ReoptimizerPolicy` re-tunes with
    `cato_retuner` (modeled fidelity, budget 4) on a shadow profiler on the
    card, compiles the new front there and hot-swaps its knee: exactly one
    episode, 0 drops, every flow predicted once, and the post-drift
-   macro-F1 above the frozen fleet's.
+   macro-F1 above the frozen fleet's (the drive's own checks).
 11. lm_serve: LM serving through `make_prefill` and `make_serve_step` for
-   qwen3-8b and zamba2-1.2b at full width in bf16, weights drawn on the
-   card from seed 0: a prefill of B 2 x T 2048, held against the same
+   a model of every family at full width in bf16 (qwen3-8b, zamba2-1.2b,
+   qwen2-moe-a2.7b, internvl2-26b: 1024 patches then 1024 tokens,
+   whisper-small: 1024 frames and 1024 tokens, xlstm-350m), weights drawn
+   on the card from seed 0: a prefill of B 2 x T 2048, held against the same
    prefill with B6-B8's plain versions swapped in (argmax equal on >= 99%
    of positions, logit gaps bounded); a served batch of 8 (127 prompt
    tokens teacher-forced, 32 greedy), with the launch counters set to 0
    just before the prefills and read just after the served batch; then 4
    decode steps held against the plain path step by step from the same
    cache (bitwise: every logit and argmax equal), a torch.profiler breakdown of a prefill and
-   4 decode steps; then the float32 truth: the bf16 weights upcast in
-   place and the same tokens prefilled on the plain path, against which
+   4 decode steps (xlstm-350m's prefill traced at 256 tokens, and one
+   sLSTM layer timed and traced alone at 2048; qwen2-moe-a2.7b's MoE
+   steps in ranges, and each timed alone); then the float32 truth: the
+   same batch prefilled on the plain path in float32, the layers upcast
+   one at a time as the loop reaches them, against which
    the kernel path's argmax share must be at least the plain path's less
    0.01 and its mean logit gap at most 1.1 times the plain path's; and a
    float32 copy at 4 layers whose decode reproduces
-   its prefill (atol = rtol = 2e-3) and whose decode on the plain path
-   reproduces the kernel path's (atol = rtol = 1e-4, argmax equal).
-12. lm_reduced: every reduced config the port serves with attention
-   (qwen3-8b, starcoder2-7b, phi3-medium-14b, yi-34b: head dims 16, 12,
-   20, 8; zamba2-1.2b: 32), in float32 and in bf16, weights from seed 0 on
-   the card: a prefill of 2 x 40 tokens through B6, then the prompt
+   its prefill (atol = rtol = 2e-3; MoE at a capacity that drops nothing,
+   the VLM without patches, whisper with zero frames) and whose decode on
+   the plain path reproduces the kernel path's (atol = rtol = 1e-4,
+   argmax equal).
+12. lm_reduced: every reduced config (qwen3-8b, starcoder2-7b,
+   phi3-medium-14b, yi-34b: head dims 16, 12, 20, 8; zamba2-1.2b: 32;
+   qwen2-moe-a2.7b, kimi-k2-1t-a32b, internvl2-26b, whisper-small: 16;
+   xlstm-350m), in float32 and in bf16, weights from seed 0 on
+   the card: a prefill of 2 x 40 tokens (internvl2's 16 patches first,
+   whisper's 48 frames) through B6, then the prompt
    teacher-forced and 8 greedy tokens through B7 (and B8 for zamba2), the
    launch counters set to 0 just before and read just after; the prefill
    logits, every decode step's logits and the tokens bitwise the same run
    under the plain versions (checked), and each config's B6 and B7
-   launches above 0.
+   launches above 0 (xlstm-350m runs none).
 
 Probabilities of pipelines whose feature columns agree only to float32
 rounding are compared by the straddle rule
@@ -274,12 +291,8 @@ B5_OPS_PER_ELEMENT = 8    # count add, v*m and add, v*v, *m and add, min, max
 # the control phase: the JAX package's control-plane skew gate at full size
 # (benchmarks/bench_runtime.py:88-92 with benchmarks/fig5_serving_perf.py:143)
 # and examples/serve_control.py's two configurations
+# (the configurations are serve_control.py's: examples_torch/serve_control.py)
 CTRL_FLOWS, CTRL_PKTS, CTRL_BISECT = 1000, 256, 8
-CTRL_REP_A = (("dur", "s_load", "s_bytes_mean", "s_iat_mean", "ack_cnt"), 8)
-CTRL_REP_B = (("dur", "s_load", "s_pkt_cnt", "d_bytes_med", "psh_cnt"), 12)
-# the selftune phase: examples/selftune_fleet.py at the size of
-# benchmarks/bench_runtime.py's self-tune gate, under the example's clock
-ST_FLOWS, ST_PKTS, ST_PPS = 600, 32, 2e5
 # windows above B2's and B4's shared-memory chunk (128 packets), on the
 # stream phase's trace; B4's two tenants (the registry at both depths)
 LW_DEPTHS, LW_TENANT_DEPTHS = (129, 256, 4000), (100, 4000)
@@ -293,8 +306,19 @@ LW_PROFILE_POOL = ("dur", "s_load", "ack_cnt", "s_bytes_mean", "s_bytes_med",
 WM_DEPTHS = (5, 10, 15, 20)
 
 
-# the lm_serve phase: both LM families the port serves, at full width
-LM_ARCHS = ("qwen3-8b", "zamba2-1.2b")
+# the lm_serve phase: a model of every LM family at full width (kimi-k2's
+# 1.04e12 parameters fit neither one card nor four: it serves reduced only)
+LM_ARCHS = ("qwen3-8b", "zamba2-1.2b", "qwen2-moe-a2.7b", "internvl2-26b",
+            "whisper-small", "xlstm-350m")
+# the stub embeddings (patches, frames) are normal draws at the token
+# embeddings' scale; whisper's batch is half frames, half tokens, as the
+# reference's input_specs builds it (Te = Td = T / 2); internvl2's the
+# config's 1024 patches, then T - 1024 tokens
+LM_EMBED_SCALE = 0.02
+# xLSTM's sLSTM runs a Python loop over T (a few launches a token): its
+# traced prefill is of LM_SSM_PROFILE_T tokens, and one sLSTM layer is
+# timed and traced alone at the full T
+LM_SSM_PROFILE_T = 256
 LM_PREFILL_B, LM_PREFILL_T, LM_PREFILL_REPS = 2, 2048, 3
 LM_SERVE_B, LM_PROMPT, LM_GEN = 8, 128, 32
 LM_DECODE_CHECK = 4            # decode steps held against the plain path
@@ -344,6 +368,22 @@ LM_B7_CASES = (
     ("zamba2-1.2b", (LM_SERVE_B, 32, 32, LM_CACHE_LEN, 64), torch.bfloat16,
      LM_PROMPT + LM_GEN - 1),
     ("ragged", (4, 32, 8, 300, 128), torch.float32, None))
+# whisper-small's shapes (12 and 12 heads of 64), drawn after all the
+# others so that their inputs stay as they were: B6 non-causal at the
+# encoder's (and the served cross attention's) Te = Td = 1024, at a
+# decoder's 448 positions against 30 s of memory (1500 frames: Tq != Tk);
+# B7 at the served batch's cross-attention decode (every length mem_len,
+# the cache's 168 positions) and at the reference's cap of 1500
+LM_WHISPER_B6_CASES = (
+    ("whisper-small-encoder", (2, 12, 12, 1024, 1024, 64), torch.bfloat16,
+     (False,)),
+    ("whisper-small-cross", (2, 12, 12, 448, 1500, 64), torch.bfloat16,
+     (False,)))
+LM_WHISPER_B7_CASES = (
+    ("whisper-small-cross", (LM_SERVE_B, 12, 12, LM_CACHE_LEN, 64),
+     torch.bfloat16, LM_CACHE_LEN),
+    ("whisper-small-memory", (LM_SERVE_B, 12, 12, 1500, 64), torch.bfloat16,
+     1500))
 LM_SMALL_DIMS = (8, 12, 16, 20)
 LM_SMALL_B6_CASES = (
     ("qwen3-8b-reduced", (2, 4, 2, 2048, 2048, 16), torch.float32, (True,)),
@@ -354,13 +394,18 @@ LM_SMALL_B7_CASES = (
     *((f"d{D}_{str(dt)[6:]}", (4, 7, 1, 300, D), dt, None)
       for D in LM_SMALL_DIMS for dt in (torch.float32, torch.bfloat16)))
 LM_TIMED = ("qwen3-8b", "zamba2-1.2b", "qwen3-8b-reduced")
-# the lm_reduced phase: every reduced config the port serves with
-# attention (the dense family and the hybrid), in its own float32 and in
-# bf16: a prefill of B x T through B6, then the prompt teacher-forced and
-# LM_REDUCED_GEN greedy tokens decoded through B7
+LM_TIMED_B6 = LM_TIMED + ("whisper-small-encoder", "whisper-small-cross")
+LM_TIMED_B7 = LM_TIMED + ("whisper-small-cross",)
+# the lm_reduced phase: every reduced config, in its own float32 and in
+# bf16: a prefill of B x T through B6 (whisper's frames T + 8 long, so its
+# cross attention has Tq != Tk; internvl2's patches its config's 16), then
+# the prompt teacher-forced and LM_REDUCED_GEN greedy tokens decoded
+# through B7 (xlstm-350m runs no kernel: the plain path twice)
 LM_REDUCED_ARCHS = ("qwen3-8b", "starcoder2-7b", "phi3-medium-14b", "yi-34b",
-                    "zamba2-1.2b")
+                    "zamba2-1.2b", "qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
+                    "internvl2-26b", "whisper-small", "xlstm-350m")
 LM_REDUCED_B, LM_REDUCED_T, LM_REDUCED_GEN = 2, 40, 8
+LM_REDUCED_FRAMES_EXTRA = 8
 LM_B8_CASES = (("zamba2-1.2b", (2, 2048, 64, 64, 64), torch.bfloat16),
                ("ragged", (2, 1000, 8, 64, 16), torch.float32))
 
@@ -484,6 +529,7 @@ def device_profile(fn, n: int) -> dict:
     busy_ms = sum(r[2] for r in rows)
     return dict(calls=n, window_ms=window_ms, device_busy_ms=busy_ms,
                 busy_share=busy_ms / window_ms if busy_ms > 0 else None,
+                kernels=sum(r[1] for r in rows),
                 top=[dict(name=k, count=c, ms=ms) for k, c, ms in rows[:5]])
 
 
@@ -1302,55 +1348,60 @@ def b5_check(cases: dict, dev, flush) -> dict:
                 max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
+def load_drive(name: str):
+    """`examples_torch/<name>.py` of this checkout as a module: the phases
+    run the drives' own step functions."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_drive(name: str) -> dict:
+    """The drive's main with ``--device cuda``, its printout sent to
+    stderr; it raises if one of its own checks fails."""
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        res = load_drive(name).main(["--device", "cuda"])
+    return dict(res, seconds=time.perf_counter() - t0)
+
+
 def control_phase(counters) -> dict:
     """The JAX package's control-plane skew gate at full size on the card
-    (see phase 9): static against dynamic RETA, a hot-swap through the
-    deploy layer, elastic sizing, and an observability bundle."""
-    from repro_torch.core.search_space import FeatureRep
+    (see phase 9), through `examples_torch/serve_control.py`'s acts: static
+    against dynamic RETA, a hot-swap through the deploy layer, elastic
+    sizing, an observability bundle; then a multi-tenant swap."""
     from repro_torch.serve import (
         BundlePoint,
         ControlConfig,
         DriftMonitor,
-        HeadroomPolicy,
         LatencyConfig,
         MetricsExporter,
         Observability,
-        PacketStream,
         ServeSession,
         ServiceModel,
-        ShardedRuntime,
         SLOConfig,
         SLOTracker,
         Tracer,
         check_prometheus,
         compile_multi_tenant,
-        find_zero_loss_rate,
         make_swap,
         replay,
     )
     from repro_torch.serve.deploy import _forest_to_doc
-    from repro_torch.traffic.extraction import extract_features
-    from repro_torch.traffic.models import train_traffic_model
-    from repro_torch.traffic.pipeline import build_pipeline
-    from repro_torch.traffic.synth import make_scenario_dataset
 
+    ctl = load_drive("serve_control")
     t0 = time.perf_counter()
-    ds = make_scenario_dataset("app-class", "zipf", n_flows=CTRL_FLOWS,
-                               max_pkts=CTRL_PKTS, seed=3)
-    stream = PacketStream.from_dataset(ds, seed=0)
+    ds, stream, reps, forests, pipe_a = ctl.deployment(
+        "cuda", n_flows=CTRL_FLOWS, max_pkts=CTRL_PKTS)
     ring = max(64, stream.n_events // 16)
-    reps, forests = {}, {}
-    for tag, (names, depth) in (("a", CTRL_REP_A), ("b", CTRL_REP_B)):
-        reps[tag] = FeatureRep(names, depth)
-        x = extract_features(ds, reps[tag].features, depth, device="cpu")
-        forests[tag] = train_traffic_model(x, ds.label, model="tree-fast",
-                                           seed=0)[0]
-    pipe_a = build_pipeline(reps["a"], forests["a"], max_pkts=reps["a"].depth,
-                            fused=True)
 
     def fleet(execute=False, shards=4, capacity=2048, pipe=pipe_a):
-        return ShardedRuntime(pipe, n_shards=shards, capacity=capacity,
-                              max_batch=64, execute=execute)
+        return ctl.fleet_of(pipe, shards, capacity)(execute)
 
     svc_a = ServiceModel.measure(fleet(True), stream, n_pkt_sample=16000,
                                  reps=5)
@@ -1358,19 +1409,16 @@ def control_phase(counters) -> dict:
 
     # 1. static against dynamic RETA; 4. the bundle rides the dynamic
     # search's final replay
-    cfg = ControlConfig(interval_pkts=512, imbalance_trigger=1.04)
     ta = time.perf_counter()
-    r_st, s_st = find_zero_loss_rate(stream, fleet, svc_a, iters=CTRL_BISECT,
-                                     ring_capacity=ring)
     obs = Observability(
         tracer=Tracer(capacity=1 << 16, sample=0.25, seed=0),
         drift=DriftMonitor(), latency=LatencyConfig(),
         slo=SLOTracker(SLOConfig(target_s=2e-3, objective=0.99,
                                  window_s=5e-3, slow_windows=4)),
         exporter=MetricsExporter())
-    r_dy, s_dy = find_zero_loss_rate(stream, fleet, svc_a, iters=CTRL_BISECT,
-                                     ring_capacity=ring,
-                                     session=ServeSession(control=cfg, obs=obs))
+    r_st, s_st, r_dy, s_dy = ctl.rebalance(stream, fleet, svc_a,
+                                           iters=CTRL_BISECT, ring=ring,
+                                           obs=obs)
     rebalance = dict(
         static=dict(zero_loss_pps=r_st, zero_loss_gbps=s_st.offered_gbps,
                     drops=s_st.drops, load_imbalance=s_st.load_imbalance,
@@ -1422,20 +1470,10 @@ def control_phase(counters) -> dict:
     swap = make_swap(point_b, after_pkts=stream.n_events // 2, runtime=fleet(),
                      service=svc_b)
     rate = min(stream.base_pps, 0.5 * r_dy)
-    swapped = replay(stream, lambda: fleet(True), rate, svc_a,
-                     ring_capacity=ring, session=ServeSession(
-                         control=ControlConfig(interval_pkts=512,
-                                               imbalance_trigger=1.04,
-                                               swap=swap)))
+    swapped, post, agree = ctl.hot_swap(
+        ds, stream, fleet, swap, svc_a, rate,
+        lambda: fleet(True, pipe=pipe_b), ring=ring)
     m = swapped.metrics
-    only_b = replay(stream, lambda: fleet(True, pipe=pipe_b), rate, svc_b,
-                    ring_capacity=ring)
-    first_pkt = np.full(ds.n_flows, stream.n_events)
-    np.minimum.at(first_pkt, stream.fid, np.arange(stream.n_events))
-    post = [f for f in np.flatnonzero(first_pkt >= stream.n_events // 2)
-            if f in only_b.predictions]
-    agree = sum(int(swapped.predictions[f] == only_b.predictions[f])
-                for f in post)
     hot_swap = dict(offered_pps=rate, drops=swapped.drops,
                     flows_predicted=len(swapped.predictions),
                     flows=ds.n_flows,
@@ -1455,12 +1493,9 @@ def control_phase(counters) -> dict:
 
     # 3. elastic scale-out and scale-in around the static fleet's rate
     ta = time.perf_counter()
-    elastic = ControlConfig(interval_pkts=512,
-                            headroom=HeadroomPolicy(max_workers=8))
     rates = {"high": 2.0 * r_st, "low": r_st / 40}
-    runs = {k: replay(stream, lambda: fleet(shards=2, capacity=4096), r,
-                      svc_a, session=ServeSession(control=elastic))
-            for k, r in rates.items()}
+    runs = ctl.elastic(stream, lambda: fleet(shards=2, capacity=4096), svc_a,
+                       rates)
     scaling = {k: dict(offered_pps=rates[k], drops=st.drops,
                        active_workers=st.control["active_workers"],
                        workers_added=st.control["workers_added"],
@@ -1521,131 +1556,34 @@ def control_phase(counters) -> dict:
                                    bucket_ns=svc_b.bucket_ns)),
                launches=launches, seconds=time.perf_counter() - t0)
     emit("control_summary", **out)
+
+    # the drive itself at its reference's size, with its own checks
+    reset_launches(*counters.values())
+    drive = run_drive("serve_control")
+    torch.cuda.synchronize()
+    drive["launches"] = {k: fn.launches for k, fn in counters.items()}
+    emit("drive", name="serve_control", **drive)
+    check(drive["launches"]["fused_forest_infer"] > 0,
+          f"serve_control.py did not launch B2: {drive['launches']}")
     return dict(rebalance=rebalance, hot_swap=hot_swap, elastic=scaling,
                 multi_tenant_swap=multi_tenant, observability=observability,
-                **out)
-
-
-def union_macro_f1(y_true, y_pred) -> float:
-    """Macro-F1 over the classes either side names, as
-    examples/selftune_fleet.py scores its post-drift segment."""
-    f1s = []
-    for c in np.union1d(np.unique(y_true), np.unique(y_pred)):
-        tp = float(np.sum((y_pred == c) & (y_true == c)))
-        fp = float(np.sum((y_pred == c) & (y_true != c)))
-        fn = float(np.sum((y_pred != c) & (y_true == c)))
-        if tp + fp + fn:
-            f1s.append(2 * tp / max(2 * tp + fp + fn, 1e-9))
-    return float(np.mean(f1s)) if f1s else 0.0
+                drive=drive, **out)
 
 
 def selftune_phase(counters) -> dict:
-    """`examples/selftune_fleet.py` on the card (see phase 10): a frozen
-    stale knee against a fleet that re-tunes itself when the class mix
-    drifts and hot-swaps the new knee, compiled on the card."""
-    from repro_torch.core.search_space import FeatureRep, SearchSpace
-    from repro_torch.serve import (
-        BundlePoint,
-        ControlConfig,
-        DriftMonitor,
-        Observability,
-        PacketStream,
-        ReoptimizerConfig,
-        ReoptimizerPolicy,
-        ServeSession,
-        ServiceModel,
-        ShardedRuntime,
-        cato_retuner,
-        replay,
-    )
-    from repro_torch.serve.deploy import _forest_to_doc
-    from repro_torch.traffic import TrafficProfiler
-    from repro_torch.traffic.extraction import extract_features
-    from repro_torch.traffic.features import FEATURE_NAMES
-    from repro_torch.traffic.models import train_traffic_model
-    from repro_torch.traffic.pipeline import build_pipeline
-    from repro_torch.traffic.synth import make_scenario_dataset
-
-    t0 = time.perf_counter()
-    ds = make_scenario_dataset("app-class", "drift", n_flows=ST_FLOWS,
-                               max_pkts=ST_PKTS, seed=3)
-    stream = PacketStream.from_dataset(ds, seed=0)
-    first_pkt = np.full(ds.n_flows, stream.n_events)
-    np.minimum.at(first_pkt, stream.fid, np.arange(stream.n_events))
-    # the stale knee: trained on the flows that start in the first 40%
-    rep = FeatureRep(CTRL_REP_A[0], depth=CTRL_REP_A[1])
-    pre = np.flatnonzero(first_pkt < 0.4 * stream.n_events)
-    x = extract_features(ds, rep.features, rep.depth, device="cpu")
-    forest, _ = train_traffic_model(x[pre], ds.label[pre], model="tree-fast",
-                                    seed=0)
-    stale_pipe = build_pipeline(rep, forest, max_pkts=rep.depth, fused=True)
-    stale = BundlePoint(rep=rep, cost=1.0, perf=0.0, fidelity="measured",
-                        aux={}, compile_meta={"fused": True},
-                        forest_doc=_forest_to_doc(forest), pipeline=stale_pipe)
-    service = ServiceModel(**MT_SERVICE)
-
-    def fleet():
-        return ShardedRuntime(stale_pipe, n_shards=2, capacity=2048,
-                              max_batch=16, execute=True)
-
-    def control():
-        return ControlConfig(interval_pkts=256, rebalance=False)
-
+    """`examples_torch/selftune_fleet.py` on the card (see phase 10), with
+    ``--device cuda``: a frozen stale knee against a fleet that re-tunes
+    itself when the class mix drifts and hot-swaps the new knee, compiled
+    on the card; the drive's own checks, then this phase's."""
     reset_launches(*counters.values())
-    frozen = replay(stream, fleet, ST_PPS, service,
-                    session=ServeSession(control=control()))
-    devices = []
-
-    def make_profiler(trigger):
-        devices.append(trigger["device"])
-        return TrafficProfiler(ds, FEATURE_NAMES, model="tree-fast",
-                               cost_mode="modeled", scenario="drift",
-                               n_shards=2, bisect_iters=4, seed=0,
-                               device=trigger["device"])
-
-    space = SearchSpace(FEATURE_NAMES, max_depth=min(24, ds.max_pkts))
-    retune = cato_retuner(make_profiler, space, fidelities=("modeled",),
-                          measure_budget=4, batch_size=4, n_init=3, seed=0,
-                          baseline=stale)
-    session = ServeSession(
-        obs=Observability(drift=DriftMonitor()), control=control(),
-        reopt=ReoptimizerPolicy(retune, ReoptimizerConfig(
-            class_threshold=0.35, min_dwell_pkts=256, cooldown_pkts=1 << 20,
-            max_episodes=1)))
-    tuned = replay(stream, fleet, ST_PPS, service, session=session)
+    out = run_drive("selftune_fleet")
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    episodes = session.resolve_audit().of_kind("reopt")
-    post = np.flatnonzero(first_pkt >= (2 / 3) * stream.n_events)
-    f1 = {arm: union_macro_f1(ds.label[post],
-                        np.array([st.predictions[f] for f in post]))
-          for arm, st in (("frozen", frozen), ("tuned", tuned))}
-    ep = episodes[0].detail if episodes else {}
-    out = dict(
-        flows=ds.n_flows, max_pkts=ds.max_pkts, events=stream.n_events,
-        offered_pps=ST_PPS, shards=2, episodes=len(episodes),
-        episode_at_pkts=ep.get("pkts_ingested"),
-        episode_now_pkts=episodes[0].now_pkts if episodes else None,
-        swap_at_pkts=tuned.control.get("swap_at_pkts"),
-        new_knee=ep.get("new_knee"), budget=ep.get("budget"),
-        retune_wall_s=ep.get("retune_wall_s"), retune_devices=devices,
-        drops={"frozen": frozen.drops, "tuned": tuned.drops},
-        flows_predicted={"frozen": len(frozen.predictions),
-                         "tuned": len(tuned.predictions)},
-        duplicate_predictions=tuned.metrics.duplicate_predictions,
-        post_drift_flows=len(post), macro_f1=f1, launches=launches,
-        seconds=time.perf_counter() - t0)
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
     emit("selftune", **out)
-    check(len(episodes) == 1, f"{len(episodes)} re-tune episodes")
-    check(devices == ["cuda"], f"the re-tune ran on {devices}")
-    check(frozen.drops == 0 and tuned.drops == 0, f"drops {out['drops']}")
-    check(len(tuned.predictions) == ds.n_flows
-          and tuned.metrics.duplicate_predictions == 0,
-          f"tuned fleet predicted {len(tuned.predictions)} flows, "
-          f"{tuned.metrics.duplicate_predictions} twice")
-    check(f1["tuned"] > f1["frozen"], f"macro-F1 {f1}")
-    check(launches["fused_forest_infer"] > 0,
-          f"the selftune phase did not launch B2: {launches}")
+    check(out["retune_devices"] == ["cuda"],
+          f"the re-tune ran on {out['retune_devices']}")
+    check(out["launches"]["fused_forest_infer"] > 0,
+          f"the selftune phase did not launch B2: {out['launches']}")
     return out
 
 
@@ -1706,13 +1644,13 @@ def lm_kernel_phase(dev, flush) -> dict:
     # B6: (B, Hq, Hkv, Tq, Tk, D); its plain version repeats each
     # instantiation's arithmetic (a small D on rows zero-padded to the
     # kernel's tile width), so the two agree to the last bit
-    fa_inputs, da_inputs, cases = {}, {}, []
+    fa_inputs, fa_causal, da_inputs, cases = {}, {}, {}, []
 
     def check_b6(case_list):
         for name, (B, Hq, Hkv, Tq, Tk, D), dtype, causals in case_list:
             q = randn((B, Hq, Tq, D), dtype)
             k, v = randn((B, Hkv, Tk, D), dtype), randn((B, Hkv, Tk, D), dtype)
-            fa_inputs[name] = (q, k, v)
+            fa_inputs[name], fa_causal[name] = (q, k, v), causals[0]
             for causal in causals:
                 got = flash_attention_kernel_call(q, k, v, causal=causal)
                 want = flash_attention_plain(q, k, v, causal=causal)
@@ -1774,38 +1712,47 @@ def lm_kernel_phase(dev, flush) -> dict:
     # the small head dims, on rows zero-padded to the kernels' tile width
     check_b6(LM_SMALL_B6_CASES)
     check_b7(LM_SMALL_B7_CASES)
+    # whisper-small's: non-causal, Tq != Tk, and decode at mem_len
+    check_b6(LM_WHISPER_B6_CASES)
+    check_b7(LM_WHISPER_B7_CASES)
     torch.cuda.synchronize()
     for c in cases:
         emit("lm_kernel_check", **c)
 
     # times at the main-path shapes, with bounds from these inputs
     timing = {}
-    for name in LM_TIMED:
+    for name in LM_TIMED_B6:
         q, k, v = fa_inputs[name]
-        B, Hq, T, D = q.shape
-        pairs = T * (T + 1) // 2              # causal, Tq = Tk
+        causal = fa_causal[name]
+        B, Hq, Tq, D = q.shape
+        Tk = k.shape[2]
+        # the (query, key) pairs attended: causal cases here have Tq = Tk
+        pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
 
         def kernel():
-            return flash_attention_kernel_call(q, k, v)
+            return flash_attention_kernel_call(q, k, v, causal=causal)
 
         t = dict(
             ms=time_ms(kernel, KERNEL_REPS, flush),
             device_ms=time_ms(kernel, KERNEL_REPS, flush, queued=True),
-            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v),
+            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v,
+                                                           causal=causal),
                              PLAIN_REPS, flush),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), KERNEL_REPS, flush),
+                q, k, v, is_causal=causal, enable_gqa=True), KERNEL_REPS,
+                flush),
             bytes=q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
-            ops=4 * D * pairs * B * Hq, shape=list(q.shape) + [k.shape[1]],
-            dtype=str(q.dtype))
+            ops=4 * D * pairs * B * Hq, shape=list(q.shape) + [Tk],
+            causal=causal, dtype=str(q.dtype))
         t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
                                              ops_rate(q.dtype))
         t["tflops"] = t["ops"] / (t["ms"] * 1e-3) / 1e12
         t["library_tflops"] = t["ops"] / (t["library_ms"] * 1e-3) / 1e12
         timing[f"flash_attention/{name}"] = t
-    # B7 at qwen3-8b's timed shape, at zamba2-1.2b's served cache and at
-    # the reduced qwen3-8b's heads and head dim
-    for name in LM_TIMED:
+    # B7 at qwen3-8b's timed shape, at zamba2-1.2b's served cache, at the
+    # reduced qwen3-8b's heads and head dim and at whisper-small's served
+    # cross-attention decode
+    for name in LM_TIMED_B7:
         q, kc, vc, lens = da_inputs[name]
         B, Hq, D = q.shape
         S, Hkv = kc.shape[1], kc.shape[2]
@@ -1867,8 +1814,187 @@ def lm_kernel_phase(dev, flush) -> dict:
     return dict(cases=cases, timing=timing)
 
 
-def lm_serve_phase(dev) -> dict:
-    """The LM serving path of both models at full width (see phase 11)."""
+def lm_batch(cfg, B: int, n_tokens: int, gen, dev, n_embed: int = 0,
+             zeros: bool = False) -> dict:
+    """A prefill batch on the card: tokens (B, n_tokens) drawn from `gen`,
+    then the family's stub embeddings, (B, n_embed, d) in the config's
+    type: internvl2's patches, whisper's frames, normal draws at
+    LM_EMBED_SCALE (or zeros)."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, n_tokens),
+                                     generator=gen, device=dev)}
+    key = {"vlm": "patches", "audio": "frames"}.get(cfg.family)
+    if key is not None:
+        shape = (B, n_embed, cfg.d_model)
+        emb = (torch.zeros(shape, device=dev) if zeros else
+               torch.randn(shape, generator=gen, device=dev) * LM_EMBED_SCALE)
+        batch[key] = emb.to(getattr(torch, cfg.dtype))
+    return batch
+
+
+def lm_full_batch(cfg, gen, dev) -> tuple[dict, int]:
+    """lm_serve's prefill batch of LM_PREFILL_B x LM_PREFILL_T positions
+    and the length of its logits: the vlm family's T counts its patches
+    first, the audio family's is half frames, half tokens."""
+    B, T = LM_PREFILL_B, LM_PREFILL_T
+    if cfg.family == "vlm":
+        return lm_batch(cfg, B, T - cfg.num_patches, gen, dev,
+                        cfg.num_patches), T
+    if cfg.family == "audio":
+        return lm_batch(cfg, B, T // 2, gen, dev, T // 2), T // 2
+    return lm_batch(cfg, B, T, gen, dev), T
+
+
+class Float32Layers(torch.nn.ModuleList):
+    """A model's layer list whose iteration hands out each layer with its
+    parameters in float32, put back after: a forward through it computes
+    in float32 while the card holds a single float32 layer."""
+
+    def __iter__(self):
+        for layer in super().__iter__():
+            saved = [(p, p.data) for p in layer.parameters()]
+            for p, data in saved:
+                p.data = data.float()
+            try:
+                yield layer
+            finally:
+                for p, data in saved:
+                    p.data = data
+
+
+@contextlib.contextmanager
+def float32_streamed(params):
+    """`params` computing in float32 without a float32 copy of the model:
+    the parameters outside its layer lists (embeddings, head, norms,
+    zamba2's shared block) are upcast in place, the layer lists stream
+    (`Float32Layers`); everything is put back on exit. The float32 truth
+    of a model whose float32 copy does not fit beside its bf16 weights
+    (qwen2-moe-a2.7b's 60.6 GB, internvl2-26b's 79.4 GB)."""
+    lists = {n: m for n, m in params.named_children()
+             if isinstance(m, torch.nn.ModuleList)}
+    others = [(p, p.data) for n, p in params.named_parameters()
+              if n.split(".")[0] not in lists]
+    for p, data in others:
+        p.data = data.float()
+    for n, m in lists.items():
+        setattr(params, n, Float32Layers(m))
+    try:
+        yield params
+    finally:
+        for n, m in lists.items():
+            setattr(params, n, m)
+        for p, data in others:
+            p.data = data
+
+
+MOE_STEPS = ("router_topk", "_dispatch_indices", "_dispatch", "_expert_ffn",
+             "_combine", "_shared_expert")
+
+
+def moe_breakdown(run, params, batch, cfg, flush) -> dict:
+    """Where an MoE prefill's time goes: one `run()` traced with each step
+    of `moe_ref` in a `record_function` range (the device time of the
+    kernels each range launched, over the trace's busy time), and each
+    step timed alone with CUDA events on layer 0's input shape (the token
+    embeddings normed by its ln2, a stand-in for its real input)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import repro_torch.models.moe as moe
+    from repro_torch.models.layers import rms_norm
+
+    saved = {n: getattr(moe, n) for n in MOE_STEPS}
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(f"moe.{name}"):
+                return fn(*a, **kw)
+        return call
+
+    for n in MOE_STEPS:
+        setattr(moe, n, ranged(n, saved[n]))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(moe, n, fn)
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    ranges = {e.key[4:]: dict(calls=e.count,
+                              device_ms=getattr(e, "device_time_total",
+                                                0.0) / 1e3)
+              for e in events if e.key.startswith("moe.")}
+    traced = dict(busy_ms=busy, steps=ranges)
+    if busy > 0:
+        disp = sum(ranges.get(k, {}).get("device_ms", 0.0) for k in (
+            "_dispatch_indices", "_dispatch", "_combine"))
+        traced["dispatch_combine_share"] = disp / busy
+
+    # each step alone, at layer 0's shape
+    blk = params.blocks[0]
+    p = blk.moe
+    xt = rms_norm(torch.nn.functional.embedding(batch["tokens"],
+                                                params.tok_emb),
+                  blk.ln2).reshape(-1, cfg.d_model)
+    N, k, E = xt.shape[0], cfg.experts_per_tok, cfg.expert_slots
+    C = moe._capacity(N * k, cfg.n_experts, cfg.capacity_factor)
+    weights, sel = moe.router_topk(xt, p.w_router, k)
+    order, sorted_e, pos, keep = moe._dispatch_indices(sel.reshape(-1), E, C)
+    src = torch.arange(N, device=xt.device).repeat_interleave(k)[order]
+    buf = moe._dispatch(xt, src, sorted_e, pos, keep, E, C)
+    out_buf = moe._expert_ffn(buf, p.w_gate, p.w_up, p.w_down)
+    w_sorted = weights.reshape(-1)[order]
+    steps = {
+        "router_topk": lambda: moe.router_topk(xt, p.w_router, k),
+        "_dispatch_indices": lambda: moe._dispatch_indices(
+            sel.reshape(-1), E, C),
+        "_dispatch": lambda: moe._dispatch(xt, src, sorted_e, pos, keep, E, C),
+        "_expert_ffn": lambda: moe._expert_ffn(buf, p.w_gate, p.w_up,
+                                               p.w_down),
+        "_combine": lambda: moe._combine(out_buf, w_sorted, order, sorted_e,
+                                         pos, keep, N, k),
+        "_shared_expert": lambda: moe._shared_expert(xt, p.shared),
+        "moe_ref": lambda: moe.moe_ref(xt[None], p, cfg)}
+    alone = {n: time_ms(fn, 10, flush) for n, fn in steps.items()}
+    return dict(traced=traced, alone_ms=alone, tokens=N, capacity=C,
+                kept_slots=int(keep.sum()), slots=N * k,
+                alone_dispatch_combine_share=sum(alone[n] for n in (
+                    "_dispatch_indices", "_dispatch", "_combine"))
+                / alone["moe_ref"])
+
+
+def slstm_measure(params, toks, cfg) -> dict:
+    """One sLSTM layer of xLSTM's prefill alone at the full batch: its
+    host time with the card synchronised (median of 3), and one traced
+    call's kernel launches and device busy share. Its scan is a Python loop
+    over T, each step a few launches (the reference scans it in XLA)."""
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.ssm import slstm_forward
+
+    pair = params.pairs[0]
+    x = rms_norm(torch.nn.functional.embedding(toks, params.tok_emb),
+                 pair.ln_s)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slstm_forward(x, pair.slstm)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = device_profile(lambda: slstm_forward(x, pair.slstm), 1)
+    return dict(batch=toks.shape[0], seq=toks.shape[1], ms=statistics.median(
+        times), launches=prof["kernels"], launches_per_token=prof["kernels"]
+        / toks.shape[1], busy_share=prof["busy_share"],
+        device_busy_ms=prof["device_busy_ms"])
+
+
+def lm_serve_phase(dev, flush) -> dict:
+    """The LM serving path of a model of every family at full width (see
+    phase 11)."""
     from repro_torch import configs
     from repro_torch.kernels.decode_attention import decode_attention_kernel_call
     from repro_torch.kernels.flash_attention import flash_attention_kernel_call
@@ -1891,11 +2017,10 @@ def lm_serve_phase(dev) -> dict:
         init_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in params.parameters())
         gen = torch.Generator(device=dev).manual_seed(0)
-        toks = torch.randint(0, cfg.vocab_size, (LM_PREFILL_B, LM_PREFILL_T),
-                             generator=gen, device=dev)
+        batch, n_logits = lm_full_batch(cfg, gen, dev)
         prefill = make_prefill(cfg)
         with plain_kernels():
-            ref = prefill(params, {"tokens": toks})
+            ref = prefill(params, batch)
         torch.cuda.synchronize()
 
         # the counted run: prefills, then the served batch
@@ -1903,7 +2028,7 @@ def lm_serve_phase(dev) -> dict:
         times = []
         for _ in range(LM_PREFILL_REPS):
             t0 = time.perf_counter()
-            logits = prefill(params, {"tokens": toks})
+            logits = prefill(params, batch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         step = make_serve_step(cfg)
@@ -1958,9 +2083,10 @@ def lm_serve_phase(dev) -> dict:
             finite=bool(torch.isfinite(got).all()))
         del got, want, d_gap
         res = dict(
-            arch=arch, params=n_params, dtype=cfg.dtype, layers=cfg.n_layers,
-            init_s=init_s,
+            arch=arch, family=cfg.family, params=n_params, dtype=cfg.dtype,
+            layers=cfg.n_layers, init_s=init_s,
             prefill=dict(batch=LM_PREFILL_B, seq=LM_PREFILL_T,
+                         inputs={k: list(v.shape) for k, v in batch.items()},
                          first_ms=times[0] * 1e3,
                          ms=statistics.median(times[1:]) * 1e3,
                          tokens_per_s=LM_PREFILL_B * LM_PREFILL_T
@@ -1970,12 +2096,13 @@ def lm_serve_phase(dev) -> dict:
                               ref.float().abs().max())),
             decode_vs_plain=decode_vs_plain,
             serve=dict(batch=LM_SERVE_B, prompt=LM_PROMPT, generated=LM_GEN,
+                       cache_len=LM_CACHE_LEN,
                        prompt_ms_per_step=prompt_s * 1e3 / (LM_PROMPT - 1),
                        decode_ms_per_step=gen_s * 1e3 / LM_GEN,
                        decode_tokens_per_s=LM_SERVE_B * LM_GEN / gen_s,
                        first_tokens=gen_t[0, :8].tolist()),
             launches=launches, peak_gb=peak / 1e9)
-        check(finite and logits.shape == (LM_PREFILL_B, LM_PREFILL_T,
+        check(finite and logits.shape == (LM_PREFILL_B, n_logits,
                                           cfg.vocab_size), f"{arch} logits")
         check(agree >= LM_ARGMAX_MIN and max_err <= LM_LOGIT_MAX_ERR
               and mean_err <= LM_LOGIT_MEAN_ERR, f"{arch} kernel vs plain "
@@ -1990,26 +2117,40 @@ def lm_serve_phase(dev) -> dict:
               and decode_vs_plain["max_abs_err"] == 0.0
               and decode_vs_plain["argmax_agree"] == 1.0,
               f"{arch} kernel vs plain decode: {decode_vs_plain}")
-        want = ["flash_attention", "decode_attention"] + (
-            ["mamba_scan"] if cfg.family == "hybrid" else [])
+        want = {"hybrid": ["flash_attention", "decode_attention",
+                           "mamba_scan"], "ssm": []}.get(
+            cfg.family, ["flash_attention", "decode_attention"])
         check(all(launches[k] > 0 for k in want), f"{arch} launches {launches}")
 
-        # where the card's time goes: one prefill, and 4 decode steps
-        res["profile"] = dict(
-            prefill=device_profile(lambda: prefill(params, {"tokens": toks}), 1),
-            decode=device_profile(lambda: step(params, cache, tok),
-                                  LM_PROFILE_STEPS))
+        # where the card's time goes: one prefill (xLSTM's of
+        # LM_SSM_PROFILE_T tokens, with its sLSTM layer measured alone),
+        # and 4 decode steps; an MoE prefill's steps
+        if cfg.family == "ssm":
+            short = {"tokens": batch["tokens"][:, :LM_SSM_PROFILE_T]}
+            res["profile"] = dict(
+                prefill=dict(device_profile(lambda: prefill(params, short), 1),
+                             seq=LM_SSM_PROFILE_T))
+            res["slstm"] = slstm_measure(params, batch["tokens"], cfg)
+        else:
+            res["profile"] = dict(prefill=device_profile(
+                lambda: prefill(params, batch), 1))
+        res["profile"]["decode"] = device_profile(
+            lambda: step(params, cache, tok), LM_PROFILE_STEPS)
+        if cfg.family == "moe":
+            res["moe_breakdown"] = moe_breakdown(
+                lambda: prefill(params, batch), params, batch, cfg, flush)
 
-        # both bf16 prefills against a float32 run of the same weights (the
-        # bf16 parameters upcast in place) on the plain path: the kernel
-        # path must come as close to it as the plain path does
+        # both bf16 prefills against a float32 run of the same weights, on
+        # the plain path, streamed a layer at a time: the kernel path must
+        # come as close to it as the plain path does
         del cache
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        params.float()
-        with plain_kernels():
-            truth = prefill(params, {"tokens": toks})
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        with plain_kernels(), float32_streamed(params):
+            truth = make_prefill(cfg32)(params, batch)
         torch.cuda.synchronize()
+        truth_peak = torch.cuda.max_memory_allocated()
         del params
         truth_arg = truth.argmax(-1)
         vs_truth = {}
@@ -2019,8 +2160,8 @@ def lm_serve_phase(dev) -> dict:
             vs_truth[f"{side}_mean_abs_err"] = float(
                 (lg.float() - truth).abs().mean())
         vs_truth.update(
-            truth_dtype=str(truth.dtype),
-            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            truth_dtype=str(truth.dtype), streamed=True,
+            peak_gb=truth_peak / 1e9,
             argmax_slack=LM_TRUTH_ARGMAX_SLACK, gap_ratio=LM_TRUTH_GAP_RATIO)
         res["vs_truth"] = vs_truth
         check(truth.dtype == torch.float32 and bool(torch.isfinite(truth).all()),
@@ -2030,16 +2171,26 @@ def lm_serve_phase(dev) -> dict:
               and vs_truth["kernel_mean_abs_err"]
               <= LM_TRUTH_GAP_RATIO * vs_truth["plain_mean_abs_err"],
               f"{arch} kernel path against the float32 truth: {vs_truth}")
-        del logits, ref, truth, truth_arg
+        del logits, ref, truth, truth_arg, batch
         torch.cuda.empty_cache()
 
         # float32 at full width, 4 layers: decode reproduces the prefill,
-        # and the decode on the plain path reproduces the kernel path's
-        cfg32 = dataclasses.replace(cfg, n_layers=LM_F32_LAYERS, dtype="float32")
+        # and the decode on the plain path reproduces the kernel path's.
+        # Where the two compute the same function: MoE at a capacity that
+        # drops no slot, the VLM with no patches, whisper with zero frames
+        # (its memory then 0, as the decode cache's)
+        cfg32 = dataclasses.replace(cfg, n_layers=LM_F32_LAYERS,
+                                    dtype="float32")
+        if cfg.family == "audio":
+            cfg32 = dataclasses.replace(cfg32, encoder_layers=LM_F32_LAYERS)
+        if cfg.family == "moe":
+            cfg32 = dataclasses.replace(cfg32,
+                                        capacity_factor=float(cfg.n_experts))
         p32 = init_params(cfg32, seed=1)
-        toks32 = torch.randint(0, cfg.vocab_size, (2, LM_F32_T), generator=gen,
-                               device=dev)
-        full = forward(p32, {"tokens": toks32}, cfg32)
+        batch32 = lm_batch(cfg32, 2, LM_F32_T, gen, dev,
+                           LM_F32_T if cfg.family == "audio" else 0, zeros=True)
+        toks32 = batch32["tokens"]
+        full = forward(p32, batch32, cfg32)
 
         def decode_all():
             c = init_cache(cfg32, 2, LM_F32_T + 1)
@@ -2078,15 +2229,16 @@ def lm_serve_phase(dev) -> dict:
 
 
 def lm_reduced_phase(dev) -> dict:
-    """Each reduced config the port serves with attention, in float32 (its
-    own type) and in bf16, weights from seed 0 on the card: a prefill of
-    LM_REDUCED_B x LM_REDUCED_T through `make_prefill` (B6 at the config's
-    head dim, on rows padded to the kernels' tile width), then a fresh
-    cache, the prompt teacher-forced and LM_REDUCED_GEN greedy tokens
-    through `decode_step` (B7). Held bitwise against the same run under
-    `plain_kernels()`: the prefill logits, every decode step's logits and
-    the greedy tokens. B6's and B7's launches (and B8's, for the hybrid)
-    are counted from 0 over the kernel run and must be above 0."""
+    """Each reduced config, in float32 (its own type) and in bf16, weights
+    from seed 0 on the card: a prefill of LM_REDUCED_B x LM_REDUCED_T
+    tokens (and internvl2's patches, whisper's frames) through
+    `make_prefill` (B6 at the config's head dim, on rows padded to the
+    kernels' tile width), then a fresh cache, the prompt teacher-forced and
+    LM_REDUCED_GEN greedy tokens through `decode_step` (B7). Held bitwise
+    against the same run under `plain_kernels()`: the prefill logits, every
+    decode step's logits and the greedy tokens. B6's and B7's launches (and
+    B8's, for the hybrid) are counted from 0 over the kernel run and must
+    be above 0 (xLSTM launches none)."""
     from repro_torch import configs
     from repro_torch.kernels.decode_attention import decode_attention_kernel_call
     from repro_torch.kernels.flash_attention import (
@@ -2108,12 +2260,14 @@ def lm_reduced_phase(dev) -> dict:
             cfg = dataclasses.replace(configs.get_reduced(arch), dtype=dtype)
             params = init_params(cfg, seed=0)
             gen = torch.Generator(device=dev).manual_seed(0)
-            toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
-                                 device=dev)
+            n_embed = {"vlm": cfg.num_patches,
+                       "audio": T + LM_REDUCED_FRAMES_EXTRA}.get(cfg.family, 0)
+            batch = lm_batch(cfg, B, T, gen, dev, n_embed)
+            toks = batch["tokens"]
             prefill = make_prefill(cfg)
 
             def run():
-                logits = prefill(params, {"tokens": toks})
+                logits = prefill(params, batch)
                 cache = init_cache(cfg, B, T + n_gen)
                 steps, tokens = [], []
                 tok = toks[:, 0].to(torch.int32)
@@ -2135,9 +2289,11 @@ def lm_reduced_phase(dev) -> dict:
                 want = run()
             torch.cuda.synchronize()
             res = dict(
-                arch=arch, dtype=dtype, layers=cfg.n_layers,
+                arch=arch, family=cfg.family, dtype=dtype, layers=cfg.n_layers,
                 heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.hd,
-                tile_width=tile_width(cfg.hd), batch=B, prompt=T,
+                tile_width=tile_width(cfg.hd) if cfg.family != "ssm" else None,
+                batch=B, prompt=T,
+                inputs={k: list(v.shape) for k, v in batch.items()},
                 generated=n_gen, launches=launches,
                 prefill_bitwise=bool(torch.equal(got[0], want[0])),
                 decode_bitwise=bool(torch.equal(got[1], want[1])),
@@ -2152,8 +2308,9 @@ def lm_reduced_phase(dev) -> dict:
             check(res["prefill_bitwise"] and res["decode_bitwise"]
                   and res["tokens_equal"] and res["finite"],
                   f"{arch} reduced ({dtype}) kernel vs plain path: {res}")
-            want_k = ["flash_attention", "decode_attention"] + (
-                ["mamba_scan"] if cfg.family == "hybrid" else [])
+            want_k = {"hybrid": ["flash_attention", "decode_attention",
+                                 "mamba_scan"], "ssm": []}.get(
+                cfg.family, ["flash_attention", "decode_attention"])
             check(all(launches[k] > 0 for k in want_k),
                   f"{arch} reduced ({dtype}) launches {launches}")
             out.append(res)
@@ -2812,7 +2969,7 @@ def main() -> None:
 
     # 11. lm_serve: the LM serving path at full width ------------------------
     t0 = time.perf_counter()
-    lm_serve = lm_serve_phase(dev)
+    lm_serve = lm_serve_phase(dev, flush)
     emit("lm_serve_seconds", seconds=time.perf_counter() - t0)
 
     # 12. lm_reduced: every reduced config with attention, through B6/B7 --
@@ -2843,7 +3000,8 @@ def main() -> None:
             e = lm["timing"][f"{name}/{case}"]
             entry[case] = {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms",
-                                             "shape", "dtype", *extra)
+                                             "shape", "dtype", "causal",
+                                             *extra)
                            if k in e}
         return entry
 
@@ -2966,10 +3124,11 @@ def main() -> None:
                      b5["timing"]["stream_trace"]["shape"][1])))),
         lm_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:83", "qwen3-8b",
-                 ("zamba2-1.2b", "qwen3-8b-reduced")),
+                 ("zamba2-1.2b", "qwen3-8b-reduced", "whisper-small-encoder",
+                  "whisper-small-cross")),
         lm_entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:70", "qwen3-8b",
-                 ("zamba2-1.2b", "qwen3-8b-reduced")),
+                 ("zamba2-1.2b", "qwen3-8b-reduced", "whisper-small-cross")),
         lm_entry("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
                  "src/repro/kernels/mamba_scan.py:78", "zamba2-1.2b"),
     ]

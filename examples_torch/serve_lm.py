@@ -2,11 +2,14 @@
 with the KV cache.
 
 The port of `examples/serve_lm.py`, with its default architecture,
-qwen3-8b. The weights come from a `torch.Generator` seeded with 0 on the
-card (the reference's distributions, not its numbers); decode attention
-runs B7 (`csrc/decode_attention.cu`) and the Mamba scan B8 on the card.
+qwen3-8b; `--arch` takes any of the ten (every family: dense, moe, vlm,
+audio, ssm, hybrid), as the reference's does. The weights come from a
+`torch.Generator` seeded with 0 on the card (the reference's
+distributions, not its numbers); decode attention runs B7
+(`csrc/decode_attention.cu`: self attention, and whisper's cross
+attention to its cached memory) and the Mamba scan B8 on the card.
 
-    PYTHONPATH=src python examples_torch/serve_lm.py [--arch zamba2-1.2b]
+    PYTHONPATH=src python examples_torch/serve_lm.py [--arch qwen2-moe-a2.7b]
 """
 import argparse
 

@@ -171,9 +171,10 @@ def lm_cache_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda"
     every key, shape and dtype checked against `init_cache`'s."""
     from .models.zoo import init_cache
 
-    kv = tree["k"] if cfg.family == "dense" else tree["attn_k"]
-    want = init_cache(cfg, int(np.shape(tree["pos"])[0]), int(np.shape(kv)[2]),
-                      device)
+    # the cache's length: its KV's (the xLSTM cache has none: any length)
+    kv = tree.get("k", tree.get("attn_k"))
+    max_len = 1 if kv is None else int(np.shape(kv)[2])
+    want = init_cache(cfg, int(np.shape(tree["pos"])[0]), max_len, device)
     if set(tree) != set(want):
         raise ValueError(f"cache keys {sorted(tree)}, expected {sorted(want)}")
     return {k: _tensor(v, k, want[k]) for k, v in tree.items()}

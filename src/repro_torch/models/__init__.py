@@ -1,8 +1,10 @@
-"""Model zoo of the port: the dense and hybrid families in PyTorch, over the
-kernels B6 (prefill attention), B7 (decode attention) and B8 (Mamba scan).
+"""Model zoo of the port: every family (dense, moe, vlm, audio, ssm and
+hybrid) in PyTorch, over the kernels B6 (prefill attention, causal or not,
+cross attention), B7 (decode attention, self and cross) and B8 (Mamba
+scan).
 
-Port of `repro.models`, with the same exports; the other families and
-`loss_fn` raise `NotImplementedError` naming their ROADMAP item.
+Port of `repro.models`, with the same exports; `loss_fn` raises
+`NotImplementedError` naming its ROADMAP item (training waits).
 """
 from .config import SHAPES, ModelConfig, ShapeSpec
 from .zoo import decode_step, forward, init_cache, init_params, loss_fn

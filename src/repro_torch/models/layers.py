@@ -83,13 +83,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Causal GQA attention over a full sequence (prefill): q (B, T, Hq, D),
-    k/v (B, T, Hkv, D) -> (B, T, Hq, D), through B6 in its (B, H, T, D)
-    layout."""
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """GQA attention over a full sequence (prefill, an encoder, cross
+    attention): q (B, Tq, Hq, D), k/v (B, Tk, Hkv, D) -> (B, Tq, Hq, D),
+    through B6 in its (B, H, T, D) layout. Causal or not; Tq may differ
+    from Tk (cross attention)."""
     out = ops.flash_attention(q.transpose(1, 2).contiguous(),
                               k.transpose(1, 2).contiguous(),
-                              v.transpose(1, 2).contiguous())
+                              v.transpose(1, 2).contiguous(), causal=causal)
     return out.transpose(1, 2)
 
 

@@ -1,6 +1,6 @@
-"""SSM-family mixers: Mamba-2 (SSD).
+"""SSM-family mixers: Mamba-2 (SSD) and xLSTM (mLSTM / sLSTM).
 
-Port of the Mamba-2 half of `repro.models.ssm`. Prefill runs the chunked
+Port of `repro.models.ssm`. Mamba-2's prefill runs the chunked
 SSD decomposition through the kernel B8 (`repro_torch.kernels.ops.
 mamba_scan`: one launch per layer gives y and the final state; a CPU
 tensor runs its plain version, `chunked_ssd` with one shared B/C group).
@@ -8,8 +8,13 @@ Decode is the O(1)-per-token state recurrence in plain torch, as in the
 reference, which has no kernel there; `mamba2_decode_step` updates the
 state it is given in place (JAX returns a new one).
 
-The xLSTM mixers (mLSTM with per-head keys, G = H, and sLSTM) wait for
-ROADMAP A12e.
+The mLSTM is gated linear attention in the same chunked form, with
+per-head keys (G = H groups of head dim d / H: 256 at xlstm-350m), which
+B8 does not take (one shared B/C group, as the TPU kernel): its prefill
+runs `chunked_ssd`, the reference's own jnp path, in torch ops, and its
+decode the O(1) recurrence. The sLSTM is a per-unit scalar recurrence,
+scanned over time by a Python loop, one step per token, as the reference
+scans it. The decode steps update the states they are given in place.
 """
 from __future__ import annotations
 
@@ -22,12 +27,20 @@ from ..kernels.mamba_scan import chunked_ssd
 from .layers import init_dense, init_norm, param, rms_norm
 
 __all__ = [
+    "MLSTM",
     "Mamba2",
+    "SLSTM",
     "chunked_ssd",
     "init_mamba2",
+    "init_mlstm",
+    "init_slstm",
     "mamba2_decode_step",
     "mamba2_forward",
     "mamba2_init_state",
+    "mlstm_decode_step",
+    "mlstm_forward",
+    "slstm_decode_step",
+    "slstm_forward",
 ]
 
 _CONV_K = 4
@@ -142,3 +155,119 @@ def mamba2_decode_step(x: torch.Tensor, state: dict, p: Mamba2, cfg):
     state["ssm"].copy_(h)
     state["conv"].copy_(window[:, 1:])
     return yv @ p.w_out, state
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (chunked gated linear attention) and sLSTM (scalar recurrence)
+# ---------------------------------------------------------------------------
+
+class MLSTM(nn.Module):
+    """w_q, w_k, w_v (d, d), w_gates (d, 2H) float32, norm (d,), w_out
+    (d, d)."""
+
+    def __init__(self, d: int, n_heads: int, dtype, device):
+        super().__init__()
+        self.w_q = param((d, d), dtype, device)
+        self.w_k = param((d, d), dtype, device)
+        self.w_v = param((d, d), dtype, device)
+        self.w_gates = param((d, 2 * n_heads), torch.float32, device)
+        self.norm = param((d,), dtype, device)
+        self.w_out = param((d, d), dtype, device)
+
+
+def init_mlstm(p: MLSTM, gen: torch.Generator) -> MLSTM:
+    for w in (p.w_q, p.w_k, p.w_v, p.w_gates):
+        init_dense(w, gen)
+    init_norm(p.norm)
+    init_dense(p.w_out, gen)
+    return p
+
+
+def mlstm_forward(x: torch.Tensor, p: MLSTM, n_heads: int, chunk: int = 128):
+    """x (B, T, d) -> (out (B, T, d), final state (B, H, hd, hd) float32)."""
+    B, T, d = x.shape
+    hd = d // n_heads
+    q = (x @ p.w_q).reshape(B, T, n_heads, hd)
+    k = (x @ p.w_k).reshape(B, T, n_heads, hd)
+    v = (x @ p.w_v).reshape(B, T, n_heads, hd)
+    gates = x.float() @ p.w_gates
+    i_g, f_g = torch.chunk(gates, 2, dim=-1)                  # (B, T, H)
+    y, h_last = chunked_ssd(v, F.logsigmoid(f_g), torch.sigmoid(i_g),
+                            k * (hd ** -0.5), q, chunk=chunk)
+    y = rms_norm(y.reshape(B, T, d), p.norm)
+    return y @ p.w_out, h_last
+
+
+def mlstm_decode_step(x: torch.Tensor, state: torch.Tensor, p: MLSTM,
+                      n_heads: int):
+    """x (B, d); state (B, H, hd_v, hd_k) float32, updated in place.
+    Returns (out (B, d), state)."""
+    B, d = x.shape
+    hd = d // n_heads
+    q = (x @ p.w_q).reshape(B, n_heads, hd)
+    k = (x @ p.w_k).reshape(B, n_heads, hd) * (hd ** -0.5)
+    v = (x @ p.w_v).reshape(B, n_heads, hd)
+    gates = x.float() @ p.w_gates
+    i_g, f_g = torch.chunk(gates, 2, dim=-1)                  # (B, H)
+    f_s, i_s = torch.sigmoid(f_g), torch.sigmoid(i_g)
+    upd = (i_s[..., None] * v.float())[..., None] * k.float()[:, :, None, :]
+    h = f_s[..., None, None] * state + upd                    # (B, H, hd, hd)
+    y = (h * q.float()[:, :, None, :]).sum(-1)                # (B, H, hd)
+    y = rms_norm(y.reshape(B, d).to(x.dtype), p.norm)
+    state.copy_(h)
+    return y @ p.w_out, state
+
+
+class SLSTM(nn.Module):
+    """w_x and w_h (d, 4d), norm (d,), w_out (d, d)."""
+
+    def __init__(self, d: int, dtype, device):
+        super().__init__()
+        self.w_x = param((d, 4 * d), dtype, device)
+        self.w_h = param((d, 4 * d), dtype, device)
+        self.norm = param((d,), dtype, device)
+        self.w_out = param((d, d), dtype, device)
+
+
+def init_slstm(p: SLSTM, gen: torch.Generator) -> SLSTM:
+    init_dense(p.w_x, gen)
+    init_dense(p.w_h, gen)
+    init_norm(p.norm)
+    init_dense(p.w_out, gen)
+    return p
+
+
+def _slstm_cell(g: torch.Tensor, c: torch.Tensor, n: torch.Tensor, dtype):
+    """One step from the gate pre-activations g (B, 4d): (c, n, h)."""
+    i, f, z, o = torch.chunk(g.float(), 4, dim=-1)
+    i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+    c = f * c + i * torch.tanh(z)
+    n = f * n + i
+    return c, n, (o * c / torch.clamp(n, min=1.0)).to(dtype)
+
+
+def slstm_forward(x: torch.Tensor, p: SLSTM):
+    """Scalar LSTM scanned over time. x (B, T, d) -> (out (B, T, d),
+    (c, n, h) after the last step)."""
+    B, T, d = x.shape
+    gx = x @ p.w_x                                            # (B, T, 4d)
+    c = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+    n = torch.zeros_like(c)
+    h = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+    ys = []
+    for t in range(T):
+        c, n, h = _slstm_cell(gx[:, t] + h @ p.w_h, c, n, x.dtype)
+        ys.append(h)
+    y = rms_norm(torch.stack(ys, dim=1), p.norm)
+    return y @ p.w_out, (c, n, h)
+
+
+def slstm_decode_step(x: torch.Tensor, state, p: SLSTM):
+    """x (B, d); state (c, n, h), updated in place. Returns (out (B, d),
+    state)."""
+    c, n, h = state
+    c2, n2, h2 = _slstm_cell(x @ p.w_x + h @ p.w_h, c, n, x.dtype)
+    c.copy_(c2)
+    n.copy_(n2)
+    h.copy_(h2)
+    return rms_norm(h2, p.norm) @ p.w_out, state

@@ -1,4 +1,5 @@
-"""Transformer block assembly: GQA attention blocks for the dense family.
+"""Transformer block assembly: GQA attention blocks for the dense, MoE,
+VLM and audio families.
 
 Port of `repro.models.transformer`. Parameters are `nn.Module`s whose
 attributes carry the reference's pytree keys and weight layouts; the
@@ -6,7 +7,8 @@ functions below take them where the reference takes the dicts. Where the
 reference stacks layers on a leading axis and runs `scan_layers`, the port
 keeps an `nn.ModuleList` and loops in Python (`repro_torch.models.zoo`).
 The reference's sharding hints (`constrain`) have no counterpart: one card,
-no mesh (ROADMAP A12f brings `parallel/*`).
+no mesh (ROADMAP A7 brings `parallel/*`), and so the MoE block runs
+`moe_ref`, the reference's path without an expert-parallel mesh.
 
 `attn_decode` writes the new token's key and value into the caches it is
 given in place (JAX returns updated copies) and returns them.
@@ -29,6 +31,7 @@ from .layers import (
     rms_norm,
     rope_cos_sin,
 )
+from .moe import MoE, init_moe, moe_ref
 
 __all__ = ["Attention", "Block", "attn_decode", "attn_forward", "block_forward",
            "init_attn", "init_block"]
@@ -36,9 +39,9 @@ __all__ = ["Attention", "Block", "attn_decode", "attn_forward", "block_forward",
 
 class Attention(nn.Module):
     """w_q (d, He*hd), w_k and w_v (d, Hkv*hd), w_o (He*hd, d), and with qk
-    norm the (hd,) q_norm and k_norm."""
+    norm the (hd,) q_norm and k_norm (never in cross attention)."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, cross: bool = False):
         super().__init__()
         d, hd, He = cfg.d_model, cfg.hd, cfg.heads_eff
         self.w_q = param((d, He * hd), dtype, device)
@@ -46,7 +49,7 @@ class Attention(nn.Module):
         self.w_v = param((d, cfg.n_kv_heads * hd), dtype, device)
         self.w_o = param((He * hd, d), dtype, device)
         for name in ("q_norm", "k_norm"):
-            if cfg.qk_norm:
+            if cfg.qk_norm and not cross:
                 self.register_parameter(name, param((hd,), dtype, device))
             else:
                 self.register_parameter(name, None)
@@ -68,29 +71,35 @@ def init_attn(p: Attention, gen: torch.Generator, cfg) -> Attention:
     return p
 
 
-def _qkv(x: torch.Tensor, p: Attention, cfg):
+def _qkv(x: torch.Tensor, p: Attention, cfg, kv_src=None):
     B, T, _ = x.shape
     hd = cfg.hd
+    kv_in = x if kv_src is None else kv_src
+    Tk = kv_in.shape[1]
     q = (x @ p.w_q).reshape(B, T, cfg.heads_eff, hd)
-    k = (x @ p.w_k).reshape(B, T, cfg.n_kv_heads, hd)
-    v = (x @ p.w_v).reshape(B, T, cfg.n_kv_heads, hd)
+    k = (kv_in @ p.w_k).reshape(B, Tk, cfg.n_kv_heads, hd)
+    v = (kv_in @ p.w_v).reshape(B, Tk, cfg.n_kv_heads, hd)
     if p.q_norm is not None:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
     return q, k, v
 
 
-def attn_forward(x: torch.Tensor, p: Attention, cfg) -> torch.Tensor:
-    """Causal self-attention with RoPE over a full sequence, x (B, T, d) ->
-    (B, T, d). (The reference's non-causal, RoPE-free and cross-attention
-    variants serve the audio family, ROADMAP A12c.)"""
+def attn_forward(x: torch.Tensor, p: Attention, cfg, *, causal: bool = True,
+                 use_rope: bool = True,
+                 kv_src: torch.Tensor | None = None) -> torch.Tensor:
+    """Attention over a full sequence, x (B, T, d) -> (B, T, d): causal
+    self-attention with RoPE by default; ``causal=False`` for an encoder;
+    with ``kv_src`` (B, Tk, d) cross attention, its keys and values
+    projected from kv_src and, as in the reference, no RoPE."""
     B, T, _ = x.shape
-    q, k, v = _qkv(x, p, cfg)
-    cos, sin = rope_cos_sin(torch.arange(T, device=x.device)[None, :], cfg.hd,
-                            cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    o = attention(q, k, v)
+    q, k, v = _qkv(x, p, cfg, kv_src)
+    if use_rope and kv_src is None:
+        cos, sin = rope_cos_sin(torch.arange(T, device=x.device)[None, :],
+                                cfg.hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    o = attention(q, k, v, causal=causal)
     return o.reshape(B, T, cfg.heads_eff * cfg.hd) @ p.w_o
 
 
@@ -119,14 +128,21 @@ def attn_decode(x: torch.Tensor, p: Attention, cfg, k_cache: torch.Tensor,
 
 
 class Block(nn.Module):
-    """A dense decoder block: ln1, attn, ln2, mlp."""
+    """A decoder block: ln1, attn, ln2, and mlp (or, in the MoE family,
+    moe); a cross block (whisper's decoder) also ln_x and xattn."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, cross: bool = False):
         super().__init__()
         self.ln1 = param((cfg.d_model,), dtype, device)
         self.attn = Attention(cfg, dtype, device)
         self.ln2 = param((cfg.d_model,), dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg.d_model, cfg, dtype, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
+        if cross:
+            self.ln_x = param((cfg.d_model,), dtype, device)
+            self.xattn = Attention(cfg, dtype, device, cross=True)
 
 
 def init_block(p: Block, gen: torch.Generator, cfg) -> Block:
@@ -134,17 +150,30 @@ def init_block(p: Block, gen: torch.Generator, cfg) -> Block:
     init_norm(p.ln1)
     init_attn(p.attn, gen, cfg)
     init_norm(p.ln2)
-    init_mlp(p.mlp, gen)
+    if cfg.family == "moe":
+        init_moe(p.moe, gen)
+    else:
+        init_mlp(p.mlp, gen)
+    if hasattr(p, "xattn"):
+        init_norm(p.ln_x)
+        init_attn(p.xattn, gen, cfg)
     return p
 
 
 def _ffn(x: torch.Tensor, p: Block, cfg) -> torch.Tensor:
     if cfg.family == "moe":
-        raise NotImplementedError("the MoE family is not ported yet "
-                                  "(ROADMAP A12b)")
+        return moe_ref(x, p.moe, cfg)
     return mlp(x, p.mlp, cfg.act)
 
 
-def block_forward(x: torch.Tensor, p: Block, cfg) -> torch.Tensor:
-    x = x + attn_forward(rms_norm(x, p.ln1), p.attn, cfg)
+def block_forward(x: torch.Tensor, p: Block, cfg, *, causal: bool = True,
+                  use_rope: bool = True,
+                  memory: torch.Tensor | None = None) -> torch.Tensor:
+    """One block over a full sequence; with `memory` (B, Tk, d) and a cross
+    block, cross attention to it after the self-attention."""
+    x = x + attn_forward(rms_norm(x, p.ln1), p.attn, cfg, causal=causal,
+                         use_rope=use_rope)
+    if memory is not None and hasattr(p, "xattn"):
+        x = x + attn_forward(rms_norm(x, p.ln_x), p.xattn, cfg, causal=False,
+                             use_rope=False, kv_src=memory)
     return x + _ffn(rms_norm(x, p.ln2), p, cfg)

@@ -1,22 +1,30 @@
 """Family-level model assembly: init / forward / cache / decode per family.
 
-Port of `repro.models.zoo` for the dense and hybrid families:
+Port of `repro.models.zoo` for every family: dense, moe, vlm, audio, ssm
+(xLSTM) and hybrid.
 
   init_params(cfg, seed, device)             -> LM (an nn.Module)
   forward(params, batch, cfg)                -> logits (prefill)
   init_cache(cfg, batch, max_len, device)    -> decode cache dict
   decode_step(params, cache, tokens, cfg)    -> (logits, cache)
 
-`batch` is a dict holding "tokens" (B, T). The parameters are `nn.Module`s
-whose attribute names are the reference's pytree keys (`LM.tok_emb`,
-`LM.blocks[i].attn.w_q`, ...); layers are an `nn.ModuleList` walked by a
-Python loop where the reference scans over stacked layers, and the hybrid
-forward's `lax.cond` is a Python `if`. `decode_step` updates the cache in
-place (the KV slots, the SSM and conv states, ``pos``) and returns it.
+`batch` is a dict: the LM families use {"tokens"} (B, T); whisper (audio)
+{"frames", "tokens"}; internvl (vlm) {"patches", "tokens"}. The modality
+frontends are stubs, as in the reference: frames and patches arrive as
+precomputed embeddings (B, T', d). The parameters are `nn.Module`s whose
+attribute names are the reference's pytree keys (`LM.tok_emb`,
+`LM.blocks[i].attn.w_q`, `LM.pairs[i].mlstm`, ...); layers are an
+`nn.ModuleList` walked by a Python loop where the reference scans over
+stacked layers, and the hybrid forward's `lax.cond` is a Python `if`.
+`decode_step` updates the cache in place (the KV slots, the SSM, conv and
+xLSTM states, ``pos``) and returns it.
 
-The moe, vlm, audio and ssm (xLSTM) families raise `NotImplementedError`
-naming their ROADMAP item, as does training: the JAX package has no
-backward kernel for B6-B8, and `loss_fn` waits with `train/*` (A12f).
+Whisper's decode cross-attends the cache's ``xk``/``xv`` (B, mem_len, Hkv,
+hd) at ``mem_len``; like the reference, nothing here writes the encoder's
+memory into them, so they stay the zeros `init_cache` made.
+
+Training waits: the JAX package has no backward kernel for B6-B8, and
+`loss_fn` waits with `train/*` (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -28,15 +36,24 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from .config import ModelConfig
-from .layers import init_dense, init_norm, mlp, param, rms_norm
+from .layers import decode_attention, init_dense, init_norm, mlp, param, rms_norm
+from .moe import moe_ref
 from .ssm import (
     _CONV_K,
     _HEAD_P,
+    MLSTM,
+    SLSTM,
     Mamba2,
     _mamba_dims,
     init_mamba2,
+    init_mlstm,
+    init_slstm,
     mamba2_decode_step,
     mamba2_forward,
+    mlstm_decode_step,
+    mlstm_forward,
+    slstm_decode_step,
+    slstm_forward,
 )
 from .transformer import (
     Attention,
@@ -51,20 +68,11 @@ from .transformer import (
 __all__ = ["LM", "decode_step", "forward", "init_cache", "init_params", "loss_fn"]
 
 _DT = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# the families this slice does not port, and the ROADMAP item that will
-_WAITING = {
-    "moe": "the MoE family (ROADMAP A12b)",
-    "audio": "the audio family (ROADMAP A12c)",
-    "vlm": "the VLM family (ROADMAP A12d)",
-    "ssm": "the xLSTM family (ROADMAP A12e)",
-}
+_FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in _WAITING:
-        raise NotImplementedError(
-            f"{cfg.name}: {_WAITING[cfg.family]} is not ported yet")
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in _FAMILIES:
         raise ValueError(cfg.family)
 
 
@@ -87,10 +95,24 @@ class SharedAttn(nn.Module):
         self.w_concat = param((2 * cfg.d_model, cfg.d_model), dtype, device)
 
 
+class XLSTMPair(nn.Module):
+    """One xLSTM pair: ln_m, mlstm, ln_s, slstm."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.ln_m = param((d,), dtype, device)
+        self.mlstm = MLSTM(d, cfg.n_heads, dtype, device)
+        self.ln_s = param((d,), dtype, device)
+        self.slstm = SLSTM(d, dtype, device)
+
+
 class LM(nn.Module):
-    """tok_emb (V, d), ln_f (d,), lm_head (d, V), blocks (a ModuleList of
-    `Block` or `MambaBlock`) and, for the hybrid family, shared. Allocated
-    uninitialised on `device`; `init_params` fills it from a seed,
+    """tok_emb (V, d), ln_f (d,), lm_head (d, V), and the family's layers:
+    blocks (a ModuleList of `Block`: dense, moe, vlm), enc_blocks,
+    dec_blocks (cross blocks) and ln_enc (audio), pairs (`XLSTMPair`, ssm),
+    or blocks of `MambaBlock` and shared (hybrid). Allocated uninitialised
+    on `device`; `init_params` fills it from a seed,
     `repro_torch.convert.lm_params_from_numpy` from a reference pytree."""
 
     def __init__(self, cfg: ModelConfig, device):
@@ -100,10 +122,24 @@ class LM(nn.Module):
         self.tok_emb = param((cfg.vocab_size, d), dt, device)
         self.ln_f = param((d,), dt, device)
         self.lm_head = param((d, cfg.vocab_size), dt, device)
-        layer = Block if cfg.family == "dense" else MambaBlock
-        self.blocks = nn.ModuleList(layer(cfg, dt, device)
-                                    for _ in range(cfg.n_layers))
-        if cfg.family == "hybrid":
+
+        def stack(make, n):
+            return nn.ModuleList(make() for _ in range(n))
+
+        if cfg.family in ("dense", "moe", "vlm"):
+            self.blocks = stack(lambda: Block(cfg, dt, device), cfg.n_layers)
+        elif cfg.family == "audio":
+            self.enc_blocks = stack(lambda: Block(cfg, dt, device),
+                                    cfg.encoder_layers)
+            self.dec_blocks = stack(lambda: Block(cfg, dt, device, cross=True),
+                                    cfg.n_layers)
+            self.ln_enc = param((d,), dt, device)
+        elif cfg.family == "ssm":
+            self.pairs = stack(lambda: XLSTMPair(cfg, dt, device),
+                               cfg.n_layers // 2)
+        else:
+            self.blocks = stack(lambda: MambaBlock(cfg, dt, device),
+                                cfg.n_layers)
             self.shared = SharedAttn(cfg, dt, device)
 
 
@@ -118,12 +154,22 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     init_dense(p.tok_emb, gen, scale=0.02)
     init_norm(p.ln_f)
     init_dense(p.lm_head, gen)
-    for blk in p.blocks:
-        if cfg.family == "dense":
+    if cfg.family == "audio":
+        for blk in (*p.enc_blocks, *p.dec_blocks):
             init_block(blk, gen, cfg)
-        else:
+        init_norm(p.ln_enc)
+    elif cfg.family == "ssm":
+        for pair in p.pairs:
+            init_norm(pair.ln_m)
+            init_mlstm(pair.mlstm, gen)
+            init_norm(pair.ln_s)
+            init_slstm(pair.slstm, gen)
+    for blk in getattr(p, "blocks", ()):
+        if cfg.family == "hybrid":
             init_norm(blk.ln)
             init_mamba2(blk.mamba, gen)
+        else:
+            init_block(blk, gen, cfg)
     if cfg.family == "hybrid":
         init_norm(p.shared.ln)
         init_attn(p.shared.attn, gen, cfg)
@@ -136,12 +182,31 @@ def _head(p: LM, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Logits (B, T, V) of the full sequence ``batch["tokens"]`` (B, T)."""
+    """Logits of the full sequence: (B, T, V) for ``batch["tokens"]`` (B,
+    T); for the vlm family (B, Np + T, V), the patches first; for the audio
+    family the decoder's (B, Td, V) over the encoded ``batch["frames"]``."""
     _check_family(cfg)
+    fam = cfg.family
     x = F.embedding(batch["tokens"], params.tok_emb)
-    if cfg.family == "dense":
+    if fam == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    if fam in ("dense", "moe", "vlm"):
         for blk in params.blocks:
             x = block_forward(x, blk, cfg)
+        return _head(params, x)
+    if fam == "audio":
+        enc = batch["frames"].to(_DT[cfg.dtype])
+        for blk in params.enc_blocks:
+            enc = block_forward(enc, blk, cfg, causal=False)
+        enc = rms_norm(enc, params.ln_enc)
+        for blk in params.dec_blocks:
+            x = block_forward(x, blk, cfg, memory=enc)
+        return _head(params, x)
+    if fam == "ssm":
+        for pair in params.pairs:
+            x = x + mlstm_forward(rms_norm(x, pair.ln_m), pair.mlstm,
+                                  cfg.n_heads, chunk=cfg.ssd_chunk)[0]
+            x = x + slstm_forward(rms_norm(x, pair.ln_s), pair.slstm)[0]
         return _head(params, x)
     emb0 = x
     shared = params.shared
@@ -161,20 +226,42 @@ def loss_fn(params, batch: dict, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda") -> dict:
-    """The decode cache: per-layer KV (dense), or per-layer SSM and conv
-    states plus one KV slot per shared-attention application point
-    (hybrid); ``pos`` (B,) int32."""
+    """The decode cache: per-layer KV (dense, moe, vlm); per-layer KV and
+    cross-attention KV of ``mem_len = min(max_len, 1500)`` positions with
+    its (B,) lengths (audio); per-pair mLSTM state and sLSTM c, n, h
+    (ssm); or per-layer SSM and conv states plus one KV slot per
+    shared-attention application point (hybrid). ``pos`` (B,) int32."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt, hd = _DT[cfg.dtype], cfg.hd
+    fam = cfg.family
 
     def zeros(shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     pos = zeros((batch,), torch.int32)
-    if cfg.family == "dense":
-        kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, hd)
+    kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, hd)
+    if fam in ("dense", "moe", "vlm"):
         return {"k": zeros(kv), "v": zeros(kv), "pos": pos}
+    if fam == "audio":
+        mem_len = min(max_len, 1500)
+        xkv = (cfg.n_layers, batch, mem_len, cfg.n_kv_heads, hd)
+        return {"k": zeros(kv), "v": zeros(kv), "xk": zeros(xkv),
+                "xv": zeros(xkv),
+                "mem_len": torch.full((batch,), mem_len, dtype=torch.int32,
+                                      device=dev),
+                "pos": pos}
+    if fam == "ssm":
+        n_pairs, d = cfg.n_layers // 2, cfg.d_model
+        hd_m = d // cfg.n_heads
+        return {
+            "mlstm": zeros((n_pairs, batch, cfg.n_heads, hd_m, hd_m),
+                           torch.float32),
+            "slstm_c": zeros((n_pairs, batch, d), torch.float32),
+            "slstm_n": zeros((n_pairs, batch, d), torch.float32),
+            "slstm_h": zeros((n_pairs, batch, d)),
+            "pos": pos,
+        }
     di, H, S = _mamba_dims(cfg.d_model, cfg)
     n_app = math.ceil(cfg.n_layers / cfg.shared_attn_every)
     kv = (n_app, batch, max_len, cfg.n_kv_heads, hd)
@@ -192,14 +279,45 @@ def decode_step(params: LM, cache: dict, tokens: torch.Tensor,
     """One decode step. tokens (B,) -> (logits (B, V), cache), the cache
     updated in place."""
     _check_family(cfg)
+    fam = cfg.family
     pos = cache["pos"]
     x = F.embedding(tokens, params.tok_emb)                      # (B, d)
-    if cfg.family == "dense":
+
+    def ffn(h, blk):
+        h2 = rms_norm(h, blk.ln2)[:, None, :]
+        if fam == "moe":
+            return moe_ref(h2, blk.moe, cfg)[:, 0]
+        return mlp(h2, blk.mlp, cfg.act)[:, 0]
+
+    if fam in ("dense", "moe", "vlm"):
         for i, blk in enumerate(params.blocks):
             a, _, _ = attn_decode(rms_norm(x, blk.ln1), blk.attn, cfg,
                                   cache["k"][i], cache["v"][i], pos)
             x = x + a
-            x = x + mlp(rms_norm(x, blk.ln2)[:, None, :], blk.mlp, cfg.act)[:, 0]
+            x = x + ffn(x, blk)
+    elif fam == "audio":
+        B, hd = x.shape[0], cfg.hd
+        for i, blk in enumerate(params.dec_blocks):
+            a, _, _ = attn_decode(rms_norm(x, blk.ln1), blk.attn, cfg,
+                                  cache["k"][i], cache["v"][i], pos)
+            x = x + a
+            # cross attention against the cached encoder memory, through B7
+            qx = (rms_norm(x, blk.ln_x) @ blk.xattn.w_q).reshape(
+                B, cfg.heads_eff, hd)
+            ax = decode_attention(qx, cache["xk"][i], cache["xv"][i],
+                                  cache["mem_len"])
+            x = x + ax.reshape(B, cfg.heads_eff * hd) @ blk.xattn.w_o
+            x = x + ffn(x, blk)
+    elif fam == "ssm":
+        for i, pair in enumerate(params.pairs):
+            y, _ = mlstm_decode_step(rms_norm(x, pair.ln_m), cache["mlstm"][i],
+                                     pair.mlstm, cfg.n_heads)
+            x = x + y
+            y, _ = slstm_decode_step(
+                rms_norm(x, pair.ln_s),
+                (cache["slstm_c"][i], cache["slstm_n"][i], cache["slstm_h"][i]),
+                pair.slstm)
+            x = x + y
     else:
         # one KV slot per application point of the shared block (ceil(L /
         # every) slots), not per layer: 38 copies of a long cache would be

@@ -40,10 +40,12 @@ def make_serve_step(cfg: ModelConfig, temperature: float = 0.0,
 
 
 def make_prefill(cfg: ModelConfig, device: str | torch.device = "cuda"):
-    """``prefill(params, batch) -> logits (B, T, V)`` for ``batch["tokens"]``."""
+    """``prefill(params, batch) -> logits`` of `forward`; every tensor of
+    `batch` (``tokens``, and ``patches`` or ``frames``) is moved to the
+    device first."""
     dev = resolve_device(device)
 
     def prefill(params, batch: dict):
-        return forward(params, {"tokens": batch["tokens"].to(dev)}, cfg)
+        return forward(params, {k: v.to(dev) for k, v in batch.items()}, cfg)
 
     return prefill

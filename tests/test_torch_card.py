@@ -986,3 +986,62 @@ def test_flow_stats_kernel_at_split_edges(cuda, P):  # noqa: F811
     want = flow_stats_plain(v, m)
     assert torch.isnan(got[3, 1]) and torch.isnan(want[3, 1])
     assert torch.equal(got[:, [0, 3, 4]], want[:, [0, 3, 4]])
+
+
+# ---------------------------------------------------------------------------
+# whisper-small's attention shapes and the MoE layer on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk", [
+    (2, 12, 12, 1024, 1024),      # the encoder (and the served cross attention)
+    (2, 12, 12, 448, 1500),       # decoder positions against 30 s of memory
+    (2, 12, 12, 40, 48)])         # the reduced config's cross attention
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_whisper_shapes_bitwise(cuda, B, Hq, Hkv, Tq, Tk,  # noqa: F811
+                                                dtype):
+    """B6 non-causal at whisper-small's head dim 64, with Tq = Tk (the
+    encoder) and Tq != Tk (cross attention), bitwise its plain version."""
+    R = np.random.default_rng(Tq + Tk)
+    q = _randn(R, (B, Hq, Tq, 64), cuda, dtype)
+    k = _randn(R, (B, Hkv, Tk, 64), cuda, dtype)
+    v = _randn(R, (B, Hkv, Tk, 64), cuda, dtype)
+    got = flash_attention_kernel_call(q, k, v, causal=False)
+    assert torch.equal(got, flash_attention_plain(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("S", [168, 1500])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_at_mem_len_bitwise(cuda, S, dtype):  # noqa: F811
+    """B7 as whisper's decode cross-attends its memory: every length
+    mem_len = S (the served cache's 168, the reference's cap of 1500),
+    12 and 12 heads of 64, bitwise its plain version."""
+    R = np.random.default_rng(S)
+    q = _randn(R, (8, 12, 64), cuda, dtype)
+    kc = _randn(R, (8, S, 12, 64), cuda, dtype)
+    vc = _randn(R, (8, S, 12, 64), cuda, dtype)
+    lens = torch.full((8,), S, dtype=torch.int32, device=cuda)
+    got = decode_attention_kernel_call(q, kc, vc, lens)
+    assert torch.equal(got, decode_attention_plain(q, kc, vc, lens))
+
+
+@pytest.mark.parametrize("N", [8, 4096])
+def test_moe_combine_deterministic_on_card(cuda, N):  # noqa: F811
+    """The MoE layer at qwen2-moe-a2.7b's routing (60 experts in 64 slots,
+    top 4, 4 shared), narrow, in bf16 with each slot's weights drawn apart:
+    two runs give the same bits (no atomics in dispatch or combine), at a
+    decode batch that drops slots and a prefill batch."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.moe import MoE, moe_ref
+
+    cfg = dataclasses.replace(configs.get("qwen2-moe-a2.7b"), d_model=256,
+                              moe_d_ff=128)
+    p = MoE(cfg.d_model, cfg, torch.bfloat16, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    for w in p.parameters():
+        w.copy_(torch.randn(w.shape, generator=gen, device=cuda) * 0.05)
+    x = torch.randn((1, N, cfg.d_model), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    a, b = moe_ref(x, p, cfg), moe_ref(x, p, cfg)
+    assert torch.isfinite(a.float()).all() and torch.equal(a, b)

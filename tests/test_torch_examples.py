@@ -235,10 +235,12 @@ def test_tune_lm_config(monkeypatch):
         [(o.x.key(), o.cost, o.perf) for o in jres.pareto_observations()]
 
 
-def test_serve_lm():
-    """The drive's generate on its default architecture, reduced, with the
-    reference's parameters carried across: the reference example's greedy
-    tokens."""
+@pytest.mark.parametrize("arch", ["qwen3-8b", "qwen2-moe-a2.7b",
+                                  "whisper-small"])
+def test_serve_lm(arch):
+    """The drive's generate on its default architecture, a MoE and the
+    audio family, reduced, with the reference's parameters carried across:
+    the reference example's greedy tokens (`--arch` as the reference's)."""
     import jax
     import jax.numpy as jnp
 
@@ -251,9 +253,9 @@ def test_serve_lm():
 
     d = drive("serve_lm")
     assert d.DEFAULT_ARCH == "qwen3-8b"        # examples/serve_lm.py's
-    jcfg = jconfigs.get_reduced(d.DEFAULT_ARCH)
+    jcfg = jconfigs.get_reduced(arch)
     jp = j_init_params(jcfg, jax.random.PRNGKey(0))
-    cfg = configs.get_reduced(d.DEFAULT_ARCH)
+    cfg = configs.get_reduced(arch)
     params = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), cfg,
                                   device="cpu")
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
@@ -272,3 +274,159 @@ def test_serve_lm():
         tok, cache = step(jp, cache, tok)
         want.append(np.asarray(tok))
     np.testing.assert_array_equal(got, np.stack(want, 1))
+
+
+def test_serve_control():
+    """The drive's three acts at the reference example's size (120 zipf
+    flows of up to 256 packets; 6 bisection steps where it takes 8) under
+    its fixed constants, against the same acts composed from `repro` (its
+    `use_kernel=False` pipelines): zero-loss rates, drops, imbalance and
+    control summaries equal; the swap exactly once, its post-swap flows the
+    new pipeline's; the fleet grown and shrunk as the reference's."""
+    from repro.core import FeatureRep as JRep
+    from repro.traffic.synth import make_scenario_dataset as j_scenario
+
+    d = drive("serve_control")
+    kw = dict(n_flows=120, max_pkts=256, seed=3)
+    rates = {"hot": 4e6, "cold": 1e5}
+
+    def acts(sv, ds, pipes, fleet_of):
+        stream = sv.PacketStream.from_dataset(ds, seed=0)
+        svc_a, svc_b = sv.ServiceModel(**d.SVC_A), sv.ServiceModel(**d.SVC_B)
+        make = fleet_of(pipes["a"])
+        ring = max(64, stream.n_events // 16)
+        r_st, s_st = sv.find_zero_loss_rate(stream, make, svc_a, iters=6,
+                                            ring_capacity=ring)
+        r_dy, s_dy = sv.find_zero_loss_rate(
+            stream, make, svc_a, iters=6, ring_capacity=ring,
+            session=sv.ServeSession(control=sv.ControlConfig(**d.CONTROL)))
+        swap = sv.PipelineSwap(pipes["b"], svc_b,
+                               after_pkts=stream.n_events // 2)
+        swapped = sv.replay(stream, lambda: make(True), stream.base_pps, svc_a,
+                            session=sv.ServeSession(control=sv.ControlConfig(
+                                **d.CONTROL, swap=swap)))
+        cfg = sv.ControlConfig(interval_pkts=512,
+                               headroom=sv.HeadroomPolicy(max_workers=8))
+        small = fleet_of(pipes["a"], shards=2, capacity=4096)
+        runs = {k: sv.replay(stream, small, r, svc_a,
+                             session=sv.ServeSession(control=cfg))
+                for k, r in rates.items()}
+        return r_st, s_st, r_dy, s_dy, swapped, runs
+
+    jds = j_scenario("app-class", "zipf", **kw)
+    jpipes = {}
+    for tag, (names, depth) in (("a", d.REP_A), ("b", d.REP_B)):
+        jf, _ = j_train(np.asarray(j_extract(jds, names, depth)), jds.label,
+                        model="tree-fast", seed=0)
+        jpipes[tag] = j_build(JRep(names, depth), jf, depth, use_kernel=False)
+
+    def j_fleet_of(pipe, shards=4, capacity=2048):
+        return lambda execute=False: jserve.ShardedRuntime(
+            pipe, n_shards=shards, capacity=capacity, max_batch=64,
+            execute=execute)
+
+    want = acts(jserve, jds, jpipes, j_fleet_of)
+
+    ds, stream, reps, forests, pipe_a = d.deployment("cpu", **kw)
+    svc_a, svc_b = d.ServiceModel(**d.SVC_A), d.ServiceModel(**d.SVC_B)
+    make = d.fleet_of(pipe_a)
+    r_st, s_st, r_dy, s_dy = d.rebalance(stream, make, svc_a, iters=6,
+                                         ring=max(64, stream.n_events // 16))
+    pipe_b = d.build_pipeline(reps["b"], forests["b"], max_pkts=reps["b"].depth,
+                              fused=True, device="cpu")
+    swap = d.PipelineSwap(pipe_b, svc_b, after_pkts=stream.n_events // 2)
+    swapped, post, agree = d.hot_swap(
+        ds, stream, make, swap, svc_a, stream.base_pps,
+        lambda: d.StreamingRuntime(pipe_b, capacity=2048, max_batch=64))
+    runs = d.elastic(stream, lambda: d.fleet_of(pipe_a, shards=2,
+                                                capacity=4096)(), svc_a, rates)
+
+    jr_st, js_st, jr_dy, js_dy, jswapped, jruns = want
+    assert (r_st, r_dy) == (jr_st, jr_dy)
+    for got, ref in ((s_st, js_st), (s_dy, js_dy), (swapped, jswapped),
+                     *((runs[k], jruns[k]) for k in rates)):
+        assert got.drops == ref.drops
+        assert got.load_imbalance == ref.load_imbalance
+        assert got.control == ref.control
+    assert s_st.drops == s_dy.drops == swapped.drops == 0
+    assert swapped.control["swaps"] == 1
+    assert len(swapped.predictions) == ds.n_flows
+    assert swapped.metrics.duplicate_predictions == 0
+    assert agree == len(post) > 0
+    assert runs["hot"].control["workers_added"] > 0
+    assert runs["cold"].control["workers_retired"] > 0
+
+
+def test_selftune_fleet():
+    """The drive's steps on the CPU at the reference example's size pass
+    its own checks (one episode, 0 drops, every flow once, the re-tuned
+    F1 above the frozen one); its stale forest is the reference trainer's
+    (thresholds to 1e-6 relative: the trainer's quantile edges come from
+    columns equal to float32 rounding), and its frozen arm replays as the
+    reference's: drops and control summary equal, predictions on all but
+    1% of flows."""
+    from repro.core import FeatureRep as JRep
+    from repro.traffic.synth import make_scenario_dataset as j_scenario
+
+    d = drive("selftune_fleet")
+    ds, stream, first_pkt, pre, stale = d.deployment("cpu")
+    service = d.ServiceModel(**d.SERVICE)
+    frozen = d.frozen_arm(stream, stale, service)
+    triggers = []
+    tuned, session = d.tuned_arm(ds, stream, stale, service,
+                                 on_trigger=triggers.append)
+    episodes = session.resolve_audit().of_kind("reopt")
+    _, (f1_frozen, f1_tuned) = d.post_drift_f1(ds, stream, first_pkt, frozen,
+                                               tuned)
+    d.check(ds, frozen, tuned, episodes, f1_frozen, f1_tuned)
+    assert [t["device"] for t in triggers] == ["cpu"]
+
+    jds = j_scenario("app-class", "drift", n_flows=600, max_pkts=32, seed=3)
+    rep = JRep(d.REP_FEATURES, depth=8)
+    X = np.asarray(j_extract(jds, rep.features, rep.depth))
+    jf, _ = j_train(X[pre], jds.label[pre], model="tree-fast", seed=0)
+    forest = stale.pipeline.forest
+    np.testing.assert_array_equal(forest.feature, jf.feature)
+    np.testing.assert_array_equal(forest.leaf, jf.leaf)
+    np.testing.assert_allclose(forest.threshold, jf.threshold, rtol=1e-6)
+    jpipe = j_build(rep, jf, max_pkts=8, use_kernel=False)
+    jstream = jserve.PacketStream.from_dataset(jds, seed=0)
+    jfrozen = jserve.replay(
+        jstream, lambda: jserve.ShardedRuntime(jpipe, n_shards=2,
+                                               capacity=2048, max_batch=16,
+                                               execute=True),
+        d.OFFERED_PPS, jserve.ServiceModel(**d.SERVICE),
+        session=jserve.ServeSession(control=jserve.ControlConfig(
+            interval_pkts=256, rebalance=False)))
+    assert (frozen.drops, frozen.control) == (jfrozen.drops, jfrozen.control)
+    assert set(frozen.predictions) == set(jfrozen.predictions)
+    differ = sum(int(frozen.predictions[k] != jfrozen.predictions[k])
+                 for k in frozen.predictions)
+    assert differ <= 0.01 * ds.n_flows
+
+
+def test_serve_control_post_swap_flows_start_at_the_swap():
+    """The swap executes at the first control step at or after its packet:
+    at 300 flows of up to 128 packets that step (5632) lies past the armed
+    packet (5186), and flows first seen in between start on the old
+    pipeline. The hot-swap act holds to the new pipeline's own replay only
+    the flows first seen at or after the executed swap (all of them
+    agree); counting from the armed packet took in the flows between."""
+    d = drive("serve_control")
+    ds, stream, reps, forests, pipe_a = d.deployment("cpu", n_flows=300,
+                                                      max_pkts=128)
+    make = d.fleet_of(pipe_a)
+    pipe_b = d.build_pipeline(reps["b"], forests["b"], max_pkts=reps["b"].depth,
+                              fused=True, device="cpu")
+    swap = d.PipelineSwap(pipe_b, d.ServiceModel(**d.SVC_B),
+                          after_pkts=stream.n_events // 2)
+    swapped, post, agree = d.hot_swap(
+        ds, stream, make, swap, d.ServiceModel(**d.SVC_A), stream.base_pps,
+        lambda: d.fleet_of(pipe_b)(True))
+    at = swapped.control["swap_at_pkts"]
+    first = np.full(ds.n_flows, stream.n_events)
+    np.minimum.at(first, stream.fid, np.arange(stream.n_events))
+    between = np.flatnonzero((first >= swap.after_pkts) & (first < at))
+    assert (swap.after_pkts, at) == (5186, 5632) and len(between) > 0
+    assert agree == len(post) > 0
+    assert not set(between) & set(post)

@@ -156,9 +156,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_the_seven_drives_are_there():
+    """Every serving drive of `examples/` has its port (`train_lm.py`
+    waits for training)."""
     assert [p.stem for p in DRIVES] == sorted((
         "serve_stream", "quickstart", "optimize_app_class", "tune_serving",
-        "tune_multitenant", "tune_lm_config", "serve_lm"))
+        "tune_multitenant", "tune_lm_config", "serve_lm", "serve_control",
+        "selftune_fleet"))
+    assert {p.stem for p in DRIVES} >= {
+        p.stem for p in (ROOT / "examples").glob("*.py")} - {"train_lm"}
 
 
 @pytest.mark.parametrize("path", DRIVES, ids=lambda p: p.stem)
