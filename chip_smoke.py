@@ -174,8 +174,10 @@ Phases, each printing one JSON line:
    on the card from seed 0: a prefill of B 2 x T 2048, held against the same
    prefill with B6-B8's plain versions swapped in (argmax equal on >= 99%
    of positions, logit gaps bounded); a served batch of 8 (127 prompt
-   tokens teacher-forced, 32 greedy), with the launch counters set to 0
-   just before the prefills and read just after the served batch; then 4
+   tokens teacher-forced, 32 greedy; the ms a step to a synchronised
+   result and the ms spent issuing the steps, the process's threads and
+   the objects Python's collector tracks), with the launch counters set
+   to 0 just before the prefills and read just after the served batch; then 4
    decode steps held against the plain path step by step from the same
    cache (bitwise: every logit and argmax equal), a torch.profiler breakdown of a prefill and
    4 decode steps (xlstm-350m's prefill traced at 256 tokens, and one
@@ -201,6 +203,40 @@ Phases, each printing one JSON line:
    logits, every decode step's logits and the tokens bitwise the same run
    under the plain versions (checked), and each config's B6 and B7
    launches above 0 (xlstm-350m runs none).
+13. train_kernels (`train_kernel_check`, `train_kernel_times`): B6b
+   (flash attention's dQ, dK, dV) at zamba2-1.2b's training shape
+   (causal, B 2, 32 and 32 heads, T 4096, D 64, bf16), at whisper-small's
+   (non-causal 2 x 1024 x 1024; 448 positions against 1500 frames) and at
+   head dims 8, 12, 16 and 20 in float32 and bf16, causal and not, with 7
+   query heads a kv head at ragged lengths; B8b (the scan's dx, ddt, dA,
+   dBm, dCm) at zamba2-1.2b's training shape (B 2, T 4096, 64 heads of P
+   64, S 64, bf16, no dh_last) and at ragged T with and without dh_last.
+   Each bitwise its plain version and bitwise again on a second launch;
+   then their times at the training shapes beside the plain versions,
+   the bound and, for B6b, autograd's backward of
+   scaled_dot_product_attention (timed only). It runs after the serving
+   phases, so that they meet the process as they did before it existed.
+14. train: first zamba2-1.2b's first 2 layers (one shared-attention
+   application, two Mamba layers) at full width, seed-0 weights, step 0's first
+   microbatch (2 x 4096 tokens): loss and every gradient on the kernel
+   path (B6, B6b, B8, B8b) bitwise the plain path's (`train_step0_vs_
+   plain`). Then `repro_torch.launch.train.main` through its argv:
+   zamba2-1.2b at full width and depth in bf16, seed-0 weights, T 4096,
+   global batch 4 in 2 microbatches, 4 steps, checkpoints every 2 steps in
+   a temporary directory under build/, the launch counters set to 0 just
+   before and read just after; one more step traced (the card's busy
+   share); then the same command again after removing the step-4
+   checkpoint, as if the job had died after step 2: it resumes from the
+   step-2 checkpoint. Checked: losses finite and falling from step 0 to
+   step 3, the resumed losses at steps 2 and 3 bitwise the uninterrupted
+   run's, every kernel launched. The `train` line has step ms (median of
+   steps 1-3), tokens/s, peak GB and the launches per step.
+15. train_reduced: every reduced config in float32 and bf16, one
+   `make_train_step` step (2 x 40 tokens, 2 microbatches, AdamW) on the
+   kernel path and on the plain path: loss, grad norm, every gradient and
+   every updated parameter bitwise (checked), each config's kernels
+   launched; then examples_torch/train_lm.py with --device cuda (its loss
+   falls, B6b launched).
 
 Probabilities of pipelines whose feature columns agree only to float32
 rounding are compared by the straddle rule
@@ -215,6 +251,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -408,6 +445,39 @@ LM_REDUCED_B, LM_REDUCED_T, LM_REDUCED_GEN = 2, 40, 8
 LM_REDUCED_FRAMES_EXTRA = 8
 LM_B8_CASES = (("zamba2-1.2b", (2, 2048, 64, 64, 64), torch.bfloat16),
                ("ragged", (2, 1000, 8, 64, 16), torch.float32))
+# training (slice 13): zamba2-1.2b at full width and depth in bf16, the
+# reference's train_4k sequence length (src/repro/models/config.py), a
+# global batch of 4 in 2 microbatches, 4 steps, a checkpoint every 2; the
+# kernel path against the plain path at step 0 on the first
+# TRAIN_CHECK_LAYERS layers (one shared-attention application, two Mamba
+# layers) and one microbatch: the plain B8b is a loop over T steps on the
+# host, about 7 s a layer at T 4096
+TRAIN_ARCH, TRAIN_T, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = (
+    "zamba2-1.2b", 4096, 4, 2, 4)
+TRAIN_CHECK_LAYERS = 2
+# B6b: (B, Hq, Hkv, Tq, Tk, D), dtype, causal: zamba2-1.2b's training
+# shape, whisper-small's (non-causal encoder; a decoder's 448 positions
+# against 1500 frames), the small head dims in both types with 7 query
+# heads a kv head at ragged lengths
+TRAIN_B6B_CASES = (
+    ("zamba2-1.2b-train", (2, 32, 32, 4096, 4096, 64), torch.bfloat16, True),
+    ("whisper-small-encoder", (2, 12, 12, 1024, 1024, 64), torch.bfloat16,
+     False),
+    ("whisper-small-cross", (2, 12, 12, 448, 1500, 64), torch.bfloat16, False),
+    *((f"d{D}_{str(dt)[6:]}_{'causal' if c else 'full'}",
+       (2, 7, 1, 200, 328, D), dt, c)
+      for D in LM_SMALL_DIMS for dt in (torch.float32, torch.bfloat16)
+      for c in (True, False)))
+# B8b: (B, T, H, P, S), dtype, with dh_last: zamba2-1.2b's training shape
+# (training discards the final state), ragged T with and without dh_last
+TRAIN_B8B_CASES = (
+    ("zamba2-1.2b-train", (2, 4096, 64, 64, 64), torch.bfloat16, False),
+    ("ragged", (2, 1000, 8, 64, 16), torch.float32, False),
+    ("ragged_dh", (2, 1000, 8, 64, 16), torch.float32, True),
+    ("ragged_bf16_dh", (1, 333, 4, 64, 64), torch.bfloat16, True))
+# train_reduced: one step of each reduced config in both types, 2 x 40
+# tokens in 2 microbatches
+TRAIN_REDUCED_B, TRAIN_REDUCED_T = 2, 40
 
 
 def ptxas_entries(log: str, names: tuple[str, ...]) -> list[dict]:
@@ -508,16 +578,30 @@ def forest_touch(x: np.ndarray, forest) -> tuple[int, int, int]:
     return int(x_read.sum()), nodes, leaves
 
 
-def device_profile(fn, n: int) -> dict:
+def host_state() -> dict:
+    """The process's OS threads and the objects Python's collector tracks:
+    what a host-bound loop shares the host with."""
+    status = Path("/proc/self/status")
+    n = [int(line.split()[1]) for line in
+         (status.read_text().splitlines() if status.exists() else [])
+         if line.startswith("Threads:")]
+    return dict(threads=n[0] if n else None, gc_objects=len(gc.get_objects()))
+
+
+def device_profile(fn, n: int, host_ops: bool = True) -> dict:
     """Device time of `n` calls of `fn`, from torch.profiler: the summed
     time of every kernel and copy on the card over the host wall time of
     the window, and the largest contributors. Profiling adds host time, so
-    the busy share is a lower bound."""
+    the busy share is a lower bound. With `host_ops` False only the card's
+    activity is recorded: a training step's hundred thousand host ops
+    would cost the profiler about a minute to collect."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host_ops else []) + [
+        ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -1591,16 +1675,24 @@ def selftune_phase(counters) -> dict:
 def plain_kernels():
     """Run the model path on the plain versions of B6-B8, on the card: the
     dispatchers in `repro_torch.kernels.ops`, which the layers call, are
-    swapped for the plain functions while the block runs."""
+    swapped for the plain functions while the block runs. B6 and B8 stay
+    differentiable: their autograd functions with the plain pairs (B6's
+    and B6b's, B8's and B8b's plain versions), which build no graph where
+    no gradient is wanted."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
-    from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.kernels.mamba_scan import mamba_scan_plain
+    from repro_torch.kernels.flash_attention import FlashAttention
+    from repro_torch.kernels.mamba_scan import MambaScan
+
+    def flash_attention(q, k, v, *, causal=True, scale=None):
+        return FlashAttention.apply(q, k, v, causal, scale, True)
+
+    def mamba_scan(x, dt, A, Bm, Cm, *, chunk=128):
+        return MambaScan.apply(x, dt, A, Bm, Cm, chunk, True)
 
     saved = ops.flash_attention, ops.decode_attention, ops.mamba_scan
-    ops.flash_attention = flash_attention_plain
+    ops.flash_attention, ops.mamba_scan = flash_attention, mamba_scan
     ops.decode_attention = decode_attention_plain
-    ops.mamba_scan = mamba_scan_plain
     try:
         yield
     finally:
@@ -1814,6 +1906,378 @@ def lm_kernel_phase(dev, flush) -> dict:
     return dict(cases=cases, timing=timing)
 
 
+def train_kernel_phase(dev, flush) -> dict:
+    """B6b and B8b against their plain versions on the card (bitwise, and
+    bitwise again on a second launch: no atomics), then their times at
+    zamba2-1.2b's training shapes beside the plain versions (the check's
+    own run, host ms to a synchronised result: B8b's takes seconds), the
+    bound and (B6b) autograd's backward of `scaled_dot_product_attention`.
+    Inputs: normal draws on the card from seed 15."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel_call,
+        flash_attention_bwd_plain,
+        flash_attention_kernel_call,
+    )
+    from repro_torch.kernels.mamba_scan import (
+        bwd_scratch_shapes,
+        mamba_scan_bwd_kernel_call,
+        mamba_scan_bwd_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def timed(fn):
+        """fn() and its host ms to a synchronised result."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    cases, inputs, plain_ms = [], {}, {}
+    for name, (B, Hq, Hkv, Tq, Tk, D), dtype, causal in TRAIN_B6B_CASES:
+        q = randn((B, Hq, Tq, D), dtype)
+        k, v = randn((B, Hkv, Tk, D), dtype), randn((B, Hkv, Tk, D), dtype)
+        o = flash_attention_kernel_call(q, k, v, causal=causal)
+        do = randn((B, Hq, Tq, D), dtype)
+        got = flash_attention_bwd_kernel_call(q, k, v, o, do, causal=causal)
+        again = flash_attention_bwd_kernel_call(q, k, v, o, do, causal=causal)
+        want, ms = timed(lambda: flash_attention_bwd_plain(
+            q, k, v, o, do, causal=causal))
+        cases.append(dict(
+            kernel="flash_attention_bwd", case=name,
+            shape=[B, Hq, Hkv, Tq, Tk, D], causal=causal, dtype=str(dtype),
+            max_abs_err=max(err(a, b) for a, b in zip(got, want)),
+            bitwise=all(torch.equal(a, b) for a, b in zip(got, want)),
+            repeat_bitwise=all(torch.equal(a, b) for a, b in zip(got, again)),
+            tol=0.0))
+        check(cases[-1]["bitwise"] and cases[-1]["repeat_bitwise"],
+              f"B6b {cases[-1]}")
+        if name == "zamba2-1.2b-train":
+            inputs["flash_attention_bwd"] = (q, k, v, o, do)
+            plain_ms["flash_attention_bwd"] = ms
+        del got, again, want
+    for name, (B, T, H, P, S), dtype, with_dh in TRAIN_B8B_CASES:
+        x = randn((B, T, H, P), dtype, 0.5)
+        dt = randn((B, T, H), scale=0.1).abs() + 0.01
+        A = -randn((H,)).abs() - 0.1
+        Bm, Cm = randn((B, T, S), dtype, 0.3), randn((B, T, S), dtype, 0.3)
+        dy = randn((B, T, H, P), dtype)
+        dh = randn((B, H, P, S)) if with_dh else None
+        args = (x, dt, A, Bm, Cm, dy, dh)
+        got = mamba_scan_bwd_kernel_call(*args)
+        again = mamba_scan_bwd_kernel_call(*args)
+        want, ms = timed(lambda: mamba_scan_bwd_plain(*args))
+        cases.append(dict(
+            kernel="mamba_scan_bwd", case=name, shape=[B, T, H, P, S],
+            dh_last=with_dh, dtype=str(dtype),
+            max_abs_err=max(err(a, b) for a, b in zip(got, want)),
+            bitwise=all(torch.equal(a, b) for a, b in zip(got, want)),
+            repeat_bitwise=all(torch.equal(a, b) for a, b in zip(got, again)),
+            tol=0.0))
+        check(cases[-1]["bitwise"] and cases[-1]["repeat_bitwise"],
+              f"B8b {cases[-1]}")
+        if name == "zamba2-1.2b-train":
+            inputs["mamba_scan_bwd"] = args
+            plain_ms["mamba_scan_bwd"] = ms
+        del got, again, want
+    torch.cuda.synchronize()
+    for c in cases:
+        emit("train_kernel_check", **c)
+
+    timing = {}
+    q, k, v, o, do = inputs["flash_attention_bwd"]
+    B, Hq, T, D = q.shape
+    pairs = T * (T + 1) // 2
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    def b6b():
+        return flash_attention_bwd_kernel_call(q, k, v, o, do, causal=True)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qs, ks, vs), do, retain_graph=True)
+
+    t = dict(
+        ms=time_ms(b6b, 10, flush),
+        device_ms=time_ms(b6b, 10, flush, queued=True),
+        plain_ms=plain_ms["flash_attention_bwd"],
+        library_ms=time_ms(library, 10, flush),
+        library_device_ms=time_ms(library, 10, flush, queued=True),
+        # q, O, dO and dQ; k, v, dK and dV
+        bytes=q.element_size() * (4 * q.numel() + 4 * k.numel()),
+        # S, dP, dQ, dK, dV: five products of depth D per attended pair
+        ops=5 * 2 * D * pairs * B * Hq, shape=[B, Hq, k.shape[1], T, T, D],
+        causal=True, dtype=str(q.dtype))
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"], ops_rate(q.dtype))
+    t["tflops"] = t["ops"] / (t["ms"] * 1e-3) / 1e12
+    timing["flash_attention_bwd/zamba2-1.2b-train"] = t
+    del qs, ks, vs, lib_out
+    x, dt, A, Bm, Cm, dy, dh = inputs["mamba_scan_bwd"]
+    B, T, H, P = x.shape
+    S, c = Bm.shape[-1], 128
+    tri = c * (c + 1) // 2
+    # the chunked form's products, as B8's bound counts them: the forward's
+    # CB^T and (L o CB^T) x (tri each), its states B^T x and reads C h
+    # (c x P x S each); each has two products in the gradient (the states
+    # the gradient needs are not counted again)
+    per_chunk = 2 * (tri * 2 * S + tri * 2 * P + 4 * c * P * S)
+
+    def b8b():
+        return mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh)
+
+    t = dict(
+        ms=time_ms(b8b, 10, flush),
+        device_ms=time_ms(b8b, 10, flush, queued=True),
+        plain_ms=plain_ms["mamba_scan_bwd"],
+        library_ms=None,
+        # x, dy and dx; dt and ddt; A and dA; Bm, Cm, dBm and dCm
+        bytes=x.element_size() * 3 * x.numel() + 4 * 2 * dt.numel()
+        + 4 * 2 * H + Bm.element_size() * 4 * Bm.numel(),
+        ops=B * H * -(-T // c) * per_chunk, shape=[B, T, H, P, S],
+        chunk=c, dtype=str(x.dtype),
+        scratch_bytes=4 * sum(map(math.prod, bwd_scratch_shapes(B, T, H, P, S))),
+        blocks=B * H)
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"], ops_rate(x.dtype))
+    timing["mamba_scan_bwd/zamba2-1.2b-train"] = t
+    return dict(cases=cases, timing=timing)
+
+
+def train_counters() -> dict:
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel_call,
+        flash_attention_kernel_call,
+    )
+    from repro_torch.kernels.mamba_scan import (
+        mamba_scan_bwd_kernel_call,
+        mamba_scan_kernel_call,
+    )
+
+    return {"flash_attention": flash_attention_kernel_call,
+            "flash_attention_bwd": flash_attention_bwd_kernel_call,
+            "mamba_scan": mamba_scan_kernel_call,
+            "mamba_scan_bwd": mamba_scan_bwd_kernel_call}
+
+
+def step0_vs_plain(dev) -> dict:
+    """Loss and every gradient of zamba2-1.2b's first TRAIN_CHECK_LAYERS
+    layers at full width (seed-0 weights, step 0's first microbatch) on
+    the kernel path against the plain path, on the card."""
+    from repro_torch import configs
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train.data import make_batch
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              n_layers=TRAIN_CHECK_LAYERS)
+    params = init_params(cfg, 0, dev)
+    params.requires_grad_(True)
+    plist = list(params.parameters())
+    batch = make_batch(cfg, ShapeSpec("cli", TRAIN_T, TRAIN_BATCH, "train"),
+                       0, 0, dev)
+    mb = {k: v[:TRAIN_BATCH // TRAIN_MB] for k, v in batch.items()}
+
+    def grads():
+        loss = loss_fn(params, mb, cfg)
+        return loss.detach(), torch.autograd.grad(loss, plist)
+
+    counters = train_counters()
+    reset_launches(*counters.values())
+    k_loss, k_grads = grads()
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    with plain_kernels():
+        p_loss, p_grads = grads()
+    torch.cuda.synchronize()
+    out = dict(
+        layers=TRAIN_CHECK_LAYERS, tokens=list(mb["tokens"].shape),
+        loss=float(k_loss), plain_loss=float(p_loss),
+        loss_equal=bool(torch.equal(k_loss, p_loss)),
+        grad_leaves=len(plist),
+        grads_bitwise=sum(int(torch.equal(a, b))
+                          for a, b in zip(k_grads, p_grads)),
+        max_abs_err=max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(k_grads, p_grads)),
+        finite=all(bool(torch.isfinite(g.float()).all()) for g in k_grads),
+        launches=launches, seconds=time.perf_counter() - t0)
+    check(out["loss_equal"] and out["grads_bitwise"] == len(plist)
+          and out["finite"], f"train step 0, kernel vs plain path: {out}")
+    check(all(n > 0 for n in launches.values()),
+          f"step 0's kernel path launched {launches}")
+    return out
+
+
+def train_phase(dev) -> dict:
+    """`repro_torch.launch.train.main` through its argv: zamba2-1.2b at
+    full width and depth, bf16, seed-0 weights, T TRAIN_T, global batch
+    TRAIN_BATCH in TRAIN_MB microbatches, TRAIN_STEPS steps, checkpoints
+    every 2 steps in a temporary directory under build/; one more step
+    traced; then, as if the job had died after the step-2 checkpoint, the
+    same command again, resuming from it. Checked: losses finite and
+    falling from step 0 to the last, the resumed steps' losses bitwise the
+    uninterrupted run's, every kernel of the path launched."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import AdamW, cosine_schedule, make_train_step
+    from repro_torch.train.data import make_batch
+
+    counters = train_counters()
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_T),
+                "--microbatches", str(TRAIN_MB), "--ckpt-dir", d,
+                "--ckpt-every", "2", "--seed", "0", "--device", "cuda"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*counters.values())
+        full = {}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            losses = launch_train.main(argv, report=full)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        state = full.pop("state")
+        # one more step, traced: the card's busy share of a training step
+        cfg = configs.get(TRAIN_ARCH)
+        step_fn = make_train_step(cfg, AdamW(lr=cosine_schedule(
+            3e-4, 10, TRAIN_STEPS)), TRAIN_MB)
+        batch = make_batch(cfg, ShapeSpec("cli", TRAIN_T, TRAIN_BATCH,
+                                          "train"), TRAIN_STEPS, 0, dev)
+        prof = device_profile(lambda: step_fn(state, batch), 1,
+                              host_ops=False)
+        del state, batch, step_fn
+        torch.cuda.empty_cache()
+        shutil.rmtree(Path(d) / f"step_{TRAIN_STEPS:08d}")
+        (Path(d) / "LATEST").write_text("2")
+        resumed = {}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            launch_train.main(argv, report=resumed)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resumed.pop("state")
+    steady = sorted(full["step_seconds"][1:])
+    step_s = statistics.median(steady)
+    out = dict(
+        arch=TRAIN_ARCH, dtype="bfloat16", layers=configs.get(TRAIN_ARCH).n_layers,
+        seq=TRAIN_T, global_batch=TRAIN_BATCH, microbatches=TRAIN_MB,
+        steps=TRAIN_STEPS, losses=losses, grad_norms=full["grad_norms"],
+        lrs=full["lrs"], step_seconds=full["step_seconds"],
+        step_ms=step_s * 1e3, tokens_per_s=TRAIN_BATCH * TRAIN_T / step_s,
+        peak_gb=peak_gb, launches=launches,
+        launches_per_step={k: n / TRAIN_STEPS for k, n in launches.items()},
+        traced_step=prof, run_seconds=run_s,
+        resumed=dict(start=resumed["start"], losses=resumed["losses"],
+                     step_seconds=resumed["step_seconds"],
+                     equal=resumed["losses"] == losses[2:],
+                     seconds=resume_s),
+        stragglers=full["stragglers"])
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    check(resumed["start"] == 2 and out["resumed"]["equal"],
+          f"resumed losses {resumed['losses']} vs {losses[2:]}")
+    check(all(n > 0 for n in launches.values()), f"train launches {launches}")
+    return out
+
+
+def train_reduced_phase(dev) -> dict:
+    """Every reduced config in float32 and bf16, weights from seed 0 on the
+    card: one `make_train_step` step (2 x 40 tokens of the config's
+    synthetic batch, 2 microbatches, AdamW) on the kernel path, then the
+    same on the plain path; loss, grad norm, every gradient and every
+    updated parameter bitwise (checked), each config's kernels launched.
+    Then examples_torch/train_lm.py with --device cuda."""
+    from repro_torch import configs
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import AdamW, init_state, make_train_step
+    from repro_torch.train.data import make_batch
+
+    counters = train_counters()
+    shape = ShapeSpec("t", TRAIN_REDUCED_T, TRAIN_REDUCED_B, "train")
+    cases = []
+    for arch in LM_REDUCED_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(configs.get_reduced(arch), dtype=dtype)
+            batch = make_batch(cfg, shape, 0, 0, dev)
+
+            def run():
+                opt = AdamW(lr=1e-3)
+                state = init_state(cfg, 0, opt, dev)
+                seen = {}
+                update = opt.update
+
+                def spy(grads, st, params):
+                    seen.update({k: g.clone() for k, g in grads.items()})
+                    return update(grads, st, params)
+
+                opt.update = spy
+                state, met = make_train_step(cfg, opt, 2)(state, batch)
+                return met, seen, [p.detach().clone()
+                                   for p in state["params"].parameters()]
+
+            reset_launches(*counters.values())
+            k_met, k_g, k_p = run()
+            torch.cuda.synchronize()
+            launches = {k: f.launches for k, f in counters.items()}
+            with plain_kernels():
+                p_met, p_g, p_p = run()
+            torch.cuda.synchronize()
+            res = dict(
+                arch=arch, family=cfg.family, dtype=dtype,
+                loss=float(k_met["loss"]),
+                loss_equal=bool(torch.equal(k_met["loss"], p_met["loss"])),
+                grad_norm_equal=bool(torch.equal(k_met["grad_norm"],
+                                                 p_met["grad_norm"])),
+                grads_bitwise=all(torch.equal(k_g[n], p_g[n]) for n in k_g),
+                params_bitwise=all(torch.equal(a, b) for a, b in zip(k_p, p_p)),
+                max_abs_err=max(float((k_g[n].float() - p_g[n].float()).abs()
+                                      .max()) for n in k_g),
+                finite=math.isfinite(float(k_met["loss"])),
+                launches=launches, seconds=time.perf_counter() - t0)
+            emit("train_reduced", **res)
+            check(res["loss_equal"] and res["grad_norm_equal"]
+                  and res["grads_bitwise"] and res["params_bitwise"]
+                  and res["finite"],
+                  f"{arch} ({dtype}) train step, kernel vs plain: {res}")
+            want = {"hybrid": list(counters), "ssm": []}.get(
+                cfg.family, ["flash_attention", "flash_attention_bwd"])
+            check(all(launches[k] > 0 for k in want),
+                  f"{arch} ({dtype}) train launches {launches}")
+            cases.append(res)
+    reset_launches(*counters.values())
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        losses = load_drive("train_lm").main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    example = dict(losses=[losses[0], losses[-1]], steps=len(losses),
+                   launches={k: f.launches for k, f in counters.items()},
+                   seconds=time.perf_counter() - t0)
+    check(losses[-1] < losses[0] and example["launches"][
+        "flash_attention_bwd"] > 0, f"train_lm.py: {example}")
+    return dict(cases=cases, example=example, launches={
+        k: sum(r["launches"][k] for r in cases) for k in counters})
+
+
 def lm_batch(cfg, B: int, n_tokens: int, gen, dev, n_embed: int = 0,
              zeros: bool = False) -> dict:
     """A prefill batch on the card: tokens (B, n_tokens) drawn from `gen`,
@@ -1944,15 +2408,16 @@ def moe_breakdown(run, params, batch, cfg, flush) -> dict:
     C = moe._capacity(N * k, cfg.n_experts, cfg.capacity_factor)
     weights, sel = moe.router_topk(xt, p.w_router, k)
     order, sorted_e, pos, keep = moe._dispatch_indices(sel.reshape(-1), E, C)
-    src = torch.arange(N, device=xt.device).repeat_interleave(k)[order]
-    buf = moe._dispatch(xt, src, sorted_e, pos, keep, E, C)
+    x_slots = xt[:, None].expand(N, k, cfg.d_model)
+    buf = moe._dispatch(x_slots, order, sorted_e, pos, keep, E, C)
     out_buf = moe._expert_ffn(buf, p.w_gate, p.w_up, p.w_down)
     w_sorted = weights.reshape(-1)[order]
     steps = {
         "router_topk": lambda: moe.router_topk(xt, p.w_router, k),
         "_dispatch_indices": lambda: moe._dispatch_indices(
             sel.reshape(-1), E, C),
-        "_dispatch": lambda: moe._dispatch(xt, src, sorted_e, pos, keep, E, C),
+        "_dispatch": lambda: moe._dispatch(x_slots, order, sorted_e, pos,
+                                           keep, E, C),
         "_expert_ffn": lambda: moe._expert_ffn(buf, p.w_gate, p.w_up,
                                                p.w_down),
         "_combine": lambda: moe._combine(out_buf, w_sorted, order, sorted_e,
@@ -2047,6 +2512,7 @@ def lm_serve_phase(dev, flush) -> dict:
         for _ in range(LM_GEN):
             tok, cache = step(params, cache, tok)
             generated.append(tok)
+        issue_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         launches = {k: f.launches for k, f in counters.items()}
@@ -2099,6 +2565,8 @@ def lm_serve_phase(dev, flush) -> dict:
                        cache_len=LM_CACHE_LEN,
                        prompt_ms_per_step=prompt_s * 1e3 / (LM_PROMPT - 1),
                        decode_ms_per_step=gen_s * 1e3 / LM_GEN,
+                       issue_ms_per_step=issue_s * 1e3 / LM_GEN,
+                       **host_state(),
                        decode_tokens_per_s=LM_SERVE_B * LM_GEN / gen_s,
                        first_tokens=gen_t[0, :8].tolist()),
             launches=launches, peak_gb=peak / 1e9)
@@ -2978,6 +3446,27 @@ def main() -> None:
     emit("lm_reduced_summary", launches=lm_red["launches"],
          configs=len(lm_red["cases"]), seconds=time.perf_counter() - t0)
 
+    # 13. train_kernels: B6b and B8b against their plain versions, times --
+    t0 = time.perf_counter()
+    trk = train_kernel_phase(dev, flush)
+    torch.cuda.empty_cache()
+    emit("train_kernel_times", timing=trk["timing"],
+         seconds=time.perf_counter() - t0)
+
+    # 14. train: zamba2-1.2b at full width, through launch.train ----------
+    t0 = time.perf_counter()
+    step0 = step0_vs_plain(dev)
+    emit("train_step0_vs_plain", **step0)
+    train = train_phase(dev)
+    emit("train", **train, seconds=time.perf_counter() - t0)
+
+    # 15. train_reduced: every reduced config, kernels against plain -------
+    t0 = time.perf_counter()
+    tr_red = train_reduced_phase(dev)
+    emit("train_reduced_summary", launches=tr_red["launches"],
+         configs=len(tr_red["cases"]), example=tr_red["example"],
+         seconds=time.perf_counter() - t0)
+
     def lm_entry(name, source, replaces, main_case, extra_cases=()):
         t = lm["timing"][f"{name}/{main_case}"]
         entry = dict(
@@ -3004,6 +3493,26 @@ def main() -> None:
                                              *extra)
                            if k in e}
         return entry
+
+    def train_entry(name, source, forward_of, autodiff_of):
+        t = trk["timing"][f"{name}/zamba2-1.2b-train"]
+        return dict(
+            name=name, route="cuda", source=source, replaces=forward_of,
+            replaces_note=("the gradient of the kernel there: the reference "
+                           "has no backward kernel and differentiates "
+                           f"{autodiff_of} with XLA's autodiff"),
+            launches=train["launches"][name],
+            launches_per_step=train["launches_per_step"][name],
+            step0_launches=step0["launches"][name],
+            reduced_launches=tr_red["launches"][name],
+            example_launches=tr_red["example"]["launches"][name],
+            max_abs_err=max(c["max_abs_err"] for c in trk["cases"]
+                            if c["kernel"] == name),
+            bitwise=all(c["bitwise"] for c in trk["cases"]
+                        if c["kernel"] == name),
+            ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], shape=t["shape"], dtype=t["dtype"])
 
     from repro_torch.kernels.feature_extract import split_plan as b5_split
 
@@ -3131,6 +3640,13 @@ def main() -> None:
                  ("zamba2-1.2b", "qwen3-8b-reduced", "whisper-small-cross")),
         lm_entry("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
                  "src/repro/kernels/mamba_scan.py:78", "zamba2-1.2b"),
+        train_entry("flash_attention_bwd",
+                    "src/repro_torch/csrc/flash_attention_bwd.cu",
+                    "src/repro/kernels/flash_attention.py:83",
+                    "src/repro/models/layers.py:attention"),
+        train_entry("mamba_scan_bwd", "src/repro_torch/csrc/mamba_scan_bwd.cu",
+                    "src/repro/kernels/mamba_scan.py:78",
+                    "src/repro/models/ssm.py:chunked_ssd"),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched")
     emit("total", seconds=time.perf_counter() - t_start)

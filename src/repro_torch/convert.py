@@ -12,6 +12,9 @@ forests stacked for the kernel B4, with its per-tenant spec table.
 dicts of numpy arrays, layers stacked on a leading axis) into the port's
 `repro_torch.models.zoo.LM`, and `lm_cache_from_numpy` a reference decode
 cache, checking every key, shape and dtype on the way in.
+`train_state_from_numpy` carries a reference train state (parameters,
+then AdamW's m, v and step) into the port's, so that both packages can
+start training from the same state.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from .core.forest import DenseForest
 from .device import resolve_device
 
 __all__ = ["forest_from_numpy", "forest_tables", "lm_cache_from_numpy",
-           "lm_params_from_numpy", "multi_forest_tables"]
+           "lm_params_from_numpy", "multi_forest_tables",
+           "train_state_from_numpy"]
 
 
 def forest_from_numpy(feature, threshold, leaf, depth: int, n_features: int,
@@ -178,3 +182,34 @@ def lm_cache_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda"
     if set(tree) != set(want):
         raise ValueError(f"cache keys {sorted(tree)}, expected {sorted(want)}")
     return {k: _tensor(v, k, want[k]) for k, v in tree.items()}
+
+
+def train_state_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda"
+                           ) -> dict:
+    """The port's train state (`repro_torch.train.init_state`'s layout) on
+    `device` from the reference's ({"params": pytree, "opt": {"m": pytree,
+    "v": pytree, "step": scalar}}, as numpy): the parameters loaded by
+    `lm_params_from_numpy` with gradients on, the float32 moments keyed by
+    parameter name, the step an int32 scalar."""
+    import dataclasses
+
+    from .models.zoo import LM
+
+    dev = resolve_device(device)
+    params = lm_params_from_numpy(tree["params"], cfg, dev)
+    params.requires_grad_(True)
+    opt = tree["opt"]
+    moments = {}
+    for key in ("m", "v"):
+        holder = LM(dataclasses.replace(cfg, dtype="float32"), dev)
+        with torch.no_grad():
+            _load_module(holder, opt[key], key)
+        moments[key] = {n: p.detach() for n, p in holder.named_parameters()}
+    step = np.asarray(opt["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise TypeError(f"opt.step: {step.dtype} {step.shape}, expected an "
+                        "int32 scalar")
+    return {"params": params,
+            "opt": {"m": moments["m"], "v": moments["v"],
+                    "step": torch.tensor(int(step), dtype=torch.int32,
+                                         device=dev)}}

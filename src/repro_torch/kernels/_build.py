@@ -30,7 +30,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("forest_infer.cu", "fused_pipeline.cu", "fused_agg.cu",
            "fused_multi.cu", "flash_attention.cu", "decode_attention.cu",
-           "mamba_scan.cu", "flow_stats.cu")
+           "mamba_scan.cu", "flow_stats.cu", "flash_attention_bwd.cu",
+           "mamba_scan_bwd.cu")
 HEADERS = ("forest_common.cuh", "plan_warp.cuh", "lm_common.cuh")
 # --fmad=false: no multiply and add is contracted into one rounding, so
 # the forest kernels round as their plain versions do (the one fused
@@ -61,6 +62,10 @@ _SIGNATURES = {
         [_VOID] * 12 + [_INT] * 7 + [_VOID]),
     "flow_stats_launch": (
         [_VOID] * 3 + [_INT] * 4 + [_VOID]),
+    "flash_attention_bwd_launch": (
+        [_VOID] * 9 + [_INT] * 8 + [_FLOAT, _VOID]),
+    "mamba_scan_bwd_launch": (
+        [_VOID] * 16 + [_INT] * 6 + [_VOID]),
 }
 
 

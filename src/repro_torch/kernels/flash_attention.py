@@ -40,6 +40,18 @@ the first D columns of the result. The plain versions pad to the tile
 width: zero columns, the tile width's arithmetic, the first D columns.
 `repro_torch.kernels.ops.flash_attention` picks between kernel and plain
 version by the device of `q`.
+
+The gradient (B6b, which no TPU kernel has: the reference trains through
+XLA's autodiff) is `FlashAttention`, a `torch.autograd.Function` whose
+backward launches ``csrc/flash_attention_bwd.cu``
+(`flash_attention_bwd_kernel_call`) on the card and runs
+`flash_attention_bwd_plain` on the CPU. Both recompute the softmax
+statistics from q and k, so the forward writes nothing more when a
+gradient is wanted, and the serving launch is unchanged. Both compute in
+float32 (bf16 inputs widened exactly) with the scalar kernel's order:
+products of depth D or 64 (S, dP, and per 64-row or 64-key tile dS K, P^T
+dO, dS^T Q), added tile by tile in a fixed order, no atomics, so a
+gradient is the same bits every run.
 """
 from __future__ import annotations
 
@@ -51,9 +63,10 @@ import torch.nn.functional as F
 
 from ._build import check_tensor, launch
 
-__all__ = ["MAX_HEAD_DIM", "TILE_HEAD_DIMS", "TILE_K", "check_head_dim",
-           "flash_attention_kernel_call", "flash_attention_plain",
-           "pad_head", "tile_width"]
+__all__ = ["MAX_HEAD_DIM", "TILE_HEAD_DIMS", "TILE_K", "FlashAttention",
+           "check_head_dim", "flash_attention_bwd_kernel_call",
+           "flash_attention_bwd_plain", "flash_attention_kernel_call",
+           "flash_attention_plain", "pad_head", "tile_width"]
 
 TILE_HEAD_DIMS = (32, 64, 128)   # the tile widths the kernels are compiled for
 MAX_HEAD_DIM = 128
@@ -264,3 +277,156 @@ def flash_attention_kernel_call(q, k, v, *, causal: bool = True,
 
 
 flash_attention_kernel_call.launches = 0
+
+
+def _stats_f32(qf, kf, causal: bool, scale: float, Tk: int):
+    """The scalar kernel's running max m and row sum l over the 64-key
+    tiles, (B, Hq, Tq, 1) each: `_plain_f32` without the output. kf is
+    (B, Hq, Tk padded to TILE_K, D)."""
+    B, Hq, Tq, _ = qf.shape
+    dev = qf.device
+    qpos = torch.arange(Tq, device=dev)[:, None] + (Tk - Tq)
+    m = torch.full((B, Hq, Tq, 1), -1e30, device=dev)
+    l = torch.zeros((B, Hq, Tq, 1), device=dev)
+    for k0 in range(0, kf.shape[2], TILE_K):
+        s = torch.matmul(qf, kf[:, :, k0:k0 + TILE_K].transpose(-1, -2)) * scale
+        key = k0 + torch.arange(TILE_K, device=dev)[None, :]
+        valid = key < Tk
+        if causal:
+            valid = valid & (key <= qpos)
+        m_new = torch.maximum(
+            m, s.masked_fill(~valid, -1e30).amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), torch.zeros_like(s))
+        l = l * alpha + _lane_sum(p)
+        m = m_new
+    return m, l
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True,
+                              scale: float | None = None):
+    """(dq, dk, dv) of B6's function at q, k, v, given its output `out` and
+    the output's gradient `dout`, each in its input's type; runs on any
+    device. The kernel's arithmetic in float32: Delta = dO . O as a chain
+    over the columns in order, m and l as B6's float32 loop, then per
+    64-key tile S = Q K^T scale, P = exp(S - m) / l (0 where masked or l =
+    0), dP = dO V^T, dS = P (dP - Delta) scale and dQ += dS K; then, for
+    each query head of a kv head's group in order and each 64-row query
+    tile in order, dV += P^T dO and dK += dS^T Q. A small D runs on rows
+    zero-padded to the tile width, as the kernel; on the card a batch of
+    one matrix runs as two equal ones, as `mamba_scan_plain` does, so that
+    cuBLAS adds in k order."""
+    B, Hq, Hkv, Tq, Tk, D = _shapes(q, k, v)
+    scale = scale if scale is not None else D ** -0.5
+    if q.is_cuda and B * Hkv == 1:
+        grads = flash_attention_bwd_plain(
+            *(t.expand(2, *t.shape[1:]) for t in (q, k, v, out, dout)),
+            causal=causal, scale=scale)
+        return tuple(g[:1].contiguous() for g in grads)
+    dof, of = dout.float(), out.float()
+    delta = torch.zeros((B, Hq, Tq, 1), device=q.device)
+    for c in range(D):
+        delta = delta + dof[..., c:c + 1] * of[..., c:c + 1]
+    width = tile_width(D) or D
+    g = Hq // Hkv
+    padk, padq = (-Tk) % TILE_K, (-Tq) % TILE_K
+    qf = pad_head(q.float(), width)
+    dof = pad_head(dof, width)
+    kf = F.pad(pad_head(k.float(), width), (0, 0, 0, padk))
+    vf = F.pad(pad_head(v.float(), width), (0, 0, 0, padk))
+    kr, vr = kf.repeat_interleave(g, dim=1), vf.repeat_interleave(g, dim=1)
+    m, l = _stats_f32(qf, kr, causal, scale, Tk)
+    dev = q.device
+    qpos = torch.arange(Tq, device=dev)[:, None] + (Tk - Tq)
+    dq = torch.zeros_like(qf)
+    p_tiles, ds_tiles = [], []
+    for k0 in range(0, Tk + padk, TILE_K):
+        s = torch.matmul(qf, kr[:, :, k0:k0 + TILE_K].transpose(-1, -2)) * scale
+        key = k0 + torch.arange(TILE_K, device=dev)[None, :]
+        valid = key < Tk
+        if causal:
+            valid = valid & (key <= qpos)
+        p = torch.where(valid & (l > 0), torch.exp(s - m) / l,
+                        torch.zeros_like(s))
+        dp = torch.matmul(dof, vr[:, :, k0:k0 + TILE_K].transpose(-1, -2))
+        ds = (p * (dp - delta)) * scale
+        dq = dq + torch.matmul(ds, kr[:, :, k0:k0 + TILE_K])
+        p_tiles.append(p)
+        ds_tiles.append(ds)
+
+    def by_group(x):   # (B, Hq, Tq, X) -> (B, Hkv, g, Tq padded, X)
+        return F.pad(x, (0, 0, 0, padq)).unflatten(1, (Hkv, g))
+
+    P, DS = by_group(torch.cat(p_tiles, -1)), by_group(torch.cat(ds_tiles, -1))
+    Qg, dOg = by_group(qf), by_group(dof)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for hh in range(g):
+        for i0 in range(0, Tq + padq, TILE_K):
+            rows = slice(i0, i0 + TILE_K)
+            pt = P[:, :, hh, rows].transpose(-1, -2).contiguous()
+            dst = DS[:, :, hh, rows].transpose(-1, -2).contiguous()
+            dv = dv + torch.matmul(pt, dOg[:, :, hh, rows])
+            dk = dk + torch.matmul(dst, Qg[:, :, hh, rows])
+    return (dq[..., :D].to(q.dtype).contiguous(),
+            dk[:, :, :Tk, :D].to(k.dtype).contiguous(),
+            dv[:, :, :Tk, :D].to(v.dtype).contiguous())
+
+
+def flash_attention_bwd_kernel_call(q, k, v, out, dout, *, causal: bool = True,
+                                    scale: float | None = None):
+    """Launch B6b on CUDA tensors: (dq, dk, dv) in q's type.
+
+    q, k, v, out and dout are contiguous, of one type (float32 or
+    bfloat16), with an even head size D from 2 to `MAX_HEAD_DIM`; anything
+    else raises. Allocates the gradients and a float32 scratch of the
+    per-row statistics (3, B, Hq, Tq), launches on the current stream and
+    does not synchronise."""
+    B, Hq, Hkv, Tq, Tk, D = _shapes(q, k, v)
+    check_head_dim(D)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"dtype {q.dtype}: the kernel takes float32 or bfloat16")
+    dev = q.device
+    check_tensor("q", q, q.dtype, (B, Hq, Tq, D), dev)
+    check_tensor("k", k, q.dtype, (B, Hkv, Tk, D), dev)
+    check_tensor("v", v, q.dtype, (B, Hkv, Tk, D), dev)
+    check_tensor("out", out, q.dtype, (B, Hq, Tq, D), dev)
+    check_tensor("dout", dout, q.dtype, (B, Hq, Tq, D), dev)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    stats = torch.empty((3, B, Hq, Tq), dtype=torch.float32, device=dev)
+    scale = scale if scale is not None else D ** -0.5
+    launch("flash_attention_bwd_launch", dev,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           stats.data_ptr(), B, Hq, Hkv, Tq, Tk, D, int(causal),
+           int(q.dtype == torch.bfloat16), float(scale))
+    flash_attention_bwd_kernel_call.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_kernel_call.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """B6 with its gradient: the forward is B6 (or its plain version), the
+    backward B6b (or its plain version); ``plain`` picks the plain pair,
+    which a CPU tensor always takes. Saves q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale, plain: bool):
+        fwd = flash_attention_plain if plain else flash_attention_kernel_call
+        out = fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale, ctx.plain = causal, scale, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        bwd = (flash_attention_bwd_plain if ctx.plain
+               else flash_attention_bwd_kernel_call)
+        dq, dk, dv = bwd(q, k, v, out, dout.contiguous(), causal=ctx.causal,
+                         scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+

@@ -20,6 +20,20 @@ function with torch ops through
 `repro_torch.models.ssm` re-exports), chunk by chunk, vectorised over batch
 and heads. `repro_torch.kernels.ops.mamba_scan` picks between them by the
 device of `x`.
+
+The gradient (B8b, which no TPU kernel has: the reference trains through
+XLA's autodiff of `chunked_ssd`) is `MambaScan`, a
+`torch.autograd.Function` whose backward launches ``csrc/mamba_scan_bwd.cu``
+(`mamba_scan_bwd_kernel_call`) on the card and runs `mamba_scan_bwd_plain`
+on the CPU: dx, ddt, dA, dBm and dCm from dy and the final state's
+gradient. It works on the step recurrence, which computes the same
+function as the chunked form, row by row of the state (each of a head's P
+rows is its own recurrence over the S columns): the states are recomputed
+from the inputs (a forward pass keeps one every `BWD_SEGMENT` steps, each
+segment is recomputed from it in reverse), not taken from the forward's
+chunk scratch, whose states come from the chunked form's other roundings.
+Sums over a head's rows, over the heads (dBm, dCm) and over the batch and
+steps (dA) run in a fixed order, with no atomics.
 """
 from __future__ import annotations
 
@@ -28,9 +42,11 @@ import torch.nn.functional as F
 
 from ._build import check_tensor, launch
 
-__all__ = ["MAX_CHUNK", "MAX_SHARED_BYTES", "chunked_ssd", "cumsum_in_order",
-           "mamba_scan_kernel_call", "mamba_scan_plain", "scan_scratch_shapes",
-           "scan_shared_bytes"]
+__all__ = ["BWD_SEGMENT", "MAX_CHUNK", "MAX_SHARED_BYTES", "MambaScan",
+           "bwd_scratch_shapes", "check_bwd_shapes", "chunked_ssd",
+           "cumsum_in_order", "mamba_scan_bwd_kernel_call",
+           "mamba_scan_bwd_plain", "mamba_scan_kernel_call", "mamba_scan_plain",
+           "scan_scratch_shapes", "scan_shared_bytes"]
 
 MAX_SHARED_BYTES = 232_448   # the H100's shared memory per block
 MAX_CHUNK = 128              # kMaxChunk in the source
@@ -225,3 +241,194 @@ def mamba_scan_kernel_call(x, dt, A, Bm, Cm, *, chunk: int = 128):
 
 
 mamba_scan_kernel_call.launches = 0
+
+
+BWD_SEGMENT = 16    # steps a checkpoint covers, kSeg in the backward source
+_BWD_ROWS = 16      # state rows a pass of the backward's block holds
+_BWD_MAX_P = 64     # 4 passes: kMaxPasses x kWarps in the source
+_BWD_MAX_S = 64     # two state columns a lane
+
+
+def check_bwd_shapes(P: int, S: int) -> None:
+    """Raise where the backward kernel does not take (P, S): P a multiple
+    of 16 up to 64, S up to 64 (Mamba-2's heads have P = 64)."""
+    if P % _BWD_ROWS or not 0 < P <= _BWD_MAX_P or not 0 < S <= _BWD_MAX_S:
+        raise ValueError(f"P {P}, S {S}: the scan's backward takes P a "
+                         f"multiple of {_BWD_ROWS} up to {_BWD_MAX_P} and S "
+                         f"up to {_BWD_MAX_S}")
+
+
+def _s_pad(S: int) -> int:
+    return 32 if S <= 32 else 64
+
+
+def bwd_scratch_shapes(B: int, T: int, H: int, P: int, S: int):
+    """The float32 scratch `mamba_scan_bwd_kernel_call` allocates: the
+    checkpoints (B, H, n_segments, P, Sp), the per-head parts of dBm and
+    dCm (B, H, T, Sp) each, and of dA (B, H); Sp is S padded to 32 or 64
+    (a lane's columns)."""
+    Sp = _s_pad(S)
+    n_seg = -(-T // BWD_SEGMENT)
+    return ((B, H, n_seg, P, Sp), (B, H, T, Sp), (B, H, T, Sp), (B, H))
+
+
+def _lane_sum_s(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (S padded to 32 or 64) in the kernel's order:
+    each lane's columns s and s + 32, then the xor butterfly over 32
+    lanes."""
+    x = t[..., :32] + t[..., 32:] if t.shape[-1] == 64 else t
+    for w in (16, 8, 4, 2, 1):
+        x = x[..., :w] + x[..., w:2 * w]
+    return x[..., 0]
+
+
+def _row_sum(c: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 2 (a head's P rows) in the kernel's order: each group
+    of 16 rows halved (rows r and r + 8, then + 4, + 2, + 1), the groups
+    added in order from zero."""
+    y = c.unflatten(2, (c.shape[2] // _BWD_ROWS, _BWD_ROWS))
+    for w in (8, 4, 2, 1):
+        y = y[:, :, :, :w] + y[:, :, :, w:2 * w]
+    y = y[:, :, :, 0]
+    acc = torch.zeros_like(y[:, :, 0])
+    for i in range(y.shape[2]):
+        acc = acc + y[:, :, i]
+    return acc
+
+
+def mamba_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dh_last=None):
+    """(dx (B, T, H, P) in x's type, ddt (B, T, H) float32, dA (H,)
+    float32, dBm and dCm (B, T, S) in Bm's type): the gradient of the scan
+    at (x, dt, A, Bm, Cm) given dy (B, T, H, P) and the final state's
+    gradient dh_last (B, H, P, S) or None (zero). Runs on any device, in
+    the kernel's float32 arithmetic, on the step recurrence per state row:
+
+        h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t,   y_t = h_t C_t
+
+    Forward, every state (the kernel keeps one per `BWD_SEGMENT` steps and
+    recomputes the rest, the same bits). Then from t = T - 1 down, with gc
+    the gradient reaching h_t from later steps (dh_last at the end): g =
+    gc + dy_t C_t; dC_t += dy_t h_t and dB_t += g (dt_t x_t) summed over
+    the rows (`_row_sum`); dX = g . B_t per row (`_lane_sum_s`), dx_t = dX
+    dt_t; da = sum over rows of g . (exp(dt_t A) h_{t-1}); ddt_t = sum over
+    rows of x_t dX, plus da A; dA += da dt_t (steps in reverse order, then
+    the batch in order); gc = exp(dt_t A) g. dBm and dCm add the heads in
+    order."""
+    B, T, H, P, S = _shapes(x, dt, A, Bm, Cm)
+    check_bwd_shapes(P, S)
+    Sp = _s_pad(S)
+    dev = x.device
+    xf, dyf, dtf, Af = x.float(), dy.float(), dt.float(), A.float()
+    Bf = F.pad(Bm.float(), (0, Sp - S))
+    Cf = F.pad(Cm.float(), (0, Sp - S))
+    h = torch.zeros((B, H, P, Sp), dtype=torch.float32, device=dev)
+    states, decays, us = [h], [], []
+    for t in range(T):
+        decay = torch.exp(dtf[:, t] * Af)                     # (B, H)
+        u = dtf[:, t, :, None] * xf[:, t]                     # (B, H, P)
+        h = decay[..., None, None] * h + u[..., None] * Bf[:, t, None, None, :]
+        states.append(h)
+        decays.append(decay)
+        us.append(u)
+    gc = (torch.zeros_like(h) if dh_last is None
+          else F.pad(dh_last.float(), (0, Sp - S)))
+    dA_acc = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    dx = torch.empty((B, T, H, P), dtype=torch.float32, device=dev)
+    ddt = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+    dB_part = torch.empty((B, H, T, Sp), dtype=torch.float32, device=dev)
+    dC_part = torch.empty_like(dB_part)
+    for t in range(T - 1, -1, -1):
+        decay, u = decays[t], us[t]
+        g = gc + dyf[:, t, :, :, None] * Cf[:, t, None, None, :]
+        dC_part[:, :, t] = _row_sum(dyf[:, t, :, :, None] * states[t + 1])
+        dB_part[:, :, t] = _row_sum(g * u[..., None])
+        dX = _lane_sum_s(g * Bf[:, t, None, None, :])           # (B, H, P)
+        dx[:, t] = dX * dtf[:, t, :, None]
+        q = decay[..., None, None] * states[t]
+        da = _row_sum(_lane_sum_s(g * q)[..., None])[..., 0]    # (B, H)
+        xdX = _row_sum((xf[:, t] * dX)[..., None])[..., 0]
+        ddt[:, t] = xdX + da * Af
+        dA_acc = dA_acc + da * dtf[:, t]
+        gc = decay[..., None, None] * g
+    dA = torch.zeros((H,), dtype=torch.float32, device=dev)
+    for b in range(B):
+        dA = dA + dA_acc[b]
+    dBm = torch.zeros((B, T, Sp), dtype=torch.float32, device=dev)
+    dCm = torch.zeros_like(dBm)
+    for hh in range(H):
+        dBm = dBm + dB_part[:, hh]
+        dCm = dCm + dC_part[:, hh]
+    return (dx.to(x.dtype), ddt, dA, dBm[..., :S].to(Bm.dtype).contiguous(),
+            dCm[..., :S].to(Cm.dtype).contiguous())
+
+
+def mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh_last=None):
+    """Launch B8b on CUDA tensors: (dx, ddt, dA, dBm, dCm) as
+    `mamba_scan_bwd_plain` returns them.
+
+    x, Bm, Cm and dy are contiguous and of one type (float32 or bfloat16);
+    dt, A and dh_last (or None) are float32; P is a multiple of 16 up to
+    64 and S at most 64 (`check_bwd_shapes`). Anything else raises.
+    Allocates the gradients and the scratch of `bwd_scratch_shapes`,
+    launches on the current stream and does not synchronise."""
+    B, T, H, P, S = _shapes(x, dt, A, Bm, Cm)
+    check_bwd_shapes(P, S)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"dtype {x.dtype}: the kernel takes float32 or bfloat16")
+    dev = x.device
+    check_tensor("x", x, x.dtype, (B, T, H, P), dev)
+    check_tensor("dt", dt, torch.float32, (B, T, H), dev)
+    check_tensor("A", A, torch.float32, (H,), dev)
+    check_tensor("Bm", Bm, x.dtype, (B, T, S), dev)
+    check_tensor("Cm", Cm, x.dtype, (B, T, S), dev)
+    check_tensor("dy", dy, x.dtype, (B, T, H, P), dev)
+    if dh_last is not None:
+        check_tensor("dh_last", dh_last, torch.float32, (B, H, P, S), dev)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+    dA = torch.empty((H,), dtype=torch.float32, device=dev)
+    dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
+    if B * T * H == 0:
+        return dx.zero_(), ddt.zero_(), dA.zero_(), dBm.zero_(), dCm.zero_()
+    scratch = [torch.empty(shape, dtype=torch.float32, device=dev)
+               for shape in bwd_scratch_shapes(B, T, H, P, S)]
+    launch("mamba_scan_bwd_launch", dev,
+           x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+           Cm.data_ptr(), dy.data_ptr(),
+           dh_last.data_ptr() if dh_last is not None else None,
+           dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(),
+           dCm.data_ptr(), *(t.data_ptr() for t in scratch),
+           B, T, H, P, S, int(x.dtype == torch.bfloat16))
+    mamba_scan_bwd_kernel_call.launches += 1
+    return dx, ddt, dA, dBm, dCm
+
+
+mamba_scan_bwd_kernel_call.launches = 0
+
+
+class MambaScan(torch.autograd.Function):
+    """B8 with its gradient: the forward is B8 (or its plain version), the
+    backward B8b (or its plain version); ``plain`` picks the plain pair,
+    which a CPU tensor always takes. Returns (y, final state); both may
+    carry a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk: int, plain: bool):
+        fwd = mamba_scan_plain if plain else mamba_scan_kernel_call
+        y, h_last = fwd(x, dt, A, Bm, Cm, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.plain = plain
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        bwd = mamba_scan_bwd_plain if ctx.plain else mamba_scan_bwd_kernel_call
+        dx, ddt, dA, dBm, dCm = bwd(
+            x, dt, A, Bm, Cm, dy.to(x.dtype).contiguous(),
+            None if dh_last is None else dh_last.float().contiguous())
+        return dx, ddt, dA, dBm, dCm, None, None
+

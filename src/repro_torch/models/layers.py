@@ -37,8 +37,9 @@ __all__ = [
 
 
 def param(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised parameter; the port does not train, so it needs no
-    gradient."""
+    """An uninitialised parameter, made without ``requires_grad`` so that
+    serving builds no autograd graph; the trainer (`repro_torch.train.
+    init_state`) turns gradients on."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

@@ -2,8 +2,8 @@
 
 Port of `repro.models.moe`'s single-device path, `moe_ref`, with the
 same routing semantics. The expert-parallel `moe_sharded` (a mesh of
-chips, all_to_all) arrives with `parallel/*` (ROADMAP A7); on one card the
-reference's own path is `moe_ref`.
+chips, all_to_all) waits for the multi-card slice (ROADMAP A); on one card
+the reference's own path is `moe_ref`.
 
 The capacity C = ceil(tokens·k / n_experts · capacity_factor) is computed
 from the routed experts, while the buffers, the weights and the dispatch
@@ -18,7 +18,11 @@ slots are written to a spare row past the capacity, which is cut off);
 the combine puts each slot's weighted output back in the order the router
 chose its experts, (N, k, d), and adds a token's k slots one after the
 other, in that order, in x's type. The reference's scatter adds the same
-values, but in bucket order.
+values, but in bucket order. The backward is as deterministic: a slot's
+token row is picked from a k-fold broadcast of the tokens by its own
+(token, j) pair, each pair once (its gradient writes each pair once, then
+sums a token's k pairs), never by a token index repeated k times, whose
+gradient torch would add by atomics.
 
 The expert FFN is three batched products over the expert slots (the
 reference computes them outside any Pallas kernel), in cuBLAS.
@@ -122,14 +126,18 @@ def _shared_expert(x: torch.Tensor, w: SharedExpert) -> torch.Tensor:
     return h @ w.w_down
 
 
-def _dispatch(xt: torch.Tensor, src_tok, sorted_e, pos, keep, n_slots: int,
-              capacity: int) -> torch.Tensor:
-    """The (slots, C, d) expert buffer: each kept slot's token at (its
-    expert, its position), zeros elsewhere. A dropped slot goes to the
-    spare row C, cut off after."""
-    buf = torch.zeros((n_slots, capacity + 1, xt.shape[1]), dtype=xt.dtype,
-                      device=xt.device)
-    buf[sorted_e.long(), torch.where(keep, pos, capacity)] = xt[src_tok]
+def _dispatch(x_slots: torch.Tensor, order, sorted_e, pos, keep,
+              n_slots: int, capacity: int) -> torch.Tensor:
+    """The (slots, C, d) expert buffer: each kept slot's token row at (its
+    expert, its position), zeros elsewhere. `x_slots` (N, k, d) holds slot
+    (token, j) at [token, j] (a broadcast of the tokens: no copy); `order`
+    lists the flat slots token * k + j in bucket order. A dropped slot goes
+    to the spare row C, cut off after."""
+    k = x_slots.shape[1]
+    buf = torch.zeros((n_slots, capacity + 1, x_slots.shape[2]),
+                      dtype=x_slots.dtype, device=x_slots.device)
+    buf[sorted_e.long(), torch.where(keep, pos, capacity)] = \
+        x_slots[order // k, order % k]
     return buf[:, :capacity]
 
 
@@ -158,9 +166,9 @@ def moe_ref(x: torch.Tensor, p: MoE, cfg) -> torch.Tensor:
     N = xt.shape[0]
     weights, sel = router_topk(xt, p.w_router, k)
     C = _capacity(N * k, cfg.n_experts, cf)
-    tok_of_slot = torch.arange(N, device=x.device).repeat_interleave(k)
     order, sorted_e, pos, keep = _dispatch_indices(sel.reshape(-1), E, C)
-    buf = _dispatch(xt, tok_of_slot[order], sorted_e, pos, keep, E, C)
+    buf = _dispatch(xt[:, None].expand(N, k, d), order, sorted_e, pos, keep,
+                    E, C)
     out_buf = _expert_ffn(buf, p.w_gate, p.w_up, p.w_down)
     y = _combine(out_buf, weights.reshape(-1)[order], order, sorted_e, pos,
                  keep, N, k)

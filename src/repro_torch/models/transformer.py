@@ -6,9 +6,10 @@ attributes carry the reference's pytree keys and weight layouts; the
 functions below take them where the reference takes the dicts. Where the
 reference stacks layers on a leading axis and runs `scan_layers`, the port
 keeps an `nn.ModuleList` and loops in Python (`repro_torch.models.zoo`).
-The reference's sharding hints (`constrain`) have no counterpart: one card,
-no mesh (ROADMAP A7 brings `parallel/*`), and so the MoE block runs
-`moe_ref`, the reference's path without an expert-parallel mesh.
+The reference's sharding hints (`repro.parallel.constrain`) are the
+identity on one card (`repro_torch.parallel.constrain`), so the port does
+not call them; the MoE block runs `moe_ref`, the reference's path without
+an expert-parallel mesh (`moe_sharded` waits for the multi-card slice).
 
 `attn_decode` writes the new token's key and value into the caches it is
 given in place (JAX returns updated copies) and returns them.

@@ -23,8 +23,17 @@ Whisper's decode cross-attends the cache's ``xk``/``xv`` (B, mem_len, Hkv,
 hd) at ``mem_len``; like the reference, nothing here writes the encoder's
 memory into them, so they stay the zeros `init_cache` made.
 
-Training waits: the JAX package has no backward kernel for B6-B8, and
-`loss_fn` waits with `train/*` (ROADMAP A7).
+`loss_fn` is the training objective (`repro_torch.train` drives it).
+Autograd differentiates `forward` through B6 and B8's autograd functions,
+whose backwards are B6b and B8b; every other op is PyTorch's. Under
+``cfg.remat`` "block" (and "dots", which the port maps to "block": it has
+no per-op save policy) each layer runs in `torch.utils.checkpoint`, so
+only its input is kept and the backward recomputes it, B6 and B8 included
+(safe: both, and their backwards, give the same bits every run); a hybrid
+layer with the shared attention is two such regions, the attention and
+the Mamba layer. "none" keeps every activation. Serving builds no graph: the parameters are made
+without ``requires_grad``, and the serving entry points run under
+`torch.no_grad`.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .config import ModelConfig
@@ -181,47 +191,90 @@ def _head(p: LM, x: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, p.ln_f) @ p.lm_head
 
 
+def _layers(cfg: ModelConfig, params: LM):
+    """How each layer's function is applied: in `torch.utils.checkpoint`
+    (non-reentrant) under ``remat`` "block" or "dots" while autograd
+    records, else directly."""
+    remat = cfg.remat in ("block", "dots") and torch.is_grad_enabled() and \
+        any(p.requires_grad for p in params.parameters())
+    if not remat:
+        return lambda fn, *args: fn(*args)
+    return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def forward(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Logits of the full sequence: (B, T, V) for ``batch["tokens"]`` (B,
     T); for the vlm family (B, Np + T, V), the patches first; for the audio
-    family the decoder's (B, Td, V) over the encoded ``batch["frames"]``."""
+    family the decoder's (B, Td, V) over the encoded ``batch["frames"]``.
+    Each layer runs under ``cfg.remat`` (`_layers`)."""
     _check_family(cfg)
     fam = cfg.family
+    layer = _layers(cfg, params)
     x = F.embedding(batch["tokens"], params.tok_emb)
     if fam == "vlm":
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     if fam in ("dense", "moe", "vlm"):
         for blk in params.blocks:
-            x = block_forward(x, blk, cfg)
+            x = layer(lambda h, blk=blk: block_forward(h, blk, cfg), x)
         return _head(params, x)
     if fam == "audio":
         enc = batch["frames"].to(_DT[cfg.dtype])
         for blk in params.enc_blocks:
-            enc = block_forward(enc, blk, cfg, causal=False)
+            enc = layer(lambda h, blk=blk: block_forward(h, blk, cfg,
+                                                         causal=False), enc)
         enc = rms_norm(enc, params.ln_enc)
         for blk in params.dec_blocks:
-            x = block_forward(x, blk, cfg, memory=enc)
+            x = layer(lambda h, m, blk=blk: block_forward(h, blk, cfg,
+                                                          memory=m), x, enc)
         return _head(params, x)
     if fam == "ssm":
-        for pair in params.pairs:
-            x = x + mlstm_forward(rms_norm(x, pair.ln_m), pair.mlstm,
+        def pair_fn(h, pair):
+            h = h + mlstm_forward(rms_norm(h, pair.ln_m), pair.mlstm,
                                   cfg.n_heads, chunk=cfg.ssd_chunk)[0]
-            x = x + slstm_forward(rms_norm(x, pair.ln_s), pair.slstm)[0]
+            return h + slstm_forward(rms_norm(h, pair.ln_s), pair.slstm)[0]
+
+        for pair in params.pairs:
+            x = layer(lambda h, pair=pair: pair_fn(h, pair), x)
         return _head(params, x)
-    emb0 = x
     shared = params.shared
+
+    def attn_fn(h, e0):
+        a_in = torch.cat([h, e0], dim=-1) @ shared.w_concat
+        return h + attn_forward(rms_norm(a_in, shared.ln), shared.attn, cfg)
+
+    def mamba_fn(h, blk):
+        return h + mamba2_forward(rms_norm(h, blk.ln), blk.mamba, cfg)[0]
+
+    # a shared-attention application and a Mamba layer are two regions:
+    # without remat each frees its input as the old value of x, as serving
+    # always did; under remat each keeps only its input
+    emb0 = x
     for i, blk in enumerate(params.blocks):
         if i % cfg.shared_attn_every == 0:
-            a_in = torch.cat([x, emb0], dim=-1) @ shared.w_concat
-            x = x + attn_forward(rms_norm(a_in, shared.ln), shared.attn, cfg)
-        x = x + mamba2_forward(rms_norm(x, blk.ln), blk.mamba, cfg)[0]
+            x = layer(attn_fn, x, emb0)
+        x = layer(lambda h, blk=blk: mamba_fn(h, blk), x)
     return _head(params, x)
 
 
-def loss_fn(params, batch: dict, cfg: ModelConfig):
-    """Training waits: the JAX package has no backward kernel for B6-B8."""
-    raise NotImplementedError("training (loss_fn, train/*) is not ported yet "
-                              "(ROADMAP A12f)")
+def loss_fn(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy over ``batch["targets"]`` (B, T), in
+    float32 from `forward`'s logits, as `repro.models.loss_fn`: the vlm
+    family scores only the text tail (the last T positions), and targets
+    below 0 are masked out. The target's logit is picked by a select
+    against the vocabulary index (the reference multiplies by a one-hot:
+    the same value, a single non-zero term), whose backward is elementwise
+    and so the same bits every run."""
+    logits = forward(params, batch, cfg).float()
+    targets = batch["targets"]
+    if cfg.family == "vlm":
+        logits = logits[:, -targets.shape[1]:]
+    lse = torch.logsumexp(logits, dim=-1)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    hit = vocab == targets[..., None].long()
+    picked = torch.where(hit, logits, torch.zeros((), device=logits.device)
+                         ).sum(-1)
+    mask = (targets >= 0).float()
+    return ((lse - picked) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

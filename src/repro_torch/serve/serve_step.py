@@ -5,7 +5,8 @@ Port of `repro.serve.serve_step`. `serve_step` advances every sequence in
 the batch by one token (greedy, or sampled at a temperature) against the
 decode cache, which it updates in place; `prefill` runs the full-sequence
 forward. Both run on `device` (default the card) and move the tokens they
-are given there.
+are given there, under `torch.no_grad`: serving builds no autograd graph,
+even for a model the trainer turned gradients on for.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ def make_serve_step(cfg: ModelConfig, temperature: float = 0.0,
     torch's generator, so its tokens are not the reference's."""
     dev = resolve_device(device)
 
+    @torch.no_grad()
     def serve_step(params, cache, tokens: torch.Tensor,
                    generator: torch.Generator | None = None):
         logits, cache = decode_step(params, cache, tokens.to(dev), cfg)
@@ -45,6 +47,7 @@ def make_prefill(cfg: ModelConfig, device: str | torch.device = "cuda"):
     device first."""
     dev = resolve_device(device)
 
+    @torch.no_grad()
     def prefill(params, batch: dict):
         return forward(params, {k: v.to(dev) for k, v in batch.items()}, cfg)
 

@@ -1045,3 +1045,101 @@ def test_moe_combine_deterministic_on_card(cuda, N):  # noqa: F811
         torch.bfloat16)
     a, b = moe_ref(x, p, cfg), moe_ref(x, p, cfg)
     assert torch.isfinite(a.float()).all() and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# B6b and B8b: the gradients' kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal", [
+    (2, 4, 2, 100, 100, 16, True), (1, 2, 1, 40, 90, 12, False),
+    (2, 2, 2, 130, 70, 128, True), (2, 4, 4, 200, 300, 64, False),
+    (1, 6, 2, 65, 65, 20, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_bitwise_plain(cuda, B, Hq, Hkv, Tq, Tk,  # noqa: F811
+                                                  D, causal, dtype):
+    """B6b against its plain version on the same inputs, bitwise, and the
+    same bits on a second run (no atomics)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel_call,
+        flash_attention_bwd_plain,
+    )
+
+    R = np.random.default_rng(Tq * 7 + D)
+    q = _randn(R, (B, Hq, Tq, D), cuda, dtype)
+    k = _randn(R, (B, Hkv, Tk, D), cuda, dtype)
+    v = _randn(R, (B, Hkv, Tk, D), cuda, dtype)
+    do = _randn(R, (B, Hq, Tq, D), cuda, dtype)
+    o = flash_attention_kernel_call(q, k, v, causal=causal)
+    got = flash_attention_bwd_kernel_call(q, k, v, o, do, causal=causal)
+    again = flash_attention_bwd_kernel_call(q, k, v, o, do, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and torch.equal(g, w) and torch.equal(g, a)
+
+
+@pytest.mark.parametrize("B,T,H,P,S", [(2, 100, 4, 64, 16), (1, 37, 3, 16, 40),
+                                       (2, 300, 8, 64, 64), (1, 16, 2, 32, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_dh", [False, True])
+def test_mamba_scan_bwd_kernel_bitwise_plain(cuda, B, T, H, P, S, dtype,  # noqa: F811
+                                             with_dh):
+    """B8b against its plain version on the same inputs, bitwise, with and
+    without dh_last, and the same bits on a second run (no atomics)."""
+    from repro_torch.kernels.mamba_scan import (
+        mamba_scan_bwd_kernel_call,
+        mamba_scan_bwd_plain,
+    )
+
+    R = np.random.default_rng(T + S)
+    x = _randn(R, (B, T, H, P), cuda, dtype) * 0.5
+    dt = _randn(R, (B, T, H), cuda).abs() * 0.1 + 0.01
+    A = -_randn(R, (H,), cuda).abs() - 0.1
+    Bm = _randn(R, (B, T, S), cuda, dtype) * 0.3
+    Cm = _randn(R, (B, T, S), cuda, dtype) * 0.3
+    dy = _randn(R, (B, T, H, P), cuda, dtype)
+    dh = _randn(R, (B, H, P, S), cuda) if with_dh else None
+    got = mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh)
+    again = mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh)
+    want = mamba_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dh)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(g, a)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "zamba2-1.2b", "whisper-small"])
+def test_training_step_kernels_equal_plain(cuda, arch):  # noqa: F811
+    """One step of `make_train_step` on a reduced config in float32: the
+    kernel path (B6, B6b, B8, B8b) and the plain path give bitwise the same
+    loss, gradient norm and updated parameters."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import FlashAttention
+    from repro_torch.kernels.mamba_scan import MambaScan
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import AdamW, init_state, make_train_step
+    from repro_torch.train.data import make_batch
+
+    cfg = configs.get_reduced(arch)
+    batch = make_batch(cfg, ShapeSpec("t", 40, 2, "train"), 0, device=cuda)
+    out = []
+    for plain in (False, True):
+        saved = ops.flash_attention, ops.mamba_scan
+        if plain:
+            ops.flash_attention = (
+                lambda q, k, v, *, causal=True, scale=None:
+                FlashAttention.apply(q, k, v, causal, scale, True))
+            ops.mamba_scan = (
+                lambda x, dt, A, Bm, Cm, *, chunk=128:
+                MambaScan.apply(x, dt, A, Bm, Cm, chunk, True))
+        try:
+            opt = AdamW(lr=1e-3)
+            state = init_state(cfg, 0, opt, device=cuda)
+            state, met = make_train_step(cfg, opt, 2)(state, batch)
+        finally:
+            ops.flash_attention, ops.mamba_scan = saved
+        out.append((met, [p.detach().clone()
+                          for p in state["params"].parameters()]))
+    (m0, p0), (m1, p1) = out
+    assert torch.equal(m0["loss"], m1["loss"])
+    assert torch.equal(m0["grad_norm"], m1["grad_norm"])
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))

@@ -4,6 +4,7 @@ mode at `tests/test_kernels.py`'s sweep shapes and tolerances, and its jnp
 oracles at ragged shapes the Pallas wrappers do not take."""
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -610,3 +611,127 @@ def test_scan_kernel_refuses_what_its_blocks_do_not_hold(S, chunk, match):
     (_, x), (_, dt), (_, A), (_, Bm), (_, Cm) = _mamba_inputs(R, 1, 300, 2, 8, S)
     with pytest.raises(ValueError, match=match):
         mamba_scan_kernel_call(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# B6b and B8b: the gradients' plain versions
+# ---------------------------------------------------------------------------
+# Tolerance, per gradient: rtol 1e-4 plus atol 1e-5 x its largest |entry|
+# (float32 sums in other orders than autograd's or XLA's; measured at most
+# 2e-6 x the largest).
+
+def _assert_grad_close(got, want, what):
+    want = _np(want)
+    np.testing.assert_allclose(_np(got), want, rtol=1e-4,
+                               atol=1e-5 * float(np.abs(want).max()),
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal", [
+    (2, 4, 2, 37, 37, 16, True),      # GQA, ragged, small head dim
+    (1, 2, 1, 20, 50, 12, False),     # Tq != Tk, cross attention
+    (2, 2, 2, 70, 90, 64, True),      # causal with an offset
+    (1, 3, 1, 9, 9, 8, True),
+    (2, 4, 4, 64, 64, 128, False),
+    (1, 6, 2, 130, 130, 20, True),
+])
+def test_flash_attention_bwd_plain_matches_autograd_and_jax(B, Hq, Hkv, Tq, Tk,
+                                                            D, causal):
+    """B6b's plain version against autograd through B6's plain version and
+    against `jax.grad` of the reference's jnp attention oracle."""
+    from repro_torch.kernels.flash_attention import (
+        FlashAttention,
+        flash_attention_bwd_plain,
+    )
+
+    R = np.random.default_rng(B * 1000 + Tq + D)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(R, s) for s in (
+        (B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)))
+    jdo, tdo = _pair(R, (B, Hq, Tq, D))
+    out = flash_attention_plain(tq, tk, tv, causal=causal)
+    got = flash_attention_bwd_plain(tq, tk, tv, out, tdo, causal=causal)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    FlashAttention.apply(*leaves, causal, None, True).backward(tdo)
+    for g, leaf, name in zip(got, leaves, "qkv"):
+        _assert_grad_close(g, leaf.grad, f"d{name} vs autograd")
+
+    def f(q, k, v):
+        o = jref.flash_attention_ref(q, k, v, causal=causal)
+        return jnp.sum(o * jdo)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+    for g, w, name in zip(got, want, "qkv"):
+        _assert_grad_close(g, w, f"d{name} vs jax.grad")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_plain_is_the_float32_gradient(dtype):
+    """bf16 inputs widen exactly: B6b's bf16 gradients are its float32
+    gradients of the same (bf16-valued) inputs, rounded to bf16."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+
+    R = np.random.default_rng(3)
+    ts = [_pair(R, s, dtype)[1] for s in ((2, 4, 50, 16), (2, 2, 50, 16),
+                                          (2, 2, 50, 16), (2, 4, 50, 16),
+                                          (2, 4, 50, 16))]
+    got = flash_attention_bwd_plain(*ts)
+    want = flash_attention_bwd_plain(*(t.float() for t in ts))
+    for g, w in zip(got, want):
+        assert g.dtype == ts[0].dtype
+        assert torch.equal(g, w.to(g.dtype))
+
+
+@pytest.mark.parametrize("B,T,H,P,S,chunk,with_dh", [
+    (2, 64, 3, 16, 16, 32, False),
+    (1, 96, 2, 64, 40, 32, True),
+    (2, 50, 2, 32, 64, 16, True),      # ragged T: the forward pads
+    (2, 37, 4, 64, 8, 128, False),     # T below the chunk
+])
+def test_mamba_scan_bwd_plain_matches_autograd_and_jax(B, T, H, P, S, chunk,
+                                                       with_dh):
+    """B8b's plain version against autograd through B8's plain version,
+    and (T a multiple of the chunk) against `jax.grad` of the reference's
+    `chunked_ssd` with one shared group; dh_last given or not."""
+    from repro_torch.kernels.mamba_scan import MambaScan, mamba_scan_bwd_plain
+
+    R = np.random.default_rng(T + P + S)
+    (jx, tx), (jdt, tdt), (jA, tA), (jB, tB), (jC, tC) = _mamba_inputs(
+        R, B, T, H, P, S)
+    jdy, tdy = _pair(R, (B, T, H, P))
+    jdh, tdh = _pair(R, (B, H, P, S)) if with_dh else (None, None)
+    got = mamba_scan_bwd_plain(tx, tdt, tA, tB, tC, tdy, tdh)
+    leaves = [t.clone().requires_grad_() for t in (tx, tdt, tA, tB, tC)]
+    y, h = MambaScan.apply(*leaves, chunk, True)
+    loss = (y * tdy).sum() + ((h * tdh).sum() if with_dh else 0)
+    loss.backward()
+    names = ("dx", "ddt", "dA", "dBm", "dCm")
+    for g, leaf, name in zip(got, leaves, names):
+        _assert_grad_close(g, leaf.grad, f"{name} vs autograd")
+    if T % min(chunk, T):
+        return
+
+    def f(x, dt, A, Bm, Cm):
+        y, h = j_chunked_ssd(x, dt * A, dt, Bm[:, :, None], Cm[:, :, None],
+                             chunk=chunk)
+        out = jnp.sum(y * jdy)
+        return out + (jnp.sum(h * jdh) if with_dh else 0.0)
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3, 4))(jx, jdt, jA, jB, jC)
+    for g, w, name in zip(got, want, names):
+        _assert_grad_close(g, w, f"{name} vs jax.grad")
+
+
+def test_mamba_scan_bwd_refuses_what_its_kernel_does_not_take():
+    from repro_torch.kernels.mamba_scan import (
+        check_bwd_shapes,
+        mamba_scan_bwd_kernel_call,
+    )
+
+    for P, S in ((8, 16), (80, 16), (64, 65), (24, 8)):
+        with pytest.raises(ValueError, match="backward takes"):
+            check_bwd_shapes(P, S)
+    check_bwd_shapes(64, 64)
+    R = np.random.default_rng(0)
+    (_, x), (_, dt), (_, A), (_, Bm), (_, Cm) = _mamba_inputs(R, 1, 8, 2, 16, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, x)

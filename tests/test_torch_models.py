@@ -242,12 +242,27 @@ def test_full_width_configs():
                                   "whisper-small", "internvl2-26b",
                                   "xlstm-350m"])
 def test_loss_fn_waits_for_training(arch):
-    """Every family serves; training does not, yet."""
+    """Named for what it held while the port did not train (that
+    `loss_fn` refused); it now holds `loss_fn` of every family to the
+    reference's loss on its own synthetic batch (rtol 1e-5; the gradients
+    are held in tests/test_torch_train.py), and serving's cache as
+    before."""
+    from repro.models import loss_fn as j_loss_fn
+    from repro.models.config import ShapeSpec
+    from repro.train.data import make_batch as j_make_batch
+
     cfg = configs.get_reduced(arch)
-    params = init_params(cfg, device="cpu")
     assert init_cache(cfg, 1, 4, device="cpu")["pos"].tolist() == [0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A12f"):
-        loss_fn(params, {}, cfg)
+    jcfg = jconfigs.get_reduced(arch)
+    jp = j_init_params(jcfg, jax.random.PRNGKey(0))
+    batch = _numpy_tree(j_make_batch(jcfg, ShapeSpec("t", 24, 2, "train"), 0))
+    params = lm_params_from_numpy(_numpy_tree(jp), cfg, device=CPU)
+    with torch.no_grad():
+        got = loss_fn(params, {k: torch.from_numpy(np.ascontiguousarray(v))
+                               for k, v in batch.items()}, cfg)
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(got.item(), float(j_loss_fn(jp, batch, jcfg)),
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("arch", list(jconfigs.all_arch_ids()))

@@ -86,6 +86,14 @@ SLICE_MODULES = (
     "repro_torch.serve.obs.drift",
     "repro_torch.serve.obs.export",
     "repro_torch.serve.obs.slo",
+    "repro_torch.train.checkpoint",
+    "repro_torch.train.data",
+    "repro_torch.train.elastic",
+    "repro_torch.train.optimizer",
+    "repro_torch.train.train_step",
+    "repro_torch.parallel.sharding",
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.train",
 )
 
 
@@ -122,7 +130,7 @@ def test_import_scan_covers_the_slice():
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-                         + [ROOT / "tools" / "ab_kernels.py"]
+                         + sorted((ROOT / "tools").glob("*.py"))
                          + DRIVES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     roots = set(_imported_roots(path))
@@ -156,14 +164,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_the_seven_drives_are_there():
-    """Every serving drive of `examples/` has its port (`train_lm.py`
-    waits for training)."""
+    """Every drive of `examples/` has its port, `train_lm.py` included."""
     assert [p.stem for p in DRIVES] == sorted((
         "serve_stream", "quickstart", "optimize_app_class", "tune_serving",
         "tune_multitenant", "tune_lm_config", "serve_lm", "serve_control",
-        "selftune_fleet"))
+        "selftune_fleet", "train_lm"))
     assert {p.stem for p in DRIVES} >= {
-        p.stem for p in (ROOT / "examples").glob("*.py")} - {"train_lm"}
+        p.stem for p in (ROOT / "examples").glob("*.py")}
 
 
 @pytest.mark.parametrize("path", DRIVES, ids=lambda p: p.stem)
@@ -243,13 +250,23 @@ def test_deploy_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_lm_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import AdamW, init_state
+    from repro_torch.train.data import SyntheticTokens, make_batch
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    shape = ShapeSpec("t", 8, 2, "train")
     for arch in ("qwen3-8b", "zamba2-1.2b"):
         cfg = configs.get_reduced(arch)
         for make in (lambda **kw: init_params(cfg, 0, **kw),
                      lambda **kw: init_cache(cfg, 2, 8, **kw),
                      lambda **kw: make_prefill(cfg, **kw),
-                     lambda **kw: make_serve_step(cfg, **kw)):
+                     lambda **kw: make_serve_step(cfg, **kw),
+                     lambda **kw: init_state(cfg, 0, AdamW(), **kw),
+                     lambda **kw: make_batch(cfg, shape, 0, **kw),
+                     lambda **kw: next(iter(SyntheticTokens(cfg, shape, **kw))),
+                     lambda **kw: make_local_mesh(1, 1, **kw)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make()
             make(device="cpu")

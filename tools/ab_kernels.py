@@ -1,4 +1,5 @@
-"""Time B5, B6 and B7 of several checkouts of the port in one run on a card.
+"""Time B5, B6 and B7, and LM serving, of several checkouts of the port in
+one run on a card.
 
     python3 tools/ab_kernels.py NAME=DIR [NAME=DIR ...] [--out DIR]
 
@@ -25,7 +26,12 @@ a flush of its L2, the median of REPS runs; the chip_smoke.py method):
   at 2048, float32 and bf16 (also its ms with the wrapper's host work),
   and the reduced qwen3-8b's prefill end to end (`make_prefill`, 2 x 40
   tokens, host ms to a synchronised result), where the checkout takes
-  head dim 16 (an older one raises ValueError: not timed).
+  head dim 16 (an older one raises ValueError: not timed);
+- serving at full width in bf16, seed-0 weights, as chip_smoke.py's
+  `lm_serve` times it: qwen3-8b's and zamba2-1.2b's prefill of 2 x 2048
+  tokens (host ms to a synchronised result, the median of the 2nd and
+  3rd runs), a served batch of 8 (127 prompt tokens teacher-forced, then
+  32 greedy steps: ms a step) and the peak device memory in GB.
 The SASS of B7's bf16 kernels at D 64 and G 4 (the zamba2 instantiation)
 is compared across the checkouts, with the listing's addresses and
 encodings removed.
@@ -45,6 +51,8 @@ from pathlib import Path
 
 REPS = 50
 QUEUE_CYCLES = 2_000_000
+SERVE_ARCHS = ("qwen3-8b", "zamba2-1.2b")
+SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 8, 128, 32, 168
 B5_WINDOWS = {"iot_window": (4000, 128), "stream_trace": (600, 4000)}
 B7_CASES = {"zamba2-1.2b": (8, 32, 32, 168, 64, 159),
             "qwen3-8b": (8, 32, 8, 4096, 128, 4096)}
@@ -68,11 +76,12 @@ def child(root: Path) -> dict:
     from repro_torch.kernels.decode_attention import decode_attention_kernel_call
     from repro_torch.kernels.feature_extract import flow_stats_kernel_call
     from repro_torch.kernels.flash_attention import flash_attention_kernel_call
-    from repro_torch.models import init_params
-    from repro_torch.serve import make_prefill
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.traffic.synth import make_dataset, make_scenario_dataset
 
     assert Path(_build.__file__).resolve().is_relative_to(root.resolve())
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     lib = _build.build_library()
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
@@ -156,6 +165,41 @@ def child(root: Path) -> dict:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         out[f"{key}_ms"] = statistics.median(times)
+
+    for arch in SERVE_ARCHS:
+        cfg = configs.get(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0)
+        g = torch.Generator(device=dev).manual_seed(0)
+        toks = torch.randint(0, cfg.vocab_size, (2, 2048), generator=g,
+                             device=dev)
+        prefill = make_prefill(cfg)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"serve_{arch}_prefill_ms"] = statistics.median(times[1:])
+        step = make_serve_step(cfg)
+        cache = init_cache(cfg, SERVE_B, SERVE_CACHE)
+        prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                               generator=g, device=dev, dtype=torch.int32)
+        tok = prompt[:, 0]
+        for i in range(1, SERVE_PROMPT):
+            _, cache = step(params, cache, tok)
+            tok = prompt[:, i]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_GEN):
+            tok, cache = step(params, cache, tok)
+        torch.cuda.synchronize()
+        out[f"serve_{arch}_decode_ms_per_step"] = \
+            (time.perf_counter() - t0) * 1e3 / SERVE_GEN
+        out[f"serve_{arch}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, cache
     return out
 
 
