@@ -449,12 +449,11 @@ LM_B8_CASES = (("zamba2-1.2b", (2, 2048, 64, 64, 64), torch.bfloat16),
 # reference's train_4k sequence length (src/repro/models/config.py), a
 # global batch of 4 in 2 microbatches, 4 steps, a checkpoint every 2; the
 # kernel path against the plain path at step 0 on the first
-# TRAIN_CHECK_LAYERS layers (one shared-attention application, two Mamba
-# layers) and one microbatch: the plain B8b is a loop over T steps on the
-# host, about 7 s a layer at T 4096
+# TRAIN_CHECK_LAYERS layers (one shared-attention application and the
+# Mamba layers around it) and one microbatch
 TRAIN_ARCH, TRAIN_T, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = (
     "zamba2-1.2b", 4096, 4, 2, 4)
-TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_LAYERS = 6
 # B6b: (B, Hq, Hkv, Tq, Tk, D), dtype, causal: zamba2-1.2b's training
 # shape, whisper-small's (non-causal encoder; a decoder's 448 positions
 # against 1500 frames), the small head dims in both types with 7 query
@@ -468,13 +467,16 @@ TRAIN_B6B_CASES = (
        (2, 7, 1, 200, 328, D), dt, c)
       for D in LM_SMALL_DIMS for dt in (torch.float32, torch.bfloat16)
       for c in (True, False)))
-# B8b: (B, T, H, P, S), dtype, with dh_last: zamba2-1.2b's training shape
-# (training discards the final state), ragged T with and without dh_last
+# B8b: (B, T, H, P, S), dtype, with dh_last, chunk: zamba2-1.2b's training
+# shape (training discards the final state), ragged T with and without
+# dh_last, chunks of 64, and T below one chunk
 TRAIN_B8B_CASES = (
-    ("zamba2-1.2b-train", (2, 4096, 64, 64, 64), torch.bfloat16, False),
-    ("ragged", (2, 1000, 8, 64, 16), torch.float32, False),
-    ("ragged_dh", (2, 1000, 8, 64, 16), torch.float32, True),
-    ("ragged_bf16_dh", (1, 333, 4, 64, 64), torch.bfloat16, True))
+    ("zamba2-1.2b-train", (2, 4096, 64, 64, 64), torch.bfloat16, False, 128),
+    ("ragged", (2, 1000, 8, 64, 16), torch.float32, False, 128),
+    ("ragged_dh", (2, 1000, 8, 64, 16), torch.float32, True, 128),
+    ("ragged_bf16_dh", (1, 333, 4, 64, 64), torch.bfloat16, True, 128),
+    ("chunk64_dh", (2, 1000, 8, 64, 16), torch.bfloat16, True, 64),
+    ("below_chunk_dh", (2, 100, 8, 64, 64), torch.float32, True, 128))
 # train_reduced: one step of each reduced config in both types, 2 x 40
 # tokens in 2 microbatches
 TRAIN_REDUCED_B, TRAIN_REDUCED_T = 2, 40
@@ -588,13 +590,14 @@ def host_state() -> dict:
     return dict(threads=n[0] if n else None, gc_objects=len(gc.get_objects()))
 
 
-def device_profile(fn, n: int, host_ops: bool = True) -> dict:
+def device_profile(fn, n: int, host_ops: bool = True,
+                   top: int | None = 5) -> dict:
     """Device time of `n` calls of `fn`, from torch.profiler: the summed
     time of every kernel and copy on the card over the host wall time of
-    the window, and the largest contributors. Profiling adds host time, so
-    the busy share is a lower bound. With `host_ops` False only the card's
-    activity is recorded: a training step's hundred thousand host ops
-    would cost the profiler about a minute to collect."""
+    the window, and the `top` largest contributors (None: all). Profiling
+    adds host time, so the busy share is a lower bound. With `host_ops`
+    False only the card's activity is recorded: a training step's hundred
+    thousand host ops would cost the profiler about a minute to collect."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -614,7 +617,7 @@ def device_profile(fn, n: int, host_ops: bool = True) -> dict:
     return dict(calls=n, window_ms=window_ms, device_busy_ms=busy_ms,
                 busy_share=busy_ms / window_ms if busy_ms > 0 else None,
                 kernels=sum(r[1] for r in rows),
-                top=[dict(name=k, count=c, ms=ms) for k, c, ms in rows[:5]])
+                top=[dict(name=k, count=c, ms=ms) for k, c, ms in rows[:top]])
 
 
 def bound(n_bytes: float, n_ops: float,
@@ -1910,8 +1913,9 @@ def train_kernel_phase(dev, flush) -> dict:
     """B6b and B8b against their plain versions on the card (bitwise, and
     bitwise again on a second launch: no atomics), then their times at
     zamba2-1.2b's training shapes beside the plain versions (the check's
-    own run, host ms to a synchronised result: B8b's takes seconds), the
-    bound and (B6b) autograd's backward of `scaled_dot_product_attention`.
+    own run, host ms to a synchronised result), the bound and, for B6b,
+    autograd's backward of `scaled_dot_product_attention` (each launch's
+    device ms comes from the traced training step: `launch_times`).
     Inputs: normal draws on the card from seed 15."""
     import torch.nn.functional as F
 
@@ -1965,7 +1969,7 @@ def train_kernel_phase(dev, flush) -> dict:
             inputs["flash_attention_bwd"] = (q, k, v, o, do)
             plain_ms["flash_attention_bwd"] = ms
         del got, again, want
-    for name, (B, T, H, P, S), dtype, with_dh in TRAIN_B8B_CASES:
+    for name, (B, T, H, P, S), dtype, with_dh, chunk in TRAIN_B8B_CASES:
         x = randn((B, T, H, P), dtype, 0.5)
         dt = randn((B, T, H), scale=0.1).abs() + 0.01
         A = -randn((H,)).abs() - 0.1
@@ -1973,12 +1977,12 @@ def train_kernel_phase(dev, flush) -> dict:
         dy = randn((B, T, H, P), dtype)
         dh = randn((B, H, P, S)) if with_dh else None
         args = (x, dt, A, Bm, Cm, dy, dh)
-        got = mamba_scan_bwd_kernel_call(*args)
-        again = mamba_scan_bwd_kernel_call(*args)
-        want, ms = timed(lambda: mamba_scan_bwd_plain(*args))
+        got = mamba_scan_bwd_kernel_call(*args, chunk=chunk)
+        again = mamba_scan_bwd_kernel_call(*args, chunk=chunk)
+        want, ms = timed(lambda: mamba_scan_bwd_plain(*args, chunk=chunk))
         cases.append(dict(
             kernel="mamba_scan_bwd", case=name, shape=[B, T, H, P, S],
-            dh_last=with_dh, dtype=str(dtype),
+            dh_last=with_dh, chunk=chunk, dtype=str(dtype),
             max_abs_err=max(err(a, b) for a, b in zip(got, want)),
             bitwise=all(torch.equal(a, b) for a, b in zip(got, want)),
             repeat_bitwise=all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -2019,6 +2023,7 @@ def train_kernel_phase(dev, flush) -> dict:
         causal=True, dtype=str(q.dtype))
     t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"], ops_rate(q.dtype))
     t["tflops"] = t["ops"] / (t["ms"] * 1e-3) / 1e12
+    t["device_tflops"] = t["ops"] / (t["device_ms"] * 1e-3) / 1e12
     timing["flash_attention_bwd/zamba2-1.2b-train"] = t
     del qs, ks, vs, lib_out
     x, dt, A, Bm, Cm, dy, dh = inputs["mamba_scan_bwd"]
@@ -2032,7 +2037,7 @@ def train_kernel_phase(dev, flush) -> dict:
     per_chunk = 2 * (tri * 2 * S + tri * 2 * P + 4 * c * P * S)
 
     def b8b():
-        return mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh)
+        return mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh, chunk=c)
 
     t = dict(
         ms=time_ms(b8b, 10, flush),
@@ -2044,8 +2049,9 @@ def train_kernel_phase(dev, flush) -> dict:
         + 4 * 2 * H + Bm.element_size() * 4 * Bm.numel(),
         ops=B * H * -(-T // c) * per_chunk, shape=[B, T, H, P, S],
         chunk=c, dtype=str(x.dtype),
-        scratch_bytes=4 * sum(map(math.prod, bwd_scratch_shapes(B, T, H, P, S))),
-        blocks=B * H)
+        scratch_bytes=4 * sum(map(math.prod,
+                                  bwd_scratch_shapes(B, T, H, P, S, c))),
+        blocks=B * H * -(-T // c))
     t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"], ops_rate(x.dtype))
     timing["mamba_scan_bwd/zamba2-1.2b-train"] = t
     return dict(cases=cases, timing=timing)
@@ -2065,6 +2071,23 @@ def train_counters() -> dict:
             "flash_attention_bwd": flash_attention_bwd_kernel_call,
             "mamba_scan": mamba_scan_kernel_call,
             "mamba_scan_bwd": mamba_scan_bwd_kernel_call}
+
+
+# the kernels each training kernel call launches, by name (B8b's first
+# three are B8's passes, which its forward launches too)
+TRAIN_KERNEL_NAMES = {
+    "flash_attention_bwd": ("fa_bwd_",),
+    "mamba_scan_bwd": ("chunk_cb_kernel", "chunk_state_kernel",
+                       "state_pass_kernel", "state_grad_term_kernel",
+                       "state_grad_pass_kernel", "chunk_bwd_kernel",
+                       "scan_bwd_reduce_kernel")}
+
+
+def launch_times(prof: dict, names: tuple[str, ...]) -> list[dict]:
+    """Each kernel of `prof` (a `device_profile` with every row) whose
+    name holds one of `names`: its launches and device ms a launch."""
+    return [dict(name=r["name"], launches=r["count"], ms=r["ms"] / r["count"])
+            for r in prof["top"] if any(n in r["name"] for n in names)]
 
 
 def step0_vs_plain(dev) -> dict:
@@ -2162,7 +2185,7 @@ def train_phase(dev) -> dict:
         batch = make_batch(cfg, ShapeSpec("cli", TRAIN_T, TRAIN_BATCH,
                                           "train"), TRAIN_STEPS, 0, dev)
         prof = device_profile(lambda: step_fn(state, batch), 1,
-                              host_ops=False)
+                              host_ops=False, top=None)
         del state, batch, step_fn
         torch.cuda.empty_cache()
         shutil.rmtree(Path(d) / f"step_{TRAIN_STEPS:08d}")
@@ -2184,7 +2207,10 @@ def train_phase(dev) -> dict:
         step_ms=step_s * 1e3, tokens_per_s=TRAIN_BATCH * TRAIN_T / step_s,
         peak_gb=peak_gb, launches=launches,
         launches_per_step={k: n / TRAIN_STEPS for k, n in launches.items()},
-        traced_step=prof, run_seconds=run_s,
+        traced_step=dict(prof, top=prof["top"][:5]),
+        launch_ms={k: launch_times(prof, names)
+                   for k, names in TRAIN_KERNEL_NAMES.items()},
+        run_seconds=run_s,
         resumed=dict(start=resumed["start"], losses=resumed["losses"],
                      step_seconds=resumed["step_seconds"],
                      equal=resumed["losses"] == losses[2:],
@@ -3450,8 +3476,7 @@ def main() -> None:
     t0 = time.perf_counter()
     trk = train_kernel_phase(dev, flush)
     torch.cuda.empty_cache()
-    emit("train_kernel_times", timing=trk["timing"],
-         seconds=time.perf_counter() - t0)
+    trk_seconds = time.perf_counter() - t0
 
     # 14. train: zamba2-1.2b at full width, through launch.train ----------
     t0 = time.perf_counter()
@@ -3459,6 +3484,10 @@ def main() -> None:
     emit("train_step0_vs_plain", **step0)
     train = train_phase(dev)
     emit("train", **train, seconds=time.perf_counter() - t0)
+    # each launch's device ms, from the traced step
+    for name, per in train["launch_ms"].items():
+        trk["timing"][f"{name}/zamba2-1.2b-train"]["launches_timed"] = per
+    emit("train_kernel_times", timing=trk["timing"], seconds=trk_seconds)
 
     # 15. train_reduced: every reduced config, kernels against plain -------
     t0 = time.perf_counter()
@@ -3512,7 +3541,8 @@ def main() -> None:
                         if c["kernel"] == name),
             ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"], shape=t["shape"], dtype=t["dtype"])
+            library_ms=t["library_ms"], shape=t["shape"], dtype=t["dtype"],
+            launches_timed=t["launches_timed"])
 
     from repro_torch.kernels.feature_extract import split_plan as b5_split
 

@@ -532,39 +532,50 @@ __global__ void __launch_bounds__(kThreads, 2) chunk_scan_kernel(
   }
 }
 
+// passes 0-2: C B^T, each chunk's state update and the state pass (B8b
+// runs these too, for the states entering each chunk)
+template <typename T>
+int launch_states(const void* x, const float* dt, const float* A,
+                  const void* Bm, const void* Cm, float* h_last, float* states,
+                  float* decay, float* cb, float* ct, float* bt, int B,
+                  int Tn, int H, int P, int S, int c, cudaStream_t stream) {
+  const int nc = (Tn + c - 1) / c;
+  const size_t cb_bytes = sizeof(float) * cb_smem_floats(S);
+  const size_t state_bytes = sizeof(float) * state_smem_floats(c, P, S);
+  cudaError_t err = cato::allow_shared_memory(chunk_cb_kernel<T>, cb_bytes);
+  if (err == cudaSuccess)
+    err = cato::allow_shared_memory(chunk_state_kernel<T>, state_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  chunk_cb_kernel<T><<<dim3(nc, B, kMaxChunk / kStrip), kThreads, cb_bytes,
+                       stream>>>(static_cast<const T*>(Bm),
+                                 static_cast<const T*>(Cm), cb, ct, bt, Tn,
+                                 S, c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  chunk_state_kernel<T><<<dim3(nc, H, B), kThreads, state_bytes, stream>>>(
+      static_cast<const T*>(x), dt, A, bt, states, decay, Tn, H, P, S, c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  state_pass_kernel<<<dim3((P * S + kThreads - 1) / kThreads, H, B), kThreads,
+                      0, stream>>>(states, decay, h_last, H, P * S, nc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* x, const float* dt, const float* A, const void* Bm,
            const void* Cm, void* y, float* h_last, float* states,
            float* decay, float* cb, float* ct, float* bt, int B, int Tn,
            int H, int P, int S, int c, cudaStream_t stream) {
   const int nc = (Tn + c - 1) / c;
-  const size_t cb_bytes = sizeof(float) * cb_smem_floats(S);
-  const size_t state_bytes = sizeof(float) * state_smem_floats(c, P, S);
   const size_t scan_bytes = sizeof(float) * scan_smem_floats(S);
-  cudaError_t err = cato::allow_shared_memory(chunk_cb_kernel<T>, cb_bytes);
-  if (err == cudaSuccess)
-    err = cato::allow_shared_memory(chunk_state_kernel<T>, state_bytes);
-  if (err == cudaSuccess)
-    err = cato::allow_shared_memory(chunk_scan_kernel<T>, scan_bytes);
+  cudaError_t err = cato::allow_shared_memory(chunk_scan_kernel<T>, scan_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const T* xt = static_cast<const T*>(x);
-  const T* Bt = static_cast<const T*>(Bm);
-  const T* Ct = static_cast<const T*>(Cm);
-  chunk_cb_kernel<T><<<dim3(nc, B, kMaxChunk / kStrip), kThreads, cb_bytes,
-                       stream>>>(Bt, Ct, cb, ct, bt, Tn, S, c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 chunks(nc, H, B);
-  chunk_state_kernel<T><<<chunks, kThreads, state_bytes, stream>>>(
-      xt, dt, A, bt, states, decay, Tn, H, P, S, c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  state_pass_kernel<<<dim3((P * S + kThreads - 1) / kThreads, H, B), kThreads,
-                      0, stream>>>(states, decay, h_last, H, P * S, nc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chunk_scan_kernel<T><<<chunks, kThreads, scan_bytes, stream>>>(
-      xt, dt, A, cb, ct, states, static_cast<T*>(y), Tn, H, P, S, c);
+  const int st = launch_states<T>(x, dt, A, Bm, Cm, h_last, states, decay,
+                                  cb, ct, bt, B, Tn, H, P, S, c, stream);
+  if (st != 0) return st;
+  chunk_scan_kernel<T><<<dim3(nc, H, B), kThreads, scan_bytes, stream>>>(
+      static_cast<const T*>(x), dt, A, cb, ct, states, static_cast<T*>(y),
+      Tn, H, P, S, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -597,4 +608,29 @@ extern "C" int mamba_scan_launch(
                                       tf, bf, B, T, H, P, S, chunk, s)
               : launch<float>(x, dtf, Af, Bm, Cm, y, hf, sf, df, cf, tf, bf,
                               B, T, H, P, S, chunk, s);
+}
+
+// B8's passes 0-2 alone, for B8b: the same launches and arguments as
+// mamba_scan_launch's first three, so the same bits (each chunk's
+// entering state in `states`, the final state in h_last). Returns the
+// first CUDA error of the three launches (0 on success).
+extern "C" int mamba_scan_states_launch(
+    const void* x, const void* dt, const void* A, const void* Bm,
+    const void* Cm, void* h_last, void* states, void* decay, void* cb,
+    void* ct, void* bt, int B, int T, int H, int P, int S, int chunk,
+    int bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  float* hf = static_cast<float*>(h_last);
+  float* sf = static_cast<float*>(states);
+  float* df = static_cast<float*>(decay);
+  float* cf = static_cast<float*>(cb);
+  float* tf = static_cast<float*>(ct);
+  float* bf = static_cast<float*>(bt);
+  return bf16 ? launch_states<__nv_bfloat16>(x, dtf, Af, Bm, Cm, hf, sf, df,
+                                             cf, tf, bf, B, T, H, P, S,
+                                             chunk, s)
+              : launch_states<float>(x, dtf, Af, Bm, Cm, hf, sf, df, cf, tf,
+                                     bf, B, T, H, P, S, chunk, s);
 }

@@ -32,7 +32,8 @@ SOURCES = ("forest_infer.cu", "fused_pipeline.cu", "fused_agg.cu",
            "fused_multi.cu", "flash_attention.cu", "decode_attention.cu",
            "mamba_scan.cu", "flow_stats.cu", "flash_attention_bwd.cu",
            "mamba_scan_bwd.cu")
-HEADERS = ("forest_common.cuh", "plan_warp.cuh", "lm_common.cuh")
+HEADERS = ("forest_common.cuh", "plan_warp.cuh", "lm_common.cuh",
+           "tma_wgmma.cuh")
 # --fmad=false: no multiply and add is contracted into one rounding, so
 # the forest kernels round as their plain versions do (the one fused
 # multiply-add they use, std's, is an explicit fmaf that the plain version
@@ -60,12 +61,14 @@ _SIGNATURES = {
         [_VOID] * 6 + [_INT] * 8 + [_FLOAT, _VOID]),
     "mamba_scan_launch": (
         [_VOID] * 12 + [_INT] * 7 + [_VOID]),
+    "mamba_scan_states_launch": (
+        [_VOID] * 11 + [_INT] * 7 + [_VOID]),
     "flow_stats_launch": (
         [_VOID] * 3 + [_INT] * 4 + [_VOID]),
     "flash_attention_bwd_launch": (
         [_VOID] * 9 + [_INT] * 8 + [_FLOAT, _VOID]),
     "mamba_scan_bwd_launch": (
-        [_VOID] * 16 + [_INT] * 6 + [_VOID]),
+        [_VOID] * 20 + [_INT] * 7 + [_VOID]),
 }
 
 

@@ -47,11 +47,13 @@ backward launches ``csrc/flash_attention_bwd.cu``
 (`flash_attention_bwd_kernel_call`) on the card and runs
 `flash_attention_bwd_plain` on the CPU. Both recompute the softmax
 statistics from q and k, so the forward writes nothing more when a
-gradient is wanted, and the serving launch is unchanged. Both compute in
-float32 (bf16 inputs widened exactly) with the scalar kernel's order:
-products of depth D or 64 (S, dP, and per 64-row or 64-key tile dS K, P^T
-dO, dS^T Q), added tile by tile in a fixed order, no atomics, so a
-gradient is the same bits every run.
+gradient is wanted, and the serving launch is unchanged. Two launches (dQ,
+then dK and dV, a kv head's query heads and tiles in order), no atomics,
+so a gradient is the same bits every run. float32 runs scalar kernels in
+float32 (products of depth D or 64 as fmaf chains); bfloat16 runs
+tensor-core kernels (wgmma on tiles that TMA loads): B6's own statistics
+pass, P and dS rounded to bf16, every product a bf16 wgmma into float32
+of depth D or 64, each tile's product from zero, added in a fixed order.
 """
 from __future__ import annotations
 
@@ -206,18 +208,33 @@ def _plain_bf16(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     alpha + P_bf16 @ V`` with the tile's product from zero, out = acc / l.
     On the card this repeats the kernel wherever cuBLAS's GEMM sums as
     wgmma does."""
-    B, Hq, Hkv, Tq, Tk, D = _shapes(q, k, v)
+    acc, _, l = _online_bf16(q, k, v, causal, scale)
+    out = torch.where(l > 0, acc / l, torch.zeros_like(acc))
+    return out.to(q.dtype)
+
+
+def _log2_factor(scale: float) -> float:
+    """The kernel's float32 factor of the scores: scale and log2(e) as
+    float32, multiplied."""
+    return float(np.float32(np.float32(scale) * np.float32(_LOG2E)))
+
+
+def _online_bf16(q, k, v, causal: bool, scale: float):
+    """The tensor-core kernel's online softmax over 64-key tiles: (acc
+    (B, Hq, Tq, D) float32 or None where v is None, the running max m
+    (log2 units) and the row sum l, (B, Hq, Tq, 1) each)."""
+    B, Hq, Hkv, Tq, Tk, D = _shapes(q, k, k)
     g = Hq // Hkv
     pad = (-Tk) % TILE_K
     kb = F.pad(k, (0, 0, 0, pad)).repeat_interleave(g, dim=1)
-    vb = F.pad(v, (0, 0, 0, pad)).repeat_interleave(g, dim=1)
-    # the kernel's float32 factor: scale and log2(e) as float32, multiplied
-    c = float(np.float32(np.float32(scale) * np.float32(_LOG2E)))
+    vb = None if v is None else F.pad(v, (0, 0, 0, pad)).repeat_interleave(
+        g, dim=1)
+    c = _log2_factor(scale)
     dev = q.device
     qpos = torch.arange(Tq, device=dev)[:, None] + (Tk - Tq)
     m = torch.full((B, Hq, Tq, 1), -1e30, device=dev)
     l = torch.zeros((B, Hq, Tq, 1), device=dev)
-    acc = torch.zeros((B, Hq, Tq, D), device=dev)
+    acc = None if v is None else torch.zeros((B, Hq, Tq, D), device=dev)
     for k0 in range(0, Tk + pad, TILE_K):
         s = _mm_f32(q, kb[:, :, k0:k0 + TILE_K].transpose(-1, -2)) * c
         key = k0 + torch.arange(TILE_K, device=dev)[None, :]
@@ -229,10 +246,10 @@ def _plain_bf16(q, k, v, causal: bool, scale: float) -> torch.Tensor:
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new).to(torch.bfloat16)
         l = l * alpha + _quad_sum(p.float())
-        acc = acc * alpha + _mm_f32(p, vb[:, :, k0:k0 + TILE_K])
+        if acc is not None:
+            acc = acc * alpha + _mm_f32(p, vb[:, :, k0:k0 + TILE_K])
         m = m_new
-    out = torch.where(l > 0, acc / l, torch.zeros_like(acc))
-    return out.to(q.dtype)
+    return acc, m, l
 
 
 def flash_attention_kernel_call(q, k, v, *, causal: bool = True,
@@ -307,15 +324,22 @@ def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True,
                               scale: float | None = None):
     """(dq, dk, dv) of B6's function at q, k, v, given its output `out` and
     the output's gradient `dout`, each in its input's type; runs on any
-    device. The kernel's arithmetic in float32: Delta = dO . O as a chain
-    over the columns in order, m and l as B6's float32 loop, then per
-    64-key tile S = Q K^T scale, P = exp(S - m) / l (0 where masked or l =
-    0), dP = dO V^T, dS = P (dP - Delta) scale and dQ += dS K; then, for
-    each query head of a kv head's group in order and each 64-row query
-    tile in order, dV += P^T dO and dK += dS^T Q. A small D runs on rows
-    zero-padded to the tile width, as the kernel; on the card a batch of
+    device. Delta = dO . O is a float32 chain over the columns in order;
+    then per 64-key tile S, P (0 where masked or l = 0), dP = dO V^T, dS =
+    P (dP - Delta) scale and dQ += dS K; then, for each query head of a kv
+    head's group in order and each 64-row query tile in order, dV += P^T dO
+    and dK += dS^T Q, each tile's product from zero. A small D runs on rows
+    zero-padded to the tile width, as the kernels; on the card a batch of
     one matrix runs as two equal ones, as `mamba_scan_plain` does, so that
-    cuBLAS adds in k order."""
+    cuBLAS adds in k order.
+
+    - float32 (`_bwd_f32`): the scalar kernel's arithmetic, m and l as
+      B6's float32 loop, P = exp(S scale - m) / l, every product a float32
+      GEMM of depth D or 64.
+    - bfloat16 (`_bwd_bf16`): the tensor-core kernel's, m and l as B6's
+      bf16 loop, P = exp2(S scale log2(e) - m) (1 / l) in float32, rounded
+      to bf16 for dV, dS rounded to bf16, every product a bf16 GEMM into
+      float32 (`_mm_f32`)."""
     B, Hq, Hkv, Tq, Tk, D = _shapes(q, k, v)
     scale = scale if scale is not None else D ** -0.5
     if q.is_cuda and B * Hkv == 1:
@@ -328,48 +352,100 @@ def flash_attention_bwd_plain(q, k, v, out, dout, *, causal: bool = True,
     for c in range(D):
         delta = delta + dof[..., c:c + 1] * of[..., c:c + 1]
     width = tile_width(D) or D
+    padk = (-Tk) % TILE_K
+    qw, kw, vw, dow = (pad_head(t, width) for t in (q, k, v, dout))
+    bwd = _bwd_bf16 if q.dtype == torch.bfloat16 else _bwd_f32
+    dq, P, DS = bwd(qw, kw, vw, dow, delta, causal, scale)
     g = Hq // Hkv
-    padk, padq = (-Tk) % TILE_K, (-Tq) % TILE_K
-    qf = pad_head(q.float(), width)
-    dof = pad_head(dof, width)
-    kf = F.pad(pad_head(k.float(), width), (0, 0, 0, padk))
-    vf = F.pad(pad_head(v.float(), width), (0, 0, 0, padk))
-    kr, vr = kf.repeat_interleave(g, dim=1), vf.repeat_interleave(g, dim=1)
-    m, l = _stats_f32(qf, kr, causal, scale, Tk)
-    dev = q.device
-    qpos = torch.arange(Tq, device=dev)[:, None] + (Tk - Tq)
-    dq = torch.zeros_like(qf)
-    p_tiles, ds_tiles = [], []
-    for k0 in range(0, Tk + padk, TILE_K):
-        s = torch.matmul(qf, kr[:, :, k0:k0 + TILE_K].transpose(-1, -2)) * scale
-        key = k0 + torch.arange(TILE_K, device=dev)[None, :]
-        valid = key < Tk
-        if causal:
-            valid = valid & (key <= qpos)
-        p = torch.where(valid & (l > 0), torch.exp(s - m) / l,
-                        torch.zeros_like(s))
-        dp = torch.matmul(dof, vr[:, :, k0:k0 + TILE_K].transpose(-1, -2))
-        ds = (p * (dp - delta)) * scale
-        dq = dq + torch.matmul(ds, kr[:, :, k0:k0 + TILE_K])
-        p_tiles.append(p)
-        ds_tiles.append(ds)
+    padq = (-Tq) % TILE_K
 
     def by_group(x):   # (B, Hq, Tq, X) -> (B, Hkv, g, Tq padded, X)
         return F.pad(x, (0, 0, 0, padq)).unflatten(1, (Hkv, g))
 
-    P, DS = by_group(torch.cat(p_tiles, -1)), by_group(torch.cat(ds_tiles, -1))
-    Qg, dOg = by_group(qf), by_group(dof)
-    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    P, DS = by_group(P), by_group(DS)
+    Qg, dOg = by_group(qw), by_group(dow)
+    mm = _mm_f32 if q.dtype == torch.bfloat16 else torch.matmul
+    if q.dtype != torch.bfloat16:
+        Qg, dOg = Qg.float(), dOg.float()
+    dk = torch.zeros((B, Hkv, Tk + padk, width), device=q.device)
+    dv = torch.zeros_like(dk)
     for hh in range(g):
         for i0 in range(0, Tq + padq, TILE_K):
             rows = slice(i0, i0 + TILE_K)
             pt = P[:, :, hh, rows].transpose(-1, -2).contiguous()
             dst = DS[:, :, hh, rows].transpose(-1, -2).contiguous()
-            dv = dv + torch.matmul(pt, dOg[:, :, hh, rows])
-            dk = dk + torch.matmul(dst, Qg[:, :, hh, rows])
+            dv = dv + mm(pt, dOg[:, :, hh, rows])
+            dk = dk + mm(dst, Qg[:, :, hh, rows])
     return (dq[..., :D].to(q.dtype).contiguous(),
             dk[:, :, :Tk, :D].to(k.dtype).contiguous(),
             dv[:, :, :Tk, :D].to(v.dtype).contiguous())
+
+
+def _key_tiles(q, k, v, causal: bool):
+    """k and v zero-padded to whole 64-key tiles and repeated over each
+    kv head's query heads, and each tile's (first key, Tq x 64 mask of the
+    keys a row may see)."""
+    B, Hq, Hkv, Tq, Tk, _ = _shapes(q, k, v)
+    g = Hq // Hkv
+    pad = (-Tk) % TILE_K
+    kr = F.pad(k, (0, 0, 0, pad)).repeat_interleave(g, dim=1)
+    vr = F.pad(v, (0, 0, 0, pad)).repeat_interleave(g, dim=1)
+    dev = q.device
+    qpos = torch.arange(Tq, device=dev)[:, None] + (Tk - Tq)
+    tiles = []
+    for k0 in range(0, Tk + pad, TILE_K):
+        key = k0 + torch.arange(TILE_K, device=dev)[None, :]
+        valid = key < Tk
+        if causal:
+            valid = valid & (key <= qpos)
+        tiles.append((k0, valid))
+    return kr, vr, tiles
+
+
+def _bwd_f32(q, k, v, dout, delta, causal: bool, scale: float):
+    """The scalar kernel's dQ pass on rows padded to the tile width: (dQ,
+    P, dS), P and dS (B, Hq, Tq, Tk padded) float32."""
+    qf, dof = q.float(), dout.float()
+    kr, vr, tiles = _key_tiles(qf, k.float(), v.float(), causal)
+    m, l = _stats_f32(qf, kr, causal, scale, k.shape[2])
+    dq = torch.zeros_like(qf)
+    p_tiles, ds_tiles = [], []
+    for k0, valid in tiles:
+        kt = kr[:, :, k0:k0 + TILE_K]
+        s = torch.matmul(qf, kt.transpose(-1, -2)) * scale
+        p = torch.where(valid & (l > 0), torch.exp(s - m) / l,
+                        torch.zeros_like(s))
+        dp = torch.matmul(dof, vr[:, :, k0:k0 + TILE_K].transpose(-1, -2))
+        ds = (p * (dp - delta)) * scale
+        dq = dq + torch.matmul(ds, kt)
+        p_tiles.append(p)
+        ds_tiles.append(ds)
+    return dq, torch.cat(p_tiles, -1), torch.cat(ds_tiles, -1)
+
+
+def _bwd_bf16(q, k, v, dout, delta, causal: bool, scale: float):
+    """The tensor-core kernels' dQ pass on rows padded to the tile width:
+    m and l from B6's bf16 loop (`_online_bf16`), then per key tile S and
+    dP as bf16 GEMMs into float32, P = exp2(S c - m) (1 / l) (0 where
+    masked or l = 0), dS = P (dP - Delta) scale rounded to bf16 and dQ +=
+    dS K; returns (dQ float32, P and dS (B, Hq, Tq, Tk padded) bf16)."""
+    _, m, l = _online_bf16(q, k, None, causal, scale)
+    rl = torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
+    c = _log2_factor(scale)
+    kr, vr, tiles = _key_tiles(q, k, v, causal)
+    dq = torch.zeros(q.shape, device=q.device)
+    p_tiles, ds_tiles = [], []
+    for k0, valid in tiles:
+        kt = kr[:, :, k0:k0 + TILE_K]
+        s = (_mm_f32(q, kt.transpose(-1, -2)) * c).masked_fill(~valid,
+                                                                -math.inf)
+        p = torch.exp2(s - m) * rl
+        dp = _mm_f32(dout, vr[:, :, k0:k0 + TILE_K].transpose(-1, -2))
+        ds = ((p * (dp - delta)) * scale).to(torch.bfloat16)
+        dq = dq + _mm_f32(ds, kt)
+        p_tiles.append(p.to(torch.bfloat16))
+        ds_tiles.append(ds)
+    return dq, torch.cat(p_tiles, -1), torch.cat(ds_tiles, -1)
 
 
 def flash_attention_bwd_kernel_call(q, k, v, out, dout, *, causal: bool = True,
@@ -377,12 +453,21 @@ def flash_attention_bwd_kernel_call(q, k, v, out, dout, *, causal: bool = True,
     """Launch B6b on CUDA tensors: (dq, dk, dv) in q's type.
 
     q, k, v, out and dout are contiguous, of one type (float32 or
-    bfloat16), with an even head size D from 2 to `MAX_HEAD_DIM`; anything
-    else raises. Allocates the gradients and a float32 scratch of the
-    per-row statistics (3, B, Hq, Tq), launches on the current stream and
+    bfloat16), with an even head size D from 2 to `MAX_HEAD_DIM`; bfloat16
+    q, k, v and dout start on 16-byte boundaries (TMA reads them); anything
+    else raises; a bfloat16 D that is not a multiple of 8 runs on copies
+    zero-padded to the next one. Allocates the gradients and a float32
+    scratch of the per-row statistics (3, B, Hq, Tq rounded up to 64),
+    launches on the current stream (a dQ kernel, then a dK/dV kernel) and
     does not synchronise."""
     B, Hq, Hkv, Tq, Tk, D = _shapes(q, k, v)
     check_head_dim(D)
+    if q.dtype == torch.bfloat16 and D % 8:
+        width = D + 8 - D % 8
+        grads = flash_attention_bwd_kernel_call(
+            *(pad_head(t, width) for t in (q, k, v, out, dout)),
+            causal=causal, scale=scale if scale is not None else D ** -0.5)
+        return tuple(g[..., :D].contiguous() for g in grads)
     if q.dtype not in _DTYPES:
         raise TypeError(f"dtype {q.dtype}: the kernel takes float32 or bfloat16")
     dev = q.device
@@ -391,10 +476,15 @@ def flash_attention_bwd_kernel_call(q, k, v, out, dout, *, causal: bool = True,
     check_tensor("v", v, q.dtype, (B, Hkv, Tk, D), dev)
     check_tensor("out", out, q.dtype, (B, Hq, Tq, D), dev)
     check_tensor("dout", dout, q.dtype, (B, Hq, Tq, D), dev)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v, dout)):
+        raise ValueError("the bf16 kernels load q, k, v and dout by TMA: "
+                         "each must start on a 16-byte boundary")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    stats = torch.empty((3, B, Hq, Tq), dtype=torch.float32, device=dev)
+    stats = torch.empty((3, B, Hq, -(-Tq // TILE_K) * TILE_K),
+                        dtype=torch.float32, device=dev)
     scale = scale if scale is not None else D ** -0.5
     launch("flash_attention_bwd_launch", dev,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

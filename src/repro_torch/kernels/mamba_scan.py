@@ -26,14 +26,13 @@ XLA's autodiff of `chunked_ssd`) is `MambaScan`, a
 `torch.autograd.Function` whose backward launches ``csrc/mamba_scan_bwd.cu``
 (`mamba_scan_bwd_kernel_call`) on the card and runs `mamba_scan_bwd_plain`
 on the CPU: dx, ddt, dA, dBm and dCm from dy and the final state's
-gradient. It works on the step recurrence, which computes the same
-function as the chunked form, row by row of the state (each of a head's P
-rows is its own recurrence over the S columns): the states are recomputed
-from the inputs (a forward pass keeps one every `BWD_SEGMENT` steps, each
-segment is recomputed from it in reverse), not taken from the forward's
-chunk scratch, whose states come from the chunked form's other roundings.
-Sums over a head's rows, over the heads (dBm, dCm) and over the batch and
-steps (dA) run in a fixed order, with no atomics.
+gradient. Both work on B8's chunked form with the forward's chunk: B8's
+first three passes again (the same bits: C B^T, each chunk's entering
+state), then each chunk's share of the state gradient, the gradient of
+the state leaving each chunk passed back over the chunks, and each
+chunk's gradients from those, parallel over (chunk, head, batch). Sums
+over the heads (dBm, dCm) and over the batch and chunks (dA) run in a
+fixed order, with no atomics.
 """
 from __future__ import annotations
 
@@ -42,8 +41,8 @@ import torch.nn.functional as F
 
 from ._build import check_tensor, launch
 
-__all__ = ["BWD_SEGMENT", "MAX_CHUNK", "MAX_SHARED_BYTES", "MambaScan",
-           "bwd_scratch_shapes", "check_bwd_shapes", "chunked_ssd",
+__all__ = ["MAX_CHUNK", "MAX_SHARED_BYTES", "MambaScan", "bwd_scratch_shapes",
+           "bwd_shared_bytes", "check_bwd_shapes", "chunked_ssd",
            "cumsum_in_order", "mamba_scan_bwd_kernel_call",
            "mamba_scan_bwd_plain", "mamba_scan_kernel_call", "mamba_scan_plain",
            "scan_scratch_shapes", "scan_shared_bytes"]
@@ -118,7 +117,8 @@ def cumsum_in_order(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def chunked_ssd(x, log_decay, scale, Bm, Cm, chunk: int = 128):
+def chunked_ssd(x, log_decay, scale, Bm, Cm, chunk: int = 128,
+                entering: list | None = None):
     """The chunked SSD of `repro.models.ssm.chunked_ssd`, a copy but for
     the cumulative log decay, which accumulates in order
     (`cumsum_in_order`):
@@ -128,7 +128,8 @@ def chunked_ssd(x, log_decay, scale, Bm, Cm, chunk: int = 128):
     x (B, T, H, P) values, log_decay and scale (B, T, H), Bm/Cm (B, T, G, S)
     keys and queries with G == 1 (shared) or H (per head). T must be a
     multiple of ``min(chunk, T)``, as the reference asserts. Returns (y in
-    x's type, final state (B, H, P, S) float32)."""
+    x's type, final state (B, H, P, S) float32); a list passed as
+    `entering` receives the state entering each chunk."""
     B, T, H, P = x.shape
     G, S = Bm.shape[2], Bm.shape[3]
     c = min(chunk, T)
@@ -144,6 +145,8 @@ def chunked_ssd(x, log_decay, scale, Bm, Cm, chunk: int = 128):
     h = torch.zeros((B, H, P, S), dtype=torch.float32, device=x.device)
     ys = []
     for i in range(nc):
+        if entering is not None:
+            entering.append(h)
         xc, ldc, sc, bc, cc = xr[:, i], ldr[:, i], sr[:, i], Br[:, i], Cr[:, i]
         L = cumsum_in_order(ldc)                                    # (B,c,H)
         # intra-chunk
@@ -243,136 +246,227 @@ def mamba_scan_kernel_call(x, dt, A, Bm, Cm, *, chunk: int = 128):
 mamba_scan_kernel_call.launches = 0
 
 
-BWD_SEGMENT = 16    # steps a checkpoint covers, kSeg in the backward source
-_BWD_ROWS = 16      # state rows a pass of the backward's block holds
-_BWD_MAX_P = 64     # 4 passes: kMaxPasses x kWarps in the source
-_BWD_MAX_S = 64     # two state columns a lane
+# the backward source's shared-memory layout (floats): its products are
+# MAX_CHUNK rows (chunk steps) by 64 columns, their operands staged in
+# strips of _BWD_STRIP steps of k, rows of 132 and 68 floats
+_BWD_STRIP = 8
+_LD_ROWS, _LD_COLS = MAX_CHUNK + 4, 64 + 4
 
 
-def check_bwd_shapes(P: int, S: int) -> None:
-    """Raise where the backward kernel does not take (P, S): P a multiple
-    of 16 up to 64, S up to 64 (Mamba-2's heads have P = 64)."""
-    if P % _BWD_ROWS or not 0 < P <= _BWD_MAX_P or not 0 < S <= _BWD_MAX_S:
-        raise ValueError(f"P {P}, S {S}: the scan's backward takes P a "
-                         f"multiple of {_BWD_ROWS} up to {_BWD_MAX_P} and S "
-                         f"up to {_BWD_MAX_S}")
+def bwd_shared_bytes(chunk: int, P: int, S: int) -> int:
+    """Dynamic shared memory of the backward's largest block, in bytes:
+    the chunk backward holds N = E o (dy u^T) (MAX_CHUNK rows of
+    MAX_CHUNK + 4 floats; once N is consumed, a (MAX_CHUNK, 64)-column
+    result in rows of 68), two operand strips (_BWD_STRIP x 132 and
+    _BWD_STRIP x 68 floats), eight vectors of MAX_CHUNK floats and one
+    float per state row. `chunk` and S do not change it (S is staged 64
+    columns at a time)."""
+    strips = _BWD_STRIP * (_LD_ROWS + _LD_COLS)
+    return 4 * (MAX_CHUNK * _LD_ROWS + strips + 8 * MAX_CHUNK
+                + -(-P // 4) * 4)
 
 
-def _s_pad(S: int) -> int:
-    return 32 if S <= 32 else 64
+def check_bwd_shapes(chunk: int, P: int, S: int) -> None:
+    """Raise where B8b does not take (chunk, P, S): it recomputes B8's
+    first three passes (`scan_shared_bytes`), so it takes what B8 takes,
+    and its own blocks must fit (`bwd_shared_bytes`)."""
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk}: the scan's backward takes at most "
+                         f"{MAX_CHUNK}")
+    need = max(scan_shared_bytes(chunk, P, S), bwd_shared_bytes(chunk, P, S))
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"chunk {chunk}, P {P}, S {S} need {need} bytes of "
+                         f"shared memory, above the {MAX_SHARED_BYTES} a "
+                         "block has")
 
 
-def bwd_scratch_shapes(B: int, T: int, H: int, P: int, S: int):
-    """The float32 scratch `mamba_scan_bwd_kernel_call` allocates: the
-    checkpoints (B, H, n_segments, P, Sp), the per-head parts of dBm and
-    dCm (B, H, T, Sp) each, and of dA (B, H); Sp is S padded to 32 or 64
-    (a lane's columns)."""
-    Sp = _s_pad(S)
-    n_seg = -(-T // BWD_SEGMENT)
-    return ((B, H, n_seg, P, Sp), (B, H, T, Sp), (B, H, T, Sp), (B, H))
+def bwd_scratch_shapes(B: int, T: int, H: int, P: int, S: int,
+                       chunk: int = 128) -> tuple[tuple, ...]:
+    """The float32 scratch `mamba_scan_bwd_kernel_call` allocates: B8's
+    own (`scan_scratch_shapes`: the state entering each chunk, each
+    chunk's decay, C B^T, C^T and B), the final state (B, H, P, S), the
+    gradient of the state leaving each chunk (B, H, n_chunks, P, S), the
+    per-head parts of dBm and dCm (B, H, T, S) each, and of dA, one a
+    chunk (B, H, n_chunks)."""
+    c = max(1, min(chunk, T))
+    n_chunks = -(-T // c)
+    return (*scan_scratch_shapes(B, T, H, P, S, c), (B, H, P, S),
+            (B, H, n_chunks, P, S), (B, H, T, S), (B, H, T, S),
+            (B, H, n_chunks))
 
 
-def _lane_sum_s(t: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis (S padded to 32 or 64) in the kernel's order:
-    each lane's columns s and s + 32, then the xor butterfly over 32
-    lanes."""
-    x = t[..., :32] + t[..., 32:] if t.shape[-1] == 64 else t
-    for w in (16, 8, 4, 2, 1):
-        x = x[..., :w] + x[..., w:2 * w]
-    return x[..., 0]
-
-
-def _row_sum(c: torch.Tensor) -> torch.Tensor:
-    """Sum over dim 2 (a head's P rows) in the kernel's order: each group
-    of 16 rows halved (rows r and r + 8, then + 4, + 2, + 1), the groups
-    added in order from zero."""
-    y = c.unflatten(2, (c.shape[2] // _BWD_ROWS, _BWD_ROWS))
-    for w in (8, 4, 2, 1):
-        y = y[:, :, :, :w] + y[:, :, :, w:2 * w]
-    y = y[:, :, :, 0]
-    acc = torch.zeros_like(y[:, :, 0])
-    for i in range(y.shape[2]):
-        acc = acc + y[:, :, i]
+def _in_order_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, one float32 addition a term, in order from
+    zero: a thread's chain in the kernel."""
+    acc = torch.zeros_like(t[..., 0])
+    for j in range(t.shape[-1]):
+        acc = acc + t[..., j]
     return acc
 
 
-def mamba_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dh_last=None):
+def _dot_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_j a[..., j] * b[..., j], each product rounded, then added in
+    order from zero (the kernel's chains are not fused)."""
+    acc = torch.zeros(torch.broadcast_shapes(a.shape, b.shape)[:-1],
+                      dtype=torch.float32, device=a.device)
+    for j in range(a.shape[-1]):
+        acc = acc + a[..., j] * b[..., j]
+    return acc
+
+
+def _bwd_chunked(x, dt, A, Bm, Cm, dy, dh_last, chunk: int):
+    """The chunked backward on every chunk at once: (dx, ddt (B, T, H),
+    per-chunk dA parts (B, n_chunks, H), per-head dBm and dCm parts
+    (B, H, T, S)), float32 but dx. See `mamba_scan_bwd_plain`."""
+    B, T, H, P, S = _shapes(x, dt, A, Bm, Cm)
+    dev = x.device
+    c = max(1, chunk)
+    pad = (-T) % c
+    nc = (T + pad) // c
+    Af = A.float()
+    dtf = F.pad(dt.float(), (0, 0, 0, pad))
+    # B8's states: the one entering each chunk, and the final one
+    entering = []
+    _, h_final = chunked_ssd(F.pad(x, (0, 0, 0, 0, 0, pad)), dtf * Af, dtf,
+                             F.pad(Bm, (0, 0, 0, pad))[:, :, None],
+                             F.pad(Cm, (0, 0, 0, pad))[:, :, None], chunk=c,
+                             entering=entering)
+    hs = torch.stack(entering, 1)                                # (B,n,H,P,S)
+    h_next = torch.cat([hs[:, 1:], h_final[:, None]], 1)
+
+    def heads(t):   # (B, T, H, ...) padded -> (B, n, H, c, ...)
+        t = F.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
+        return t.unflatten(1, (nc, c)).transpose(2, 3)
+
+    xh, dyh, dth = heads(x), heads(dy), heads(dt)
+    Bc = F.pad(Bm.float(), (0, 0, 0, pad)).unflatten(1, (nc, c))  # (B,n,c,S)
+    Cc = F.pad(Cm.float(), (0, 0, 0, pad)).unflatten(1, (nc, c))
+    Bch = Bc[:, :, None].expand(B, nc, H, c, S)
+    Cch = Cc[:, :, None].expand(B, nc, H, c, S)
+    L = cumsum_in_order((dtf * Af).reshape(B * nc, c, H))
+    L = L.reshape(B, nc, c, H).transpose(2, 3)                    # (B,n,H,c)
+    eL = torch.exp(L)
+    W = torch.exp(L[..., -1:] - L)
+    u = dth[..., None] * xh                                       # (B,n,H,c,P)
+    CB = torch.einsum("bncs,bnks->bnck", Cc, Bc)[:, :, None]      # [t][tau]
+    tril = torch.ones((c, c), dtype=torch.bool, device=dev).tril()
+    decay = torch.exp(L[..., :, None] - L[..., None, :])
+    E = torch.where(tril, decay, torch.zeros_like(decay))
+    M = E * CB
+
+    # the gradient of the state leaving each chunk, from the last
+    term = torch.matmul((eL[..., None] * dyh).transpose(-1, -2), Cch)
+    dec = torch.exp(L[..., -1])                                   # (B,n,H)
+    G = (torch.zeros_like(h_final) if dh_last is None
+         else dh_last.float().expand_as(h_final))
+    Gs = [None] * nc
+    for k in range(nc - 1, -1, -1):
+        Gs[k] = G
+        G = dec[:, k, :, None, None] * G + term[:, k]
+    Gk = torch.stack(Gs, 1)                                       # (B,n,H,P,S)
+
+    N = E * torch.matmul(dyh, u.transpose(-1, -2))    # E o (dy_t . u_tau)
+    row_z = _in_order_sum(N * CB)
+    ht_dy = torch.matmul(dyh, hs)                                 # (B,n,H,c,S)
+    dC = torch.matmul(N, Bch) + eL[..., None] * ht_dy
+    inter = eL * _dot_in_order(Cch, ht_dy)
+    dB = (torch.matmul(N.transpose(-1, -2), Cch)
+          + W[..., None] * torch.matmul(u, Gk))
+    du = (torch.matmul(M.transpose(-1, -2), dyh)
+          + W[..., None] * torch.matmul(Bch, Gk.transpose(-1, -2)))
+    dxh = dth[..., None] * du
+    x_du = _dot_in_order(xh, du)
+    u_du = _dot_in_order(u, du)
+    lam = _in_order_sum(_dot_in_order(Gk, h_next))                # (B,n,H)
+    dL = (row_z + inter) - u_du
+    da = torch.empty_like(dL)
+    run, dA_part = lam, torch.zeros_like(lam)
+    for j in range(c - 1, -1, -1):
+        run = run + dL[..., j]
+        da[..., j] = run
+        dA_part = dA_part + run * dth[..., j]
+    ddt = x_du + da * Af[:, None]
+
+    def steps(t):   # (B, n, H, c, ...) -> (B, T, H, ...)
+        return t.transpose(2, 3).flatten(1, 2)[:, :T]
+
+    return (steps(dxh), steps(ddt), dA_part,
+            dB.transpose(1, 2).flatten(2, 3)[:, :, :T],
+            dC.transpose(1, 2).flatten(2, 3)[:, :, :T])
+
+
+def mamba_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dh_last=None, *,
+                         chunk: int = 128):
     """(dx (B, T, H, P) in x's type, ddt (B, T, H) float32, dA (H,)
     float32, dBm and dCm (B, T, S) in Bm's type): the gradient of the scan
     at (x, dt, A, Bm, Cm) given dy (B, T, H, P) and the final state's
     gradient dh_last (B, H, P, S) or None (zero). Runs on any device, in
-    the kernel's float32 arithmetic, on the step recurrence per state row:
+    the kernel's float32 arithmetic, on B8's chunked form with B8's
+    chunks. Per (batch, chunk, head), with L, u = dt o x, the decay mask E
+    (exp(L_t - L_tau) where tau <= t, else 0), M = E o C B^T and
+    W = exp(L_c - L) as B8 computes them, h the state entering the chunk
+    (B8's bits) and G the gradient of the state leaving it:
 
-        h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t,   y_t = h_t C_t
+        G_{k-1} = exp(L_c) G_k + (exp(L) o dy)^T C   (dh_last after the last)
+        N  = E o (dy u^T)
+        du = M^T dy + W o (B G^T),          dx = dt o du
+        dC = N B + exp(L) o (dy h)          dB = N^T C + W o (u G)
+        dL_t = (sum_tau N C B^T [t, tau] + exp(L_t) C_t . (dy h)_t)
+               - u_t . du_t
+        da = the reverse cumulative sum of dL from G_k . h_{k+1}
+        ddt = x . du + da A,                dA += da dt
 
-    Forward, every state (the kernel keeps one per `BWD_SEGMENT` steps and
-    recomputes the rest, the same bits). Then from t = T - 1 down, with gc
-    the gradient reaching h_t from later steps (dh_last at the end): g =
-    gc + dy_t C_t; dC_t += dy_t h_t and dB_t += g (dt_t x_t) summed over
-    the rows (`_row_sum`); dX = g . B_t per row (`_lane_sum_s`), dx_t = dX
-    dt_t; da = sum over rows of g . (exp(dt_t A) h_{t-1}); ddt_t = sum over
-    rows of x_t dX, plus da A; dA += da dt_t (steps in reverse order, then
-    the batch in order); gc = exp(dt_t A) g. dBm and dCm add the heads in
-    order."""
+    Each product is one float32 GEMM (cuBLAS's on the card, which add
+    each output's products in k order by FFMA, as the kernel's fmaf
+    chains do) run as a batch of matrices; every row sum and dot product
+    is added in order from zero (`_in_order_sum`, `_dot_in_order`), as
+    the reverse cumulative sum (from the last step) and dA's steps. dBm
+    and dCm add the heads in order, dA the batch, then the chunks, in
+    order. As `mamba_scan_plain` does, a batch of one runs on the card as
+    two equal sequences and T below the chunk as one padded chunk."""
     B, T, H, P, S = _shapes(x, dt, A, Bm, Cm)
-    check_bwd_shapes(P, S)
-    Sp = _s_pad(S)
     dev = x.device
-    xf, dyf, dtf, Af = x.float(), dy.float(), dt.float(), A.float()
-    Bf = F.pad(Bm.float(), (0, Sp - S))
-    Cf = F.pad(Cm.float(), (0, Sp - S))
-    h = torch.zeros((B, H, P, Sp), dtype=torch.float32, device=dev)
-    states, decays, us = [h], [], []
-    for t in range(T):
-        decay = torch.exp(dtf[:, t] * Af)                     # (B, H)
-        u = dtf[:, t, :, None] * xf[:, t]                     # (B, H, P)
-        h = decay[..., None, None] * h + u[..., None] * Bf[:, t, None, None, :]
-        states.append(h)
-        decays.append(decay)
-        us.append(u)
-    gc = (torch.zeros_like(h) if dh_last is None
-          else F.pad(dh_last.float(), (0, Sp - S)))
-    dA_acc = torch.zeros((B, H), dtype=torch.float32, device=dev)
-    dx = torch.empty((B, T, H, P), dtype=torch.float32, device=dev)
-    ddt = torch.empty((B, T, H), dtype=torch.float32, device=dev)
-    dB_part = torch.empty((B, H, T, Sp), dtype=torch.float32, device=dev)
-    dC_part = torch.empty_like(dB_part)
-    for t in range(T - 1, -1, -1):
-        decay, u = decays[t], us[t]
-        g = gc + dyf[:, t, :, :, None] * Cf[:, t, None, None, :]
-        dC_part[:, :, t] = _row_sum(dyf[:, t, :, :, None] * states[t + 1])
-        dB_part[:, :, t] = _row_sum(g * u[..., None])
-        dX = _lane_sum_s(g * Bf[:, t, None, None, :])           # (B, H, P)
-        dx[:, t] = dX * dtf[:, t, :, None]
-        q = decay[..., None, None] * states[t]
-        da = _row_sum(_lane_sum_s(g * q)[..., None])[..., 0]    # (B, H)
-        xdX = _row_sum((xf[:, t] * dX)[..., None])[..., 0]
-        ddt[:, t] = xdX + da * Af
-        dA_acc = dA_acc + da * dtf[:, t]
-        gc = decay[..., None, None] * g
+    if B * T * H == 0:
+        return (torch.zeros_like(x), torch.zeros((B, T, H), device=dev),
+                torch.zeros((H,), device=dev), torch.zeros_like(Bm),
+                torch.zeros_like(Cm))
+    if B == 1 and x.is_cuda:
+        def two(t):
+            return None if t is None else t.expand(2, *t.shape[1:])
+
+        parts = _bwd_chunked(two(x), two(dt), A, two(Bm), two(Cm), two(dy),
+                             two(dh_last), chunk)
+        parts = [t[:1] for t in parts]
+    else:
+        parts = _bwd_chunked(x, dt, A, Bm, Cm, dy, dh_last, chunk)
+    dx, ddt, dA_part, dB_part, dC_part = parts
     dA = torch.zeros((H,), dtype=torch.float32, device=dev)
     for b in range(B):
-        dA = dA + dA_acc[b]
-    dBm = torch.zeros((B, T, Sp), dtype=torch.float32, device=dev)
+        for k in range(dA_part.shape[1]):
+            dA = dA + dA_part[b, k]
+    dBm = torch.zeros((B, T, S), dtype=torch.float32, device=dev)
     dCm = torch.zeros_like(dBm)
     for hh in range(H):
         dBm = dBm + dB_part[:, hh]
         dCm = dCm + dC_part[:, hh]
-    return (dx.to(x.dtype), ddt, dA, dBm[..., :S].to(Bm.dtype).contiguous(),
-            dCm[..., :S].to(Cm.dtype).contiguous())
+    return (dx.to(x.dtype).contiguous(), ddt.contiguous(), dA,
+            dBm.to(Bm.dtype), dCm.to(Cm.dtype))
 
 
-def mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh_last=None):
+def mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh_last=None, *,
+                               chunk: int = 128):
     """Launch B8b on CUDA tensors: (dx, ddt, dA, dBm, dCm) as
-    `mamba_scan_bwd_plain` returns them.
+    `mamba_scan_bwd_plain` returns them, at the forward's `chunk`.
 
     x, Bm, Cm and dy are contiguous and of one type (float32 or bfloat16);
-    dt, A and dh_last (or None) are float32; P is a multiple of 16 up to
-    64 and S at most 64 (`check_bwd_shapes`). Anything else raises.
-    Allocates the gradients and the scratch of `bwd_scratch_shapes`,
-    launches on the current stream and does not synchronise."""
+    dt, A and dh_last (or None) are float32; (chunk, P, S) must be what
+    B8 takes and the backward's blocks must fit (`check_bwd_shapes`).
+    Anything else raises. Allocates the gradients and the scratch of
+    `bwd_scratch_shapes`, launches on the current stream (B8's first three
+    passes, then the backward's five) and does not synchronise."""
     B, T, H, P, S = _shapes(x, dt, A, Bm, Cm)
-    check_bwd_shapes(P, S)
+    c = max(1, min(chunk, T))
+    check_bwd_shapes(c, P, S)
     if x.dtype not in _DTYPES:
         raise TypeError(f"dtype {x.dtype}: the kernel takes float32 or bfloat16")
     dev = x.device
@@ -388,17 +482,23 @@ def mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh_last=None):
     ddt = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     dA = torch.empty((H,), dtype=torch.float32, device=dev)
     dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
-    if B * T * H == 0:
+    if B * T * H * P * S == 0:
         return dx.zero_(), ddt.zero_(), dA.zero_(), dBm.zero_(), dCm.zero_()
     scratch = [torch.empty(shape, dtype=torch.float32, device=dev)
-               for shape in bwd_scratch_shapes(B, T, H, P, S)]
+               for shape in bwd_scratch_shapes(B, T, H, P, S, c)]
+    bf16 = int(x.dtype == torch.bfloat16)
+    states, decay, cb, ct, bt, h_last, *grads = (t.data_ptr() for t in scratch)
+    launch("mamba_scan_states_launch", dev,
+           x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+           Cm.data_ptr(), h_last, states, decay, cb, ct, bt, B, T, H, P, S, c,
+           bf16)
     launch("mamba_scan_bwd_launch", dev,
            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
            Cm.data_ptr(), dy.data_ptr(),
            dh_last.data_ptr() if dh_last is not None else None,
            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(),
-           dCm.data_ptr(), *(t.data_ptr() for t in scratch),
-           B, T, H, P, S, int(x.dtype == torch.bfloat16))
+           dCm.data_ptr(), states, decay, cb, h_last, *grads, B, T, H, P, S,
+           c, bf16)
     mamba_scan_bwd_kernel_call.launches += 1
     return dx, ddt, dA, dBm, dCm
 
@@ -417,7 +517,7 @@ class MambaScan(torch.autograd.Function):
         fwd = mamba_scan_plain if plain else mamba_scan_kernel_call
         y, h_last = fwd(x, dt, A, Bm, Cm, chunk=chunk)
         ctx.save_for_backward(x, dt, A, Bm, Cm)
-        ctx.plain = plain
+        ctx.chunk, ctx.plain = chunk, plain
         ctx.set_materialize_grads(False)
         return y, h_last
 
@@ -429,6 +529,7 @@ class MambaScan(torch.autograd.Function):
         bwd = mamba_scan_bwd_plain if ctx.plain else mamba_scan_bwd_kernel_call
         dx, ddt, dA, dBm, dCm = bwd(
             x, dt, A, Bm, Cm, dy.to(x.dtype).contiguous(),
-            None if dh_last is None else dh_last.float().contiguous())
+            None if dh_last is None else dh_last.float().contiguous(),
+            chunk=ctx.chunk)
         return dx, ddt, dA, dBm, dCm, None, None
 

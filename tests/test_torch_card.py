@@ -1078,14 +1078,17 @@ def test_flash_attention_bwd_kernel_bitwise_plain(cuda, B, Hq, Hkv, Tq, Tk,  # n
         assert g.dtype == dtype and torch.equal(g, w) and torch.equal(g, a)
 
 
-@pytest.mark.parametrize("B,T,H,P,S", [(2, 100, 4, 64, 16), (1, 37, 3, 16, 40),
-                                       (2, 300, 8, 64, 64), (1, 16, 2, 32, 32)])
+@pytest.mark.parametrize("B,T,H,P,S,chunk", [
+    (2, 100, 4, 64, 16, 128), (1, 37, 3, 16, 40, 128), (2, 300, 8, 64, 64, 128),
+    (1, 16, 2, 32, 32, 128), (2, 300, 4, 64, 16, 64), (2, 200, 3, 80, 24, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_dh", [False, True])
-def test_mamba_scan_bwd_kernel_bitwise_plain(cuda, B, T, H, P, S, dtype,  # noqa: F811
-                                             with_dh):
+def test_mamba_scan_bwd_kernel_bitwise_plain(cuda, B, T, H, P, S, chunk,  # noqa: F811
+                                             dtype, with_dh):
     """B8b against its plain version on the same inputs, bitwise, with and
-    without dh_last, and the same bits on a second run (no atomics)."""
+    without dh_last, at chunks of 128 (T above, below and at a ragged
+    multiple of it), 64 and 32 (P above 64), and the same bits on a second
+    run (no atomics)."""
     from repro_torch.kernels.mamba_scan import (
         mamba_scan_bwd_kernel_call,
         mamba_scan_bwd_plain,
@@ -1099,9 +1102,9 @@ def test_mamba_scan_bwd_kernel_bitwise_plain(cuda, B, T, H, P, S, dtype,  # noqa
     Cm = _randn(R, (B, T, S), cuda, dtype) * 0.3
     dy = _randn(R, (B, T, H, P), cuda, dtype)
     dh = _randn(R, (B, H, P, S), cuda) if with_dh else None
-    got = mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh)
-    again = mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh)
-    want = mamba_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dh)
+    got = mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh, chunk=chunk)
+    again = mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy, dh, chunk=chunk)
+    want = mamba_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dh, chunk=chunk)
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, w) and torch.equal(g, a)
 

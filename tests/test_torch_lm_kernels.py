@@ -637,12 +637,10 @@ def _assert_grad_close(got, want, what):
 ])
 def test_flash_attention_bwd_plain_matches_autograd_and_jax(B, Hq, Hkv, Tq, Tk,
                                                             D, causal):
-    """B6b's plain version against autograd through B6's plain version and
-    against `jax.grad` of the reference's jnp attention oracle."""
-    from repro_torch.kernels.flash_attention import (
-        FlashAttention,
-        flash_attention_bwd_plain,
-    )
+    """B6b's plain version against autograd through the torch ops of B6's
+    plain forward (`flash_attention_plain` called on leaves) and against
+    `jax.grad` of the reference's jnp attention oracle."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
 
     R = np.random.default_rng(B * 1000 + Tq + D)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(R, s) for s in (
@@ -651,9 +649,10 @@ def test_flash_attention_bwd_plain_matches_autograd_and_jax(B, Hq, Hkv, Tq, Tk,
     out = flash_attention_plain(tq, tk, tv, causal=causal)
     got = flash_attention_bwd_plain(tq, tk, tv, out, tdo, causal=causal)
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
-    FlashAttention.apply(*leaves, causal, None, True).backward(tdo)
-    for g, leaf, name in zip(got, leaves, "qkv"):
-        _assert_grad_close(g, leaf.grad, f"d{name} vs autograd")
+    want = torch.autograd.grad(
+        flash_attention_plain(*leaves, causal=causal), leaves, tdo)
+    for g, w, name in zip(got, want, "qkv"):
+        _assert_grad_close(g, w, f"d{name} vs autograd")
 
     def f(q, k, v):
         o = jref.flash_attention_ref(q, k, v, causal=causal)
@@ -664,21 +663,75 @@ def test_flash_attention_bwd_plain_matches_autograd_and_jax(B, Hq, Hkv, Tq, Tk,
         _assert_grad_close(g, w, f"d{name} vs jax.grad")
 
 
+# bf16 gradients: rtol 2^-8 plus atol 1e-2 x the largest |entry|. B6b's
+# bf16 arithmetic rounds P and dS to bf16 before their products and the
+# gradients to bf16 at the end (three roundings of at most 2^-9 each);
+# measured at most 4.5e-3 x the largest entry against jax.grad in float32
+# over the cases below.
+def _assert_bf16_grad_close(got, want, what):
+    want = _np(want)
+    np.testing.assert_allclose(_np(got), want, rtol=2 ** -8,
+                               atol=1e-2 * float(np.abs(want).max()),
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal", [
+    (2, 4, 2, 37, 37, 16, True),      # GQA, ragged
+    (1, 2, 1, 20, 50, 12, False),     # Tq != Tk (cross attention)
+    (2, 2, 2, 70, 90, 64, True),      # causal with an offset of 20
+    (1, 3, 1, 9, 9, 8, True),
+    (2, 4, 4, 64, 64, 128, False),
+    (1, 6, 2, 130, 130, 20, True),
+    (1, 4, 1, 100, 300, 64, True),    # a causal offset of 200, g = 4
+    (2, 4, 2, 128, 128, 128, True),
+])
+def test_flash_attention_bwd_bf16_plain_matches_jax(B, Hq, Hkv, Tq, Tk, D,
+                                                    causal):
+    """B6b's bf16 plain version (the tensor-core kernels' arithmetic)
+    against `jax.grad` of the reference's jnp attention oracle on the same
+    bf16-valued inputs in float32, at the bf16 tolerance above."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+
+    R = np.random.default_rng(B * 1000 + Tq + D)
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+        _pair(R, s, "bfloat16") for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D),
+                                          (B, Hkv, Tk, D), (B, Hq, Tq, D)))
+    out = flash_attention_plain(tq, tk, tv, causal=causal)
+    got = flash_attention_bwd_plain(tq, tk, tv, out, tdo, causal=causal)
+    f32 = [jnp.asarray(_np(t)) for t in (tq, tk, tv, tdo)]
+
+    def f(q, k, v):
+        return jnp.sum(jref.flash_attention_ref(q, k, v, causal=causal) * f32[3])
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*f32[:3])
+    for g, w, name in zip(got, want, "qkv"):
+        assert g.dtype == torch.bfloat16
+        _assert_bf16_grad_close(g, w, f"d{name} vs jax.grad")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_plain_is_the_float32_gradient(dtype):
-    """bf16 inputs widen exactly: B6b's bf16 gradients are its float32
-    gradients of the same (bf16-valued) inputs, rounded to bf16."""
+    """float32: B6b's gradients of inputs already float32 are its float32
+    gradients, bitwise. bf16 (the tensor-core kernels' arithmetic): within
+    the bf16 tolerance above of the float32 gradients of the same
+    bf16-valued inputs."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
 
     R = np.random.default_rng(3)
     ts = [_pair(R, s, dtype)[1] for s in ((2, 4, 50, 16), (2, 2, 50, 16),
-                                          (2, 2, 50, 16), (2, 4, 50, 16),
-                                          (2, 4, 50, 16))]
-    got = flash_attention_bwd_plain(*ts)
-    want = flash_attention_bwd_plain(*(t.float() for t in ts))
+                                          (2, 2, 50, 16), (2, 4, 50, 16))]
+    q, k, v, do = ts
+    got = flash_attention_bwd_plain(q, k, v, flash_attention_plain(q, k, v),
+                                    do)
+    qf, kf, vf, dof = (t.float() for t in ts)
+    want = flash_attention_bwd_plain(qf, kf, vf,
+                                     flash_attention_plain(qf, kf, vf), dof)
     for g, w in zip(got, want):
         assert g.dtype == ts[0].dtype
-        assert torch.equal(g, w.to(g.dtype))
+        if dtype == "float32":
+            assert torch.equal(g, w)
+        else:
+            _assert_bf16_grad_close(g, w, "bf16 vs float32")
 
 
 @pytest.mark.parametrize("B,T,H,P,S,chunk,with_dh", [
@@ -686,27 +739,34 @@ def test_flash_attention_bwd_plain_is_the_float32_gradient(dtype):
     (1, 96, 2, 64, 40, 32, True),
     (2, 50, 2, 32, 64, 16, True),      # ragged T: the forward pads
     (2, 37, 4, 64, 8, 128, False),     # T below the chunk
+    (2, 64, 2, 16, 16, 16, False),
+    (1, 64, 2, 32, 8, 16, True),
+    (2, 64, 3, 16, 16, 32, True),
+    (2, 256, 2, 16, 8, 128, False),
+    (1, 256, 2, 8, 16, 128, True),
+    (2, 300, 2, 16, 8, 128, True),     # a ragged last chunk of 44 steps
 ])
 def test_mamba_scan_bwd_plain_matches_autograd_and_jax(B, T, H, P, S, chunk,
                                                        with_dh):
-    """B8b's plain version against autograd through B8's plain version,
-    and (T a multiple of the chunk) against `jax.grad` of the reference's
+    """B8b's plain version against autograd through the torch ops of B8's
+    plain forward (`mamba_scan_plain` called on leaves), at every T, and
+    (T a multiple of the chunk) against `jax.grad` of the reference's
     `chunked_ssd` with one shared group; dh_last given or not."""
-    from repro_torch.kernels.mamba_scan import MambaScan, mamba_scan_bwd_plain
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd_plain
 
     R = np.random.default_rng(T + P + S)
     (jx, tx), (jdt, tdt), (jA, tA), (jB, tB), (jC, tC) = _mamba_inputs(
         R, B, T, H, P, S)
     jdy, tdy = _pair(R, (B, T, H, P))
     jdh, tdh = _pair(R, (B, H, P, S)) if with_dh else (None, None)
-    got = mamba_scan_bwd_plain(tx, tdt, tA, tB, tC, tdy, tdh)
+    got = mamba_scan_bwd_plain(tx, tdt, tA, tB, tC, tdy, tdh, chunk=chunk)
     leaves = [t.clone().requires_grad_() for t in (tx, tdt, tA, tB, tC)]
-    y, h = MambaScan.apply(*leaves, chunk, True)
+    y, h = mamba_scan_plain(*leaves, chunk=chunk)
     loss = (y * tdy).sum() + ((h * tdh).sum() if with_dh else 0)
-    loss.backward()
+    want = torch.autograd.grad(loss, leaves)
     names = ("dx", "ddt", "dA", "dBm", "dCm")
-    for g, leaf, name in zip(got, leaves, names):
-        _assert_grad_close(g, leaf.grad, f"{name} vs autograd")
+    for g, w, name in zip(got, want, names):
+        _assert_grad_close(g, w, f"{name} vs autograd")
     if T % min(chunk, T):
         return
 
@@ -722,16 +782,59 @@ def test_mamba_scan_bwd_plain_matches_autograd_and_jax(B, T, H, P, S, chunk,
 
 
 def test_mamba_scan_bwd_refuses_what_its_kernel_does_not_take():
+    """B8b takes what B8 takes: a chunk up to MAX_CHUNK and any P and S
+    whose blocks fit (the old limits, P a multiple of 16 up to 64 and S up
+    to 64, are gone); CPU tensors go to the plain version."""
     from repro_torch.kernels.mamba_scan import (
         check_bwd_shapes,
         mamba_scan_bwd_kernel_call,
     )
 
-    for P, S in ((8, 16), (80, 16), (64, 65), (24, 8)):
-        with pytest.raises(ValueError, match="backward takes"):
-            check_bwd_shapes(P, S)
-    check_bwd_shapes(64, 64)
+    with pytest.raises(ValueError, match="at most"):
+        check_bwd_shapes(MAX_CHUNK + 1, 64, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        check_bwd_shapes(128, 8, 300)
+    for P, S in ((8, 16), (80, 16), (64, 65), (24, 8), (64, 64), (1, 1)):
+        check_bwd_shapes(128, P, S)
     R = np.random.default_rng(0)
     (_, x), (_, dt), (_, A), (_, Bm), (_, Cm) = _mamba_inputs(R, 1, 8, 2, 16, 4)
     with pytest.raises(ValueError, match="CUDA"):
         mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, x)
+    with pytest.raises(ValueError, match="shared memory"):
+        (_, x), (_, dt), (_, A), (_, Bm), (_, Cm) = _mamba_inputs(
+            R, 1, 300, 2, 8, 300)
+        mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, x)
+
+
+@pytest.mark.parametrize("name,scale", B8_CONFIGS)
+def test_scan_bwd_shared_memory_fits_every_config_reaching_b8(name, scale):
+    """B8b's blocks fit a block's shared memory at every config that runs
+    B8, and two of the chunk backward's fit an SM."""
+    from repro_torch.kernels.mamba_scan import bwd_shared_bytes, check_bwd_shapes
+
+    cfg = (configs.get if scale == "full" else configs.get_reduced)(name)
+    check_bwd_shapes(cfg.ssd_chunk, _HEAD_P, cfg.ssm_state)
+    need = bwd_shared_bytes(cfg.ssd_chunk, _HEAD_P, cfg.ssm_state)
+    assert need <= MAX_SHARED_BYTES
+    assert 2 * (need + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
+    assert need == 78_336   # every such config has P = 64
+
+
+@pytest.mark.parametrize("B,T,H,P,S,chunk,want", [
+    (2, 4096, 64, 64, 64, 128, (32, 103_292_928)),   # zamba2-1.2b training
+    (2, 1000, 8, 64, 16, 128, (8, 1_118_464)),
+    (1, 37, 2, 8, 4, 128, (1, 18_196)),
+])
+def test_scan_bwd_scratch_shapes(B, T, H, P, S, chunk, want):
+    """The backward's scratch: B8's own, the final state, the gradient of
+    the state leaving each chunk, the per-head parts of dBm and dCm and the
+    per-chunk parts of dA (about 0.4 GB at zamba2-1.2b's training shape,
+    where the step recurrence's took 805 MB)."""
+    from repro_torch.kernels.mamba_scan import bwd_scratch_shapes
+
+    shapes = bwd_scratch_shapes(B, T, H, P, S, chunk)
+    n_chunks, n_floats = want
+    assert shapes[:5] == scan_scratch_shapes(B, T, H, P, S, min(chunk, T))
+    assert shapes[5:] == ((B, H, P, S), (B, H, n_chunks, P, S), (B, H, T, S),
+                          (B, H, T, S), (B, H, n_chunks))
+    assert sum(int(np.prod(s)) for s in shapes) == n_floats

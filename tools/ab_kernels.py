@@ -1,5 +1,5 @@
-"""Time B5, B6 and B7, and LM serving, of several checkouts of the port in
-one run on a card.
+"""Time B5, B6, B7, B6b and B8b, LM serving and zamba2-1.2b's training
+step, of several checkouts of the port in one run on a card.
 
     python3 tools/ab_kernels.py NAME=DIR [NAME=DIR ...] [--out DIR]
 
@@ -27,6 +27,18 @@ a flush of its L2, the median of REPS runs; the chip_smoke.py method):
   and the reduced qwen3-8b's prefill end to end (`make_prefill`, 2 x 40
   tokens, host ms to a synchronised result), where the checkout takes
   head dim 16 (an older one raises ValueError: not timed);
+- B6b (`flash_attention_bwd_kernel_call`) and B8b
+  (`mamba_scan_bwd_kernel_call`) at zamba2-1.2b's training shapes, bf16:
+  (2, 32 / 32 heads, T 4096, D 64, causal) and (B 2, T 4096, 64 heads of
+  P 64, S 64), through the calls a checkout with the scalar first
+  versions takes too; and each kernel a call launches, in device ms, from
+  a torch.profiler window of 5 calls (taken last in the process, since a
+  profiler window slows every later host-bound step);
+- zamba2-1.2b's training step as chip_smoke.py's `train` runs it
+  (`repro_torch.launch.train`, full width and depth, bf16, seed 0, T
+  4096, global batch 4 in 2 microbatches, 4 steps, no checkpoints): the
+  median host ms of steps 1-3 to the loss read back, tokens/s, the losses
+  and the peak device memory;
 - serving at full width in bf16, seed-0 weights, as chip_smoke.py's
   `lm_serve` times it: qwen3-8b's and zamba2-1.2b's prefill of 2 x 2048
   tokens (host ms to a synchronised result, the median of the 2nd and
@@ -39,6 +51,7 @@ encodings removed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -57,6 +70,13 @@ B5_WINDOWS = {"iot_window": (4000, 128), "stream_trace": (600, 4000)}
 B7_CASES = {"zamba2-1.2b": (8, 32, 32, 168, 64, 159),
             "qwen3-8b": (8, 32, 8, 4096, 128, 4096)}
 B6_CASES = {"reduced_t40": (2, 4, 2, 40, 16), "reduced_t2048": (2, 4, 2, 2048, 16)}
+# zamba2-1.2b's training shapes: B6b (B, heads, T, D), causal, bf16; B8b
+# (B, T, H, P, S), bf16; its training step as chip_smoke.py's `train` runs it
+TRAIN_B6B = (2, 32, 4096, 64)
+TRAIN_B8B = (2, 4096, 64, 64, 64)
+TRAIN_ARGV = ["--arch", "zamba2-1.2b", "--steps", "4", "--batch", "4",
+              "--seq", "4096", "--microbatches", "2", "--seed", "0",
+              "--device", "cuda"]
 # the split kernel at bf16, D 64, G 4 (unpadded, where the template has a
 # padding flag) and the bf16 merge, as mangled names
 B7_SASS = {"split_bf16_d64_g4": r"decode_split_kernelI13__nv_bfloat16Li64ELi4E(Lb0E)?E",
@@ -75,7 +95,12 @@ def child(root: Path) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import decode_attention_kernel_call
     from repro_torch.kernels.feature_extract import flow_stats_kernel_call
-    from repro_torch.kernels.flash_attention import flash_attention_kernel_call
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel_call,
+        flash_attention_kernel_call,
+    )
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd_kernel_call
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import init_cache, init_params
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.traffic.synth import make_dataset, make_scenario_dataset
@@ -102,6 +127,22 @@ def child(root: Path) -> dict:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return statistics.median(times)
+
+    def per_kernel(fn, n=5):
+        """{kernel: device ms a call} over a profiled window of n calls
+        (the card's activity only)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key[:60]: e.self_device_time_total / 1e3 / n
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
 
     out = {"root": str(root), "library": str(lib),
            "empty_launch_device_ms": device_ms(lambda: torch.cuda._sleep(0))}
@@ -144,6 +185,38 @@ def child(root: Path) -> dict:
                 continue
             out[f"{key}_device_ms"] = device_ms(b6)
             out[f"{key}_ms"] = device_ms(b6, queued=False)
+
+    # B6b and B8b at zamba2-1.2b's training shape (the checkout's own
+    # wrappers: a parent with the scalar kernels takes the same calls)
+    B, H, T, D = TRAIN_B6B
+    q, k, v, do = (randn(B, H, T, D) for _ in range(4))
+    o = flash_attention_kernel_call(q, k, v, causal=True)
+    b6b = lambda: flash_attention_bwd_kernel_call(q, k, v, o, do, causal=True)  # noqa: E731
+    out["b6b_zamba2_train_device_ms"] = device_ms(b6b)
+    B, T, H, P, S = TRAIN_B8B
+    x = randn(B, T, H, P) * 0.5
+    dt = randn(B, T, H, dtype=torch.float32).abs() * 0.1 + 0.01
+    A = -randn(H, dtype=torch.float32).abs() - 0.1
+    Bm, Cm = randn(B, T, S) * 0.3, randn(B, T, S) * 0.3
+    dy = randn(B, T, H, P)
+    b8b = lambda: mamba_scan_bwd_kernel_call(x, dt, A, Bm, Cm, dy)  # noqa: E731
+    out["b8b_zamba2_train_device_ms"] = device_ms(b8b)
+    # the training step, as chip_smoke.py's `train` runs it (no
+    # checkpoints): the median of steps 1-3, the losses, the peak memory
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    with contextlib.redirect_stdout(sys.stderr):
+        losses = launch_train.main(TRAIN_ARGV, report=report)
+    torch.cuda.synchronize()
+    out["train_zamba2_step_ms"] = statistics.median(
+        report["step_seconds"][1:]) * 1e3
+    out["train_zamba2_tokens_per_s"] = 4 * 4096 / (
+        out["train_zamba2_step_ms"] / 1e3)
+    out["train_zamba2_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["train_zamba2_losses"] = losses
+    del report
+    torch.cuda.empty_cache()
 
     for dtype in ("float32", "bfloat16"):
         cfg = dataclasses.replace(configs.get_reduced("qwen3-8b"), dtype=dtype)
@@ -200,6 +273,10 @@ def child(root: Path) -> dict:
             (time.perf_counter() - t0) * 1e3 / SERVE_GEN
         out[f"serve_{arch}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         del params, cache
+    # each kernel B6b and B8b launch, last: a profiler window slows every
+    # later host-bound step of the process
+    out["b6b_zamba2_train_launches"] = per_kernel(b6b)
+    out["b8b_zamba2_train_launches"] = per_kernel(b8b)
     return out
 
 
