@@ -231,6 +231,23 @@ Phases, each printing one JSON line:
    step 3, the resumed losses at steps 2 and 3 bitwise the uninterrupted
    run's, every kernel launched. The `train` line has step ms (median of
    steps 1-3), tokens/s, peak GB and the launches per step.
+14b. multicard (slice 15): W = torch.cuda.device_count() processes, one a
+   card, each a rank of an NCCL group (no fallback: a group that does not
+   start, or a rank that fails, fails the script); each rank takes the
+   one-card batch, so the global batch grows with W. `multicard_train`:
+   the train phase's command through `launch.train` with ``--data W`` for
+   2 steps (its schedule, so steps 0 and 1 see the same learning rates),
+   every rank holding its blocks, the gradients reduce-scattered into
+   ZeRO-1's moment blocks and the parameters all-gathered; one more step
+   traced. At W = 1 its losses and every parameter after step 2 are
+   checked bitwise equal to the train phase's (its step-2 checkpoint). `multicard_moe`:
+   qwen2-moe-a2.7b at full width cut to 2 layers (bf16, 2 x 2048 tokens,
+   seed 0), one forward and backward of `loss_fn` through `moe_sharded`;
+   at W = 1 its loss and every gradient checked bitwise equal to
+   `moe_ref`'s at capacity C2; both paths timed, one all_to_all of the
+   first-stage token buffer timed alone, one pass traced. Each line has
+   W, its seconds, each step's collective calls and bytes (checked above
+   0), peak GB and the launches, which the `kernels` line adds up.
 15. train_reduced: every reduced config in float32 and bf16, one
    `make_train_step` step (2 x 40 tokens, 2 microbatches, AdamW) on the
    kernel path and on the plain path: loss, grad norm, every gradient and
@@ -255,9 +272,11 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -480,6 +499,14 @@ TRAIN_B8B_CASES = (
 # train_reduced: one step of each reduced config in both types, 2 x 40
 # tokens in 2 microbatches
 TRAIN_REDUCED_B, TRAIN_REDUCED_T = 2, 40
+# multicard (slice 15): W = torch.cuda.device_count() NCCL ranks, a process
+# a card; the MoE phase's model at full width with its depth cut to 2
+# layers (15.15B parameters at full depth would need 60 GB of bf16 weights
+# and gradients before any activation)
+MC_MOE_ARCH, MC_MOE_LAYERS, MC_MOE_T, MC_MOE_B = "qwen2-moe-a2.7b", 2, 2048, 2
+# timed runs of each multicard_moe measurement (after one warm-up)
+MC_MOE_REPS = 3
+MC_TIMEOUT = 600
 
 
 def ptxas_entries(log: str, names: tuple[str, ...]) -> list[dict]:
@@ -2139,7 +2166,20 @@ def step0_vs_plain(dev) -> dict:
     return out
 
 
-def train_phase(dev) -> dict:
+def train_argv(ckpt_dir, batch: int = TRAIN_BATCH) -> list:
+    """`launch.train`'s arguments of the train phase: zamba2-1.2b at full
+    width and depth, T TRAIN_T, global batch `batch` in TRAIN_MB
+    microbatches, TRAIN_STEPS steps (the schedule's length), seed 0, and
+    with a `ckpt_dir` a checkpoint every 2 steps there."""
+    ckpt = [] if ckpt_dir is None else ["--ckpt-dir", str(ckpt_dir),
+                                        "--ckpt-every", "2"]
+    return ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+            "--batch", str(batch), "--seq", str(TRAIN_T),
+            "--microbatches", str(TRAIN_MB), *ckpt, "--seed", "0",
+            "--device", "cuda"]
+
+
+def train_phase(dev, d) -> dict:
     """`repro_torch.launch.train.main` through its argv: zamba2-1.2b at
     full width and depth, bf16, seed-0 weights, T TRAIN_T, global batch
     TRAIN_BATCH in TRAIN_MB microbatches, TRAIN_STEPS steps, checkpoints
@@ -2147,10 +2187,9 @@ def train_phase(dev) -> dict:
     traced; then, as if the job had died after the step-2 checkpoint, the
     same command again, resuming from it. Checked: losses finite and
     falling from step 0 to the last, the resumed steps' losses bitwise the
-    uninterrupted run's, every kernel of the path launched."""
-    import shutil
-    import tempfile
-
+    uninterrupted run's, every kernel of the path launched. The checkpoints
+    stay in `d` (the caller's): `multicard_phase` holds its own step 2 to
+    this run's."""
     from repro_torch import configs
     from repro_torch.launch import train as launch_train
     from repro_torch.models.config import ShapeSpec
@@ -2158,45 +2197,38 @@ def train_phase(dev) -> dict:
     from repro_torch.train.data import make_batch
 
     counters = train_counters()
-    root = Path(__file__).resolve().parent / "build"
-    root.mkdir(exist_ok=True)
-    out = {}
-    with tempfile.TemporaryDirectory(dir=root) as d:
-        argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
-                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_T),
-                "--microbatches", str(TRAIN_MB), "--ckpt-dir", d,
-                "--ckpt-every", "2", "--seed", "0", "--device", "cuda"]
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches(*counters.values())
-        full = {}
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
-            losses = launch_train.main(argv, report=full)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        launches = {k: f.launches for k, f in counters.items()}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        state = full.pop("state")
-        # one more step, traced: the card's busy share of a training step
-        cfg = configs.get(TRAIN_ARCH)
-        step_fn = make_train_step(cfg, AdamW(lr=cosine_schedule(
-            3e-4, 10, TRAIN_STEPS)), TRAIN_MB)
-        batch = make_batch(cfg, ShapeSpec("cli", TRAIN_T, TRAIN_BATCH,
-                                          "train"), TRAIN_STEPS, 0, dev)
-        prof = device_profile(lambda: step_fn(state, batch), 1,
-                              host_ops=False, top=None)
-        del state, batch, step_fn
-        torch.cuda.empty_cache()
-        shutil.rmtree(Path(d) / f"step_{TRAIN_STEPS:08d}")
-        (Path(d) / "LATEST").write_text("2")
-        resumed = {}
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
-            launch_train.main(argv, report=resumed)
-        torch.cuda.synchronize()
-        resume_s = time.perf_counter() - t0
-        resumed.pop("state")
+    argv = train_argv(d)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(*counters.values())
+    full = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        losses = launch_train.main(argv, report=full)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state = full.pop("state")
+    # one more step, traced: the card's busy share of a training step
+    cfg = configs.get(TRAIN_ARCH)
+    step_fn = make_train_step(cfg, AdamW(lr=cosine_schedule(
+        3e-4, 10, TRAIN_STEPS)), TRAIN_MB)
+    batch = make_batch(cfg, ShapeSpec("cli", TRAIN_T, TRAIN_BATCH,
+                                      "train"), TRAIN_STEPS, 0, dev)
+    prof = device_profile(lambda: step_fn(state, batch), 1,
+                          host_ops=False, top=None)
+    del state, batch, step_fn
+    torch.cuda.empty_cache()
+    shutil.rmtree(Path(d) / f"step_{TRAIN_STEPS:08d}")
+    (Path(d) / "LATEST").write_text("2")
+    resumed = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        launch_train.main(argv, report=resumed)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    resumed.pop("state")
     steady = sorted(full["step_seconds"][1:])
     step_s = statistics.median(steady)
     out = dict(
@@ -2302,6 +2334,300 @@ def train_reduced_phase(dev) -> dict:
         "flash_attention_bwd"] > 0, f"train_lm.py: {example}")
     return dict(cases=cases, example=example, launches={
         k: sum(r["launches"][k] for r in cases) for k in counters})
+
+
+def nccl_rows(prof: dict) -> dict:
+    """The collectives' device time in a `device_profile` with every row:
+    NCCL's kernels by name, and the device-to-device copies (over one rank
+    NCCL copies with cudaMemcpyAsync, which the trace cannot tell from
+    torch's own copies)."""
+    nccl = [r for r in prof["top"] if "nccl" in r["name"].lower()]
+    copies = [r for r in prof["top"] if "Memcpy DtoD" in r["name"]]
+    return dict(nccl_ms=sum(r["ms"] for r in nccl), nccl=nccl,
+                memcpy_dtod_ms=sum(r["ms"] for r in copies),
+                memcpy_dtod=sum(r["count"] for r in copies))
+
+
+def multicard_train_rank(dev, world: int, train_dir, counters) -> dict:
+    """This rank's `multicard_train`: 2 steps of the train phase's command
+    (without its checkpoints) through `launch.train` over the NCCL group
+    (``--data`` W); at W = 1 every parameter after step 2 held bitwise to
+    the train phase's step-2 checkpoint in `train_dir`; then one more step
+    traced."""
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.specs import batch_pspecs
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.parallel import gather_full, local_shard, parallel_ctx
+    from repro_torch.parallel.collectives import counts, reset_counts
+    from repro_torch.train import AdamW, cosine_schedule, make_train_step
+    from repro_torch.train.checkpoint import read_leaves
+    from repro_torch.train.data import make_batch
+
+    # each rank takes the one-card step's batch: the global batch grows
+    # with W. Steps 0 and 1 lie in the 10-step warm-up, whose learning
+    # rates do not depend on --steps, so 2 steps give the train phase's.
+    argv = train_argv(None, TRAIN_BATCH * world) + [
+        "--data", str(world), "--steps", "2"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(*counters.values())
+    report = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        losses = launch_train.main(argv, report=report)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state, mesh = report.pop("state"), report.pop("mesh")
+    t0 = time.perf_counter()
+    params = dict(state["params"].named_parameters())
+    n_params, equal = len(params), None
+    if world == 1:
+        want = read_leaves(train_dir, 2, set(params))
+        pl = state["placement"]
+        equal = sum(int(torch.equal(
+            gather_full(p, pl.params[n], mesh).cpu(), want[n]))
+            for n, p in params.items())
+        del want
+    compare_s = time.perf_counter() - t0
+    cfg = configs.get(TRAIN_ARCH)
+    step_fn = make_train_step(cfg, AdamW(lr=cosine_schedule(
+        3e-4, 10, TRAIN_STEPS)), TRAIN_MB)
+    with parallel_ctx(mesh) as ctx:
+        batch = make_batch(cfg, ShapeSpec("cli", TRAIN_T, TRAIN_BATCH * world,
+                                          "train"), 2, 0, dev)
+        specs = batch_pspecs(batch, ctx)
+        batch = {k: local_shard(v, specs[k], mesh) for k, v in batch.items()}
+        reset_counts()
+        t0 = time.perf_counter()
+        prof = device_profile(lambda: step_fn(state, batch), 1,
+                              host_ops=False, top=None)
+        trace_s = time.perf_counter() - t0
+        traced = counts()
+    del state, batch, step_fn, params
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_seconds=report["step_seconds"],
+                grad_norms=report["grad_norms"], lrs=report["lrs"],
+                collectives=report["collectives"], run_seconds=run_s,
+                compare_seconds=compare_s, trace_seconds=trace_s,
+                peak_gb=peak_gb, launches=launches, param_leaves=n_params,
+                params_equal_train=equal,
+                traced_step=dict(window_ms=prof["window_ms"],
+                                 device_busy_ms=prof["device_busy_ms"],
+                                 busy_share=prof["busy_share"],
+                                 kernels=prof["kernels"], collectives=traced,
+                                 **nccl_rows(prof)))
+
+
+def multicard_moe_rank(dev, world: int, counters, flush) -> dict:
+    """This rank's `multicard_moe`: MC_MOE_ARCH at full width cut to
+    MC_MOE_LAYERS layers, one forward and backward of `loss_fn` through
+    `moe_sharded` over the NCCL group; at a world of one, the same through
+    `moe_ref` at the capacity factor that makes its capacity C2."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import batch_pspecs
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.parallel import (
+        all_to_all,
+        local_shard,
+        param_pspecs,
+        parallel_ctx,
+        psum,
+        shard_module,
+    )
+    from repro_torch.parallel.collectives import counts, reset_counts
+    from repro_torch.train.data import make_batch
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(MC_MOE_ARCH), n_layers=MC_MOE_LAYERS)
+    mesh = make_local_mesh(world, 1, dev)
+    params = init_params(cfg, 0, dev)
+    params.requires_grad_(True)
+    with parallel_ctx(mesh) as ctx:
+        shard_module(params, param_pspecs(params, ctx), mesh)
+        batch = make_batch(cfg, ShapeSpec("mc", MC_MOE_T, MC_MOE_B * world,
+                                          "train"), 0, 0, dev)
+        specs = batch_pspecs(batch, ctx)
+        batch = {k: local_shard(v, specs[k], mesh) for k, v in batch.items()}
+    plist = list(params.parameters())
+    N = batch["tokens"].numel()
+    k, cf, E = cfg.experts_per_tok, cfg.capacity_factor, cfg.expert_slots
+    C = tmoe._capacity(N * k, world, cf)
+    C2 = tmoe._capacity(world * C, E // world, cf)
+
+    def run(c, ctx_mesh):
+        with parallel_ctx(ctx_mesh):
+            loss = loss_fn(params, batch, c)
+            return loss.detach(), torch.autograd.grad(loss, plist)
+
+    def sharded():
+        return run(cfg, mesh)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(*counters.values())
+    reset_counts()
+    s_loss, s_grads = sharded()
+    torch.cuda.synchronize()
+    coll = counts()
+    launches = {k: f.launches for k, f in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out = dict(arch=MC_MOE_ARCH, layers=MC_MOE_LAYERS, dtype=cfg.dtype,
+               tokens=[MC_MOE_B * world, MC_MOE_T], local_tokens=N, capacity=C,
+               capacity_c2=C2, collectives=coll, launches=launches,
+               peak_gb=peak_gb, grad_leaves=len(plist),
+               finite=math.isfinite(float(s_loss)) and all(
+                   bool(torch.isfinite(g.float()).all()) for g in s_grads))
+    with parallel_ctx(mesh):
+        out["loss"] = float(psum(s_loss, "data") / world)
+    if world == 1:
+        cf2 = (C2 - 0.5) * cfg.n_experts / (N * k)
+        check(tmoe._capacity(N * k, cfg.n_experts, cf2) == C2,
+              f"no capacity factor gives moe_ref C2 = {C2}")
+        ref_cfg = dataclasses.replace(cfg, capacity_factor=cf2)
+
+        def ref():
+            return run(ref_cfg, None)
+
+        r_loss, r_grads = ref()
+        torch.cuda.synchronize()
+        out.update(
+            ref_loss=float(r_loss),
+            loss_equal=bool(torch.equal(s_loss, r_loss)),
+            grads_bitwise=sum(int(torch.equal(a, b))
+                              for a, b in zip(s_grads, r_grads)),
+            max_abs_err=max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(s_grads, r_grads)))
+        del r_grads
+        out["ref_ms"] = time_ms(ref, MC_MOE_REPS, flush, warmup=1)
+    del s_grads
+    out["ms"] = time_ms(sharded, MC_MOE_REPS, flush, warmup=1)
+    # one all_to_all of a layer's first-stage token buffer, alone: over
+    # one rank NCCL copies with cudaMemcpyAsync, which a trace cannot tell
+    # from torch's own copies
+    buf = torch.zeros((world, C, cfg.d_model), dtype=torch.bfloat16,
+                      device=dev)
+    out["a2a_ms_each"] = time_ms(lambda: all_to_all(buf, "data", mesh),
+                                 MC_MOE_REPS, flush, warmup=1)
+    out["a2a_bytes_each"] = buf.numel() * buf.element_size()
+    del buf
+    prof = device_profile(sharded, 1, host_ops=False, top=None)
+    out["traced"] = dict(window_ms=prof["window_ms"],
+                         device_busy_ms=prof["device_busy_ms"],
+                         kernels=prof["kernels"], **nccl_rows(prof))
+    out["seconds"] = time.perf_counter() - t0
+    del params, plist
+    torch.cuda.empty_cache()
+    return out
+
+
+def multicard_rank(rank: str, world: str, init: str, out_path: str,
+                   train_dir: str, started: str) -> None:
+    """One rank of the multicard phases, in a process of its own (the
+    parent starts W of them at wall-clock time `started`): the NCCL group,
+    `multicard_train_rank`, then `multicard_moe_rank`; rank 0 writes what
+    both returned to `out_path`."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(rank), int(world)
+    t0 = time.perf_counter()
+    dev = init_distributed("cuda", rank, world, init, local_rank=rank)
+    out = dict(rank=rank, world=world,
+               start_seconds=time.time() - float(started),
+               init_seconds=time.perf_counter() - t0)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    counters = train_counters()
+    try:
+        t0 = time.perf_counter()
+        out["train"] = multicard_train_rank(dev, world, train_dir, counters)
+        out["train"]["rank_seconds"] = time.perf_counter() - t0
+        out["moe"] = multicard_moe_rank(dev, world, counters, flush)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        Path(out_path).write_text(json.dumps(out))
+
+
+def multicard_phase(train_dir, train: dict | None) -> tuple[dict, dict]:
+    """Both multicard phases over an NCCL group of W =
+    torch.cuda.device_count() ranks, one process a card, started here and
+    stopped here whatever happens (`train` None: no train phase ran, W >
+    1). `multicard_train` at W = 1 is checked
+    bitwise against the train phase: its losses at steps 0 and 1, and
+    every parameter after step 2 against the train phase's step-2
+    checkpoint in `train_dir`; `multicard_moe` at W = 1 against `moe_ref`
+    at capacity C2 (loss and every gradient bitwise). Every step must have
+    run collectives."""
+    W = torch.cuda.device_count()
+    out_path = Path(train_dir) / "multicard.json"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--multicard-rank",
+         str(r), str(W), f"file://{Path(train_dir) / 'multicard_pg'}",
+         str(out_path), str(train_dir), repr(time.time())],
+        stdout=sys.stderr, stderr=sys.stderr) for r in range(W)]
+    deadline = time.monotonic() + MC_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            check(time.monotonic() < deadline,
+                  f"multicard ranks outlived {MC_TIMEOUT} s")
+            check(all(p.poll() in (None, 0) for p in procs),
+                  f"a multicard rank failed: {[p.poll() for p in procs]}")
+            time.sleep(0.2)
+        check(all(p.returncode == 0 for p in procs),
+              f"multicard ranks exited {[p.returncode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    res = json.loads(out_path.read_text())
+    tr, moe = res["train"], res["moe"]
+    calls = [{k: v["calls"] for k, v in c.items()} for c in tr["collectives"]]
+    tr.update(world=W, start_seconds=res["start_seconds"],
+              init_seconds=res["init_seconds"],
+              step1_ms=tr["step_seconds"][-1] * 1e3, collective_calls=calls)
+    if train is not None:
+        tr.update(train_step_ms=train["step_ms"],
+                  losses_equal_train=tr["losses"] == train["losses"][:2],
+                  loss_gaps=[a - b for a, b in zip(tr["losses"],
+                                                   train["losses"])])
+    moe.update(world=W)
+    check(all(math.isfinite(x) for x in tr["losses"]) and len(tr["losses"]) == 2,
+          f"multicard_train losses {tr['losses']}")
+    check(all(c.get("all_reduce", 0) > 0 and c.get("reduce_scatter", 0) > 0
+              and c.get("all_gather", 0) > 0 for c in calls),
+          f"multicard_train collectives {calls}")
+    check(all(n > 0 for n in tr["launches"].values()),
+          f"multicard_train launches {tr['launches']}")
+    check(moe["finite"] and moe["collectives"]["all_to_all"]["calls"] > 0,
+          f"multicard_moe: {moe}")
+    check(moe["launches"]["flash_attention"] > 0
+          and moe["launches"]["flash_attention_bwd"] > 0,
+          f"multicard_moe launches {moe['launches']}")
+    if W == 1:
+        check(train is not None, "at W = 1 the train phase runs first")
+        check(tr["losses_equal_train"],
+              f"multicard_train losses {tr['losses']} vs train's "
+              f"{train['losses'][:2]}")
+        check(tr["params_equal_train"] == tr["param_leaves"],
+              f"multicard_train parameters after step 2 vs train's: "
+              f"{tr['params_equal_train']} of {tr['param_leaves']} equal")
+        check(moe["loss_equal"] and moe["grads_bitwise"] == moe["grad_leaves"],
+              f"multicard_moe vs moe_ref at C2: {moe}")
+    # the train phase's seconds: the ranks' start and NCCL's set-up with it
+    return dict(tr, seconds=seconds - moe["seconds"],
+                multicard_seconds=seconds), moe
 
 
 def lm_batch(cfg, B: int, n_tokens: int, gen, dev, n_embed: int = 0,
@@ -3482,12 +3808,22 @@ def main() -> None:
     t0 = time.perf_counter()
     step0 = step0_vs_plain(dev)
     emit("train_step0_vs_plain", **step0)
-    train = train_phase(dev)
-    emit("train", **train, seconds=time.perf_counter() - t0)
-    # each launch's device ms, from the traced step
-    for name, per in train["launch_ms"].items():
-        trk["timing"][f"{name}/zamba2-1.2b-train"]["launches_timed"] = per
-    emit("train_kernel_times", timing=trk["timing"], seconds=trk_seconds)
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as ckpt_root:
+        train = train_phase(dev, ckpt_root)
+        emit("train", **train, seconds=time.perf_counter() - t0)
+        # each launch's device ms, from the traced step
+        for name, per in train["launch_ms"].items():
+            trk["timing"][f"{name}/zamba2-1.2b-train"]["launches_timed"] = per
+        emit("train_kernel_times", timing=trk["timing"], seconds=trk_seconds)
+
+        # 14b. multicard: data- and expert-parallel training over NCCL ------
+        mc_train, mc_moe = multicard_phase(ckpt_root, train)
+    emit("multicard_train", **mc_train)
+    emit("multicard_moe", **mc_moe)
+    mc_launches = {k: mc_train["launches"][k] + mc_moe["launches"][k]
+                   for k in mc_train["launches"]}
 
     # 15. train_reduced: every reduced config, kernels against plain -------
     t0 = time.perf_counter()
@@ -3504,6 +3840,7 @@ def main() -> None:
             launches_by_model={a: r["launches"][name]
                                for a, r in lm_serve.items()},
             reduced_launches=lm_red["launches"][name],
+            multicard_launches=mc_launches.get(name),
             max_abs_err=max(c["max_abs_err"] for c in lm["cases"]
                             if c["kernel"] == name),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -3535,6 +3872,7 @@ def main() -> None:
             step0_launches=step0["launches"][name],
             reduced_launches=tr_red["launches"][name],
             example_launches=tr_red["example"]["launches"][name],
+            multicard_launches=mc_launches[name],
             max_abs_err=max(c["max_abs_err"] for c in trk["cases"]
                             if c["kernel"] == name),
             bitwise=all(c["bitwise"] for c in trk["cases"]
@@ -3687,5 +4025,36 @@ def main() -> None:
         flush=True)
 
 
+def multicard_only() -> None:
+    """``python3 chip_smoke.py --multicard-only``: the build, then the
+    multicard phases alone (at W = 1 after the train phase they are held
+    to), for a machine with several cards."""
+    from repro_torch.kernels import _build
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    _build.build_library()
+    _build.load_library()
+    emit("build", seconds=time.perf_counter() - t0)
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as d:
+        train = None
+        if torch.cuda.device_count() == 1:
+            train = train_phase(torch.device("cuda"), d)
+        mc_train, mc_moe = multicard_phase(d, train)
+    emit("multicard_train", **mc_train)
+    emit("multicard_moe", **mc_moe)
+    print(smi, flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multicard-rank"]:
+        multicard_rank(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--multicard-only"]:
+        multicard_only()
+    else:
+        main()

@@ -14,7 +14,8 @@ dicts of numpy arrays, layers stacked on a leading axis) into the port's
 cache, checking every key, shape and dtype on the way in.
 `train_state_from_numpy` carries a reference train state (parameters,
 then AdamW's m, v and step) into the port's, so that both packages can
-start training from the same state.
+start training from the same state; `train_state_shard_from_numpy` cuts
+it to one rank's blocks over a process-group mesh.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from .device import resolve_device
 
 __all__ = ["forest_from_numpy", "forest_tables", "lm_cache_from_numpy",
            "lm_params_from_numpy", "multi_forest_tables",
-           "train_state_from_numpy"]
+           "train_state_from_numpy", "train_state_shard_from_numpy"]
 
 
 def forest_from_numpy(feature, threshold, leaf, depth: int, n_features: int,
@@ -213,3 +214,14 @@ def train_state_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda"
             "opt": {"m": moments["m"], "v": moments["v"],
                     "step": torch.tensor(int(step), dtype=torch.int32,
                                          device=dev)}}
+
+
+def train_state_shard_from_numpy(tree: dict, cfg, mesh,
+                                 device: str | torch.device = "cuda") -> dict:
+    """This rank's blocks of a reference train state on `mesh` (a mesh over
+    a process group): `train_state_from_numpy`'s full state on `device`,
+    then cut as `repro_torch.train.init_state` cuts its own (parameters by
+    their specs, moments by ZeRO-1's), with its placement."""
+    from .train.train_step import shard_state
+
+    return shard_state(train_state_from_numpy(tree, cfg, device), mesh)

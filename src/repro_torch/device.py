@@ -2,7 +2,8 @@
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``: the port
 runs on the card unless the caller asks for the CPU, and it never falls
-back to the CPU on its own.
+back to the CPU on its own. ``"meta"`` makes tensors with a shape and a
+type and no storage (the abstract inputs of `repro_torch.launch.specs`).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The torch device to run on; raises when a CUDA device is asked for
     and none is present (pass ``device="cpu"`` to run the plain version)."""
     dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -1,0 +1,208 @@
+"""Input specs and sharding assembly for every (arch x shape x mesh) cell.
+
+Port of `repro.launch.specs`. `input_specs(cfg, shape)` returns the model
+inputs as meta-device tensors, with the shapes and dtypes of the
+reference's `ShapeDtypeStruct`s and no storage. The modality frontends
+are stubs: whisper receives precomputed frame embeddings, internvl2
+precomputed patch embeddings. `decode_input_specs` gives the decode cache
+(`init_cache` on the meta device) and the tokens.
+
+`batch_pspecs` and `cache_pspecs` are the reference's specs (as the
+port's spec tuples, `repro_torch.parallel.sharding`), by which each rank
+cuts its block of the inputs (`local_shard`).
+
+`build_cell(cfg, shape, mesh, ...)` assembles a cell: the step function
+(train, prefill or decode) run under the mesh's parallel context, its
+inputs as meta tensors, and the specs by which each rank's inputs are
+cut, parallel to them. The reference returns a jitted function for
+`.lower().compile()`; the port has no compile step (a census of
+parameters, FLOPs, memory and collective bytes per config is queued with
+the tensor-parallel slice).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..models import init_cache
+from ..models.config import ModelConfig, ShapeSpec
+from ..parallel import ParallelCtx, maybe_axis, param_pspecs, parallel_ctx
+from ..parallel.sharding import default_rules
+from ..serve import make_prefill, make_serve_step
+from ..train import AdamW, make_train_step
+from ..train.optimizer import make_placement
+
+__all__ = [
+    "Cell", "batch_pspecs", "build_cell", "cache_pspecs",
+    "decode_input_specs", "input_specs", "skip_reason",
+]
+
+_DT = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_META = torch.device("meta")
+
+
+def skip_reason(cfg: ModelConfig, shape: ShapeSpec) -> Optional[str]:
+    """Cells excluded by the assignment rules (recorded in DESIGN.md §4)."""
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return (
+            "long_500k needs sub-quadratic attention; "
+            f"{cfg.name} is full-attention ({cfg.family})"
+        )
+    return None
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Abstract batch for train/prefill shapes ({tokens, targets, ...})."""
+    B, T = shape.global_batch, shape.seq_len
+
+    def tok(*s):
+        return torch.empty(s, dtype=torch.int32, device=_META)
+
+    def emb(*s):
+        return torch.empty(s, dtype=_DT[cfg.dtype], device=_META)
+
+    if cfg.family == "audio":
+        Te = Td = T // 2
+        batch = {"frames": emb(B, Te, cfg.d_model), "tokens": tok(B, Td)}
+        tgt_len = Td
+    elif cfg.family == "vlm":
+        Np = cfg.num_patches
+        Tt = max(T - Np, 1)
+        batch = {"patches": emb(B, Np, cfg.d_model), "tokens": tok(B, Tt)}
+        tgt_len = Tt
+    else:
+        batch = {"tokens": tok(B, T)}
+        tgt_len = T
+    if shape.kind == "train":
+        batch["targets"] = tok(B, tgt_len)
+    return batch
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeSpec):
+    """(cache, tokens) for decode shapes, on the meta device; the cache
+    holds `seq_len` positions."""
+    B, S = shape.global_batch, shape.seq_len
+    cache = init_cache(cfg, B, S, device=_META)
+    tokens = torch.empty((B,), dtype=torch.int32, device=_META)
+    return cache, tokens
+
+
+# ---------------------------------------------------------------------------
+# shardings
+# ---------------------------------------------------------------------------
+
+def batch_pspecs(batch, ctx: ParallelCtx):
+    """{name: spec} of a batch dict (or the spec of one tensor): the batch
+    axis over dp, and for an embedding input its last axis over tp."""
+    def spec(x):
+        if x.ndim == 1:
+            return (maybe_axis(ctx, "dp", x.shape[0]),)
+        if x.ndim == 2:
+            return (maybe_axis(ctx, "dp", x.shape[0]), None)
+        return (maybe_axis(ctx, "dp", x.shape[0]), None,
+                maybe_axis(ctx, "tp", x.shape[-1]))
+    if isinstance(batch, torch.Tensor):
+        return spec(batch)
+    return {k: spec(x) for k, x in batch.items()}
+
+
+def cache_pspecs(cache: dict, ctx: ParallelCtx, cfg: ModelConfig) -> dict:
+    """KV caches: batch->dp; heads->tp when divisible, else sequence->tp
+    (sequence-parallel KV). SSM states: heads/channels->tp, batch->dp."""
+
+    def spec(name, x):
+        if name in ("k", "v", "xk", "xv", "attn_k", "attn_v"):
+            L, B, S, H, hd = x.shape
+            dp = maybe_axis(ctx, "dp", B)
+            tp_h = maybe_axis(ctx, "tp", H)
+            if tp_h is not None:
+                return (None, dp, None, tp_h, None)
+            return (None, dp, maybe_axis(ctx, "tp", S), None, None)
+        if name == "ssm":
+            return (None, maybe_axis(ctx, "dp", x.shape[1]),
+                    maybe_axis(ctx, "tp", x.shape[2]), None, None)
+        if name == "conv":
+            return (None, maybe_axis(ctx, "dp", x.shape[1]), None,
+                    maybe_axis(ctx, "tp", x.shape[3]))
+        if name == "mlstm":
+            return (None, maybe_axis(ctx, "dp", x.shape[1]),
+                    maybe_axis(ctx, "tp", x.shape[2]), None, None)
+        if name.startswith("slstm"):
+            return (None, maybe_axis(ctx, "dp", x.shape[1]),
+                    maybe_axis(ctx, "tp", x.shape[2]))
+        if name in ("pos", "mem_len"):
+            return (maybe_axis(ctx, "dp", x.shape[0]),)
+        return ()
+
+    return {name: spec(name, x) for name, x in cache.items()}
+
+
+# ---------------------------------------------------------------------------
+# cell assembly
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Cell:
+    fn: object          # the step, run under the mesh's parallel context
+    abstract: tuple     # its inputs, as meta tensors
+    mode: str           # train | prefill | decode
+    specs: tuple        # the specs each rank cuts its inputs by
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
+               microbatches: int = 1, zero1: bool = True,
+               device: str | torch.device = "cuda") -> Cell:
+    """The cell of (cfg, shape) on `mesh`: for train, (state, batch) and
+    their specs ({"params", "opt"}, batch); for prefill, (params, batch);
+    for decode, (params, cache, tokens). `fn` takes inputs on `device`."""
+    from ..models.zoo import LM
+
+    rules = default_rules(mesh)
+    with parallel_ctx(mesh, rules) as ctx:
+        params = LM(cfg, _META)
+        p_specs = param_pspecs(params, ctx)
+
+        if shape.kind == "train":
+            opt = AdamW(zero1=zero1)
+            shapes = {n: p.shape for n, p in params.named_parameters()}
+            base = make_placement(shapes, mesh).state if zero1 else p_specs
+            opt_specs = {"m": base, "v": base, "step": ()}
+            state = {"params": params, "opt": opt.init(params)}
+            batch = input_specs(cfg, shape)
+            step = make_train_step(cfg, opt, microbatches)
+
+            def train_fn(state, batch):
+                with parallel_ctx(mesh, rules):
+                    return step(state, batch)
+
+            return Cell(train_fn, (state, batch), "train",
+                        ({"params": p_specs, "opt": opt_specs},
+                         batch_pspecs(batch, ctx)))
+
+        if shape.kind == "prefill":
+            batch = input_specs(cfg, shape)
+            prefill = make_prefill(cfg, device)
+
+            def prefill_fn(params, batch):
+                with parallel_ctx(mesh, rules):
+                    return prefill(params, batch)
+
+            return Cell(prefill_fn, (params, batch), "prefill",
+                        (p_specs, batch_pspecs(batch, ctx)))
+
+        cache, tokens = decode_input_specs(cfg, shape)
+        sstep = make_serve_step(cfg, device=device)
+
+        def decode_fn(params, cache, tokens):
+            with parallel_ctx(mesh, rules):
+                return sstep(params, cache, tokens)
+
+        return Cell(decode_fn, (params, cache, tokens), "decode",
+                    (p_specs, cache_pspecs(cache, ctx, cfg),
+                     batch_pspecs(tokens, ctx)))

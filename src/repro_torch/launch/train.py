@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
         --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch zamba2-1.2b --data 4 --batch 8 --seq 4096 --microbatches 2
 
 Port of `repro.launch.train`, with ``--device`` (default ``cuda``; the
 CPU runs the kernels' plain versions, and nothing falls back to it):
@@ -10,11 +12,18 @@ the latest checkpoint on restart (crash or preemption), restoring the
 state onto this run's device whatever device wrote it. On SIGTERM it
 checkpoints the step it finished and stops.
 
-The port trains on one device: the mesh is (data, model) = (1, 1) unless
-``--data``/``--model`` ask otherwise, and one over more devices raises
-(data- and model-parallel training, and with it placing the state by
-`repro_torch.parallel.param_pspecs`, comes with the multi-card slice; on
-one device every spec is replicated).
+Under torchrun, or in a process whose caller has started a process group
+(`repro_torch.launch.mesh.init_distributed`), it trains over a (data,
+model) mesh of the whole group: ``--data 0`` means world // model, as the
+reference's. Every rank draws the same global parameters from the seed
+and keeps its blocks (the expert weights cut over ep, the AdamW moments
+by ZeRO-1), takes its block of each global batch (`launch.specs.
+batch_pspecs`), and steps through the gradient reduction and ZeRO-1
+(`repro_torch.train`) at any world size, one rank included. A checkpoint
+is gathered and written whole by rank 0, and restores onto any world
+size. ``--model`` above 1 raises: tensor parallelism over the model axis
+is queued for slice 16. Without a process group it trains on one device,
+as before (``--data`` and ``--model`` 1).
 
 Straggler mitigation: per-step wall times (each step ends in a host read
 of its loss, so the card has finished it) feed an EWMA; steps slower than
@@ -23,15 +32,24 @@ of its loss, so the card has finished it) feed an EWMA; steps slower than
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import time
 
+import torch
+import torch.distributed as dist
+
 from .. import configs
+from ..device import resolve_device
 from ..models.config import ShapeSpec
+from ..parallel import parallel_ctx, psum
+from ..parallel.collectives import counts, reset_counts
+from ..parallel.sharding import local_shard
 from ..train import AdamW, cosine_schedule, init_state, make_train_step
 from ..train.checkpoint import Checkpointer, latest_step, restore
 from ..train.data import SyntheticTokens
-from .mesh import make_local_mesh
+from .mesh import init_distributed, make_local_mesh
+from .specs import batch_pspecs
 
 __all__ = ["main"]
 
@@ -39,8 +57,9 @@ __all__ = ["main"]
 def main(argv=None, report: dict | None = None):
     """Train and return the losses of the steps run. With `report` (a
     dict), also fill in what a caller measuring the run needs: per step
-    its seconds, grad norm and lr, the step resumed from, the straggler
-    count."""
+    its seconds, grad norm, lr and collectives (`parallel.collectives.
+    counts` of the step), the step resumed from, the straggler count, the
+    final state and the mesh."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--reduced", action="store_true")
@@ -51,26 +70,61 @@ def main(argv=None, report: dict | None = None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--data", type=int, default=0, help="data-mesh size (0=1)")
+    ap.add_argument("--data", type=int, default=0,
+                    help="data-mesh size (0: world size // model)")
     ap.add_argument("--model", type=int, default=1, help="model-mesh size")
     ap.add_argument("--straggler-factor", type=float, default=3.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    if args.model > 1:
+        raise NotImplementedError(
+            f"--model {args.model}: tensor parallelism over the model axis "
+            "(heads, row-parallel projections, the vocab-parallel embedding "
+            "and loss) is slice 16 of the port; this slice trains over the "
+            "data and expert axes")
     cfg = configs.get_reduced(args.arch) if args.reduced else configs.get(args.arch)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
 
-    mesh = make_local_mesh(args.data or 1, args.model, args.device)
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"mesh {mesh.shape}: the port trains on one device; data- and "
-            "model-parallel training comes with the multi-card slice")
-    print(f"[train] {cfg.name} device={args.device} mesh={mesh.shape}")
+    # a group this call starts (under torchrun) it also ends; a caller's
+    # group is the caller's
+    owned = not dist.is_initialized() and "WORLD_SIZE" in os.environ
+    if owned:
+        device = init_distributed(args.device)
+    else:
+        device = resolve_device(args.device)
+        if dist.is_initialized() and device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        mesh = make_local_mesh(args.data or max(1, world // args.model),
+                               args.model, device)
+    else:
+        mesh = make_local_mesh(args.data or 1, args.model, device)
+    lead = mesh.axis_index(mesh.axis_names) == 0 if mesh.distributed else True
+
+    def say(msg):
+        if lead:
+            print(msg)
+
+    say(f"[train] {cfg.name} device={device} mesh={mesh.shape} "
+        f"process_group={mesh.distributed}")
 
     opt = AdamW(lr=cosine_schedule(args.lr, 10, args.steps), zero1=True)
     step_fn = make_train_step(cfg, opt, args.microbatches)
-    state = init_state(cfg, args.seed, opt, args.device)
+    try:
+        with parallel_ctx(mesh) as pctx:
+            return _run(args, cfg, shape, mesh, device, opt, step_fn, pctx,
+                        say, report)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _run(args, cfg, shape, mesh, device, opt, step_fn, pctx, say, report):
+    state = init_state(cfg, args.seed, opt, device,
+                       mesh if mesh.distributed else None)
 
     start = 0
     ckpt = None
@@ -78,41 +132,58 @@ def main(argv=None, report: dict | None = None):
         ckpt = Checkpointer(args.ckpt_dir)
         last = latest_step(args.ckpt_dir)
         if last is not None:
-            print(f"[train] resuming from step {last} onto {args.device}")
+            say(f"[train] resuming from step {last} onto {device} "
+                f"(mesh {mesh.shape})")
             restore(args.ckpt_dir, last, state)
             start = last
+
+    def local(batch):
+        if not mesh.distributed:
+            return batch
+        specs = batch_pspecs(batch, pctx)
+        return {k: local_shard(v, specs[k], mesh) for k, v in batch.items()}
+
+    def stopping(flag: bool) -> bool:
+        if not mesh.distributed:
+            return flag
+        # every rank stops together, if any of them was told to
+        f = torch.tensor(float(flag), device=device)
+        return bool(psum(f, mesh.axis_names, mesh) > 0)
 
     stop = {"flag": False}
     prev_handler = signal.signal(signal.SIGTERM,
                                  lambda *_: stop.update(flag=True))
     try:
-        data = iter(SyntheticTokens(cfg, shape, args.seed, args.device,
+        data = iter(SyntheticTokens(cfg, shape, args.seed, device,
                                     start_step=start))
         ewma, stragglers = None, 0
-        losses, seconds, gnorms, lrs = [], [], [], []
+        losses, seconds, gnorms, lrs, colls = [], [], [], [], []
         for i in range(start, args.steps):
-            batch = next(data)
+            batch = local(next(data))
+            reset_counts()
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
+            colls.append(counts())
             ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
             if dt > args.straggler_factor * ewma:
                 stragglers += 1
-                print(f"[train] straggler step {i}: {dt:.2f}s vs ewma "
-                      f"{ewma:.2f}s")
+                say(f"[train] straggler step {i}: {dt:.2f}s vs ewma "
+                    f"{ewma:.2f}s")
             losses.append(loss)
             seconds.append(dt)
             gnorms.append(float(metrics["grad_norm"]))
             lrs.append(float(metrics["lr"]))
             if i % 10 == 0 or i == args.steps - 1:
-                print(f"[train] step {i:5d} loss={loss:.4f} "
-                      f"gnorm={gnorms[-1]:.3f} {dt*1e3:.0f}ms")
-            if ckpt and (i + 1) % args.ckpt_every == 0:
+                say(f"[train] step {i:5d} loss={loss:.4f} "
+                    f"gnorm={gnorms[-1]:.3f} {dt*1e3:.0f}ms")
+            saved = ckpt and (i + 1) % args.ckpt_every == 0
+            if saved:
                 ckpt.save_async(i + 1, state)
-            if stop["flag"]:
-                print("[train] SIGTERM — checkpointing and exiting")
-                if ckpt:
+            if stopping(stop["flag"]):
+                say("[train] SIGTERM — checkpointing and exiting")
+                if ckpt and not saved:
                     ckpt.save_async(i + 1, state)
                 break
         if ckpt:
@@ -120,12 +191,12 @@ def main(argv=None, report: dict | None = None):
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
     if losses:
-        print(f"[train] done. first loss={losses[0]:.4f} "
-              f"last={losses[-1]:.4f} stragglers={stragglers}")
+        say(f"[train] done. first loss={losses[0]:.4f} "
+            f"last={losses[-1]:.4f} stragglers={stragglers}")
     if report is not None:
         report.update(start=start, losses=losses, step_seconds=seconds,
                       grad_norms=gnorms, lrs=lrs, stragglers=stragglers,
-                      state=state)
+                      collectives=colls, state=state, mesh=mesh)
     return losses
 
 

@@ -3,8 +3,8 @@ hybrid) in PyTorch, over the kernels B6 (prefill attention, causal or not,
 cross attention), B7 (decode attention, self and cross) and B8 (Mamba
 scan).
 
-Port of `repro.models`, with the same exports; `loss_fn` raises
-`NotImplementedError` naming its ROADMAP item (training waits).
+Port of `repro.models`, with the same exports; `loss_fn` is the training
+objective, differentiated through B6b and B8b (`repro_torch.train`).
 """
 from .config import SHAPES, ModelConfig, ShapeSpec
 from .zoo import decode_step, forward, init_cache, init_params, loss_fn

@@ -1,9 +1,23 @@
-"""Mixture-of-Experts layer: top-k routing, capacity dispatch, shared experts.
+"""Mixture-of-Experts layer: top-k routing, capacity dispatch, shared
+experts, expert parallelism.
 
-Port of `repro.models.moe`'s single-device path, `moe_ref`, with the
-same routing semantics. The expert-parallel `moe_sharded` (a mesh of
-chips, all_to_all) waits for the multi-card slice (ROADMAP A); on one card
-the reference's own path is `moe_ref`.
+Port of `repro.models.moe`, with the same routing semantics in both
+paths:
+
+`moe_ref`      — single-device capacity dispatch: the numerical oracle,
+                 and the path of one process without an expert-parallel
+                 mesh.
+`moe_sharded`  — expert parallelism (EP) crossed with tensor parallelism
+                 (TP) over a mesh that spans a process group, one process
+                 a rank holding its own blocks (`repro_torch.parallel`):
+                 tokens cut over the ep axes, d_model over tp, experts
+                 over ep; router logits psum'd over tp; a first dispatch
+                 to (groups, C, d_loc); all_to_all over ep; a second
+                 dispatch to each local expert's (C2) buffer; the expert
+                 FFN with its partial products psum_scatter'd over tp;
+                 all_to_all back and the weighted combine at the sender.
+                 `models.transformer` routes an MoE block here whenever
+                 the parallel context spans a process group with ep axes.
 
 The capacity C = ceil(tokens·k / n_experts · capacity_factor) is computed
 from the routed experts, while the buffers, the weights and the dispatch
@@ -37,7 +51,8 @@ import torch.nn.functional as F
 
 from .layers import init_dense, param
 
-__all__ = ["MoE", "SharedExpert", "init_moe", "moe_ref", "router_topk"]
+__all__ = ["MoE", "SharedExpert", "init_moe", "moe_ref", "moe_sharded",
+           "router_topk"]
 
 
 class SharedExpert(nn.Module):
@@ -86,7 +101,10 @@ def router_topk(x2d: torch.Tensor, w_router: torch.Tensor, k: int):
     probabilities; a stable descending sort keeps the indices of equal
     values in increasing order, so its first k columns are that choice
     (`torch.topk` promises no order among ties)."""
-    logits = x2d.float() @ w_router.float()
+    return _topk(x2d.float() @ w_router.float(), k)
+
+
+def _topk(logits: torch.Tensor, k: int):
     probs = torch.softmax(logits, dim=-1)
     weights, sel = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, sel = weights[:, :k], sel[:, :k]
@@ -175,3 +193,117 @@ def moe_ref(x: torch.Tensor, p: MoE, cfg) -> torch.Tensor:
     if p.shared is not None:
         y = y + _shared_expert(xt, p.shared)
     return y.reshape(B, T, d)
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel MoE over a process-group mesh
+# ---------------------------------------------------------------------------
+
+def _slot_experts(sel_flat, order, sorted_g, pos, keep, grp, n_groups: int,
+                  capacity: int, e_loc: int) -> torch.Tensor:
+    """(groups, C) int32: each first-stage slot's expert within its
+    destination group, ``e_loc`` where no kept slot sits. The reference
+    writes ``e_loc`` for every dropped slot at position 0 of its group
+    (`.at[sorted_g, where(keep, pos, 0)].set`, where XLA's last write
+    wins), so a group that overflows also loses its position-0 slot; the
+    port writes the kept slots, then marks position 0 of each overflowing
+    group, which gives the same table without duplicate writes."""
+    eid = torch.full((n_groups, capacity + 1), e_loc, dtype=torch.int32,
+                     device=sel_flat.device)
+    eid[sorted_g.long(), torch.where(keep, pos, capacity)] = torch.where(
+        keep, sel_flat[order] % e_loc, e_loc).to(torch.int32)
+    eid = eid[:, :capacity].contiguous()
+    overflow = torch.bincount(grp.long(), minlength=n_groups) > capacity
+    eid[:, 0] = torch.where(overflow, e_loc, eid[:, 0])
+    return eid
+
+
+def moe_sharded(x: torch.Tensor, p: MoE, cfg, mesh, *, ep_axes,
+                tp_axis: str = "model") -> torch.Tensor:
+    """The MoE layer on this rank's blocks, x (B / G, T, d / tp) -> the
+    same block of the output, G the ranks along `ep_axes`; `p` holds this
+    rank's blocks of the weights, cut as the reference's ``specs_in``:
+    w_router (d / tp, n_experts), w_gate and w_up (slots / G, d / tp, F),
+    w_down (slots / G, F / tp, d), the shared expert whole. Every rank of
+    `mesh` (a process-group mesh) calls it together.
+
+    It follows the reference step by step: the capacities C =
+    ceil(N_loc k / G cf) a destination group and C2 = ceil(G C / E_loc cf)
+    a local expert from the local counts; the invalid slot id E_loc and
+    E_loc + 1 second-stage buckets; the router's logits psum'd over tp
+    before softmax and top-k; the three partial expert products
+    psum_scatter'd over tp on dim 2; the all_to_all back, the weighted
+    combine, then the shared expert (on the tokens all-gathered over tp,
+    this rank's d block kept). What differs: dispatch is an indexed write
+    of unique (group, position) and (expert, position) pairs, each dropped
+    slot sent to a spare column; the first-stage expert table marks the
+    overflow the reference's duplicate write leaves (`_slot_experts`);
+    the combine adds a token's k slots in router order (`_combine`), where
+    the reference's ``.at[src_tok].add`` adds them in bucket order: the
+    same values summed in another order, within float32 rounding of the
+    sum (the tests hold it to 1e-5). At G = 1 and tp = 1 every slot goes
+    to group 0 in slot order, so the second stage is `moe_ref`'s dispatch
+    at capacity C2, and the output and gradients are `moe_ref`'s, bitwise,
+    at a capacity factor that makes its capacity C2."""
+    from ..parallel.collectives import all_gather, all_to_all, psum, psum_scatter
+
+    E, k, cf = cfg.expert_slots, cfg.experts_per_tok, cfg.capacity_factor
+    G = mesh.axis_size(ep_axes)
+    if E % G:
+        raise ValueError(f"{E} expert slots do not split over {G} ep ranks: "
+                         "pad n_expert_slots to a multiple of the EP size")
+    E_loc = E // G
+    if p.w_gate.shape[0] != E_loc:
+        raise ValueError(f"w_gate holds {p.w_gate.shape[0]} slots; this "
+                         f"rank's block is {E_loc} of {E}")
+    B, T, d_loc = x.shape
+    xt = x.reshape(-1, d_loc)
+    N = xt.shape[0]
+    C = _capacity(N * k, G, cf)            # per destination group
+    C2 = _capacity(G * C, E_loc, cf)       # per local expert after the a2a
+
+    # router: partial logits + psum over tp
+    weights, sel = _topk(psum(xt.float() @ p.w_router.float(), tp_axis, mesh), k)
+
+    # first-stage dispatch: destination EP group = expert // E_loc
+    sel_flat = sel.reshape(-1)
+    grp = sel_flat // E_loc
+    order, sorted_g, pos, keep = _dispatch_indices(grp, G, C)
+    send = _dispatch(xt[:, None].expand(N, k, d_loc), order, sorted_g, pos,
+                     keep, G, C)
+    send_eid = _slot_experts(sel_flat, order, sorted_g, pos, keep, grp, G, C,
+                             E_loc)
+
+    # tokens to the group that owns their expert
+    recv = all_to_all(send, ep_axes, mesh)
+    recv_eid = all_to_all(send_eid, ep_axes, mesh)
+
+    # second-stage dispatch to each local expert (invalid -> bucket E_loc)
+    flat_tok = recv.reshape(G * C, d_loc)
+    order2, sorted_e, pos2, keep2 = _dispatch_indices(recv_eid.reshape(G * C),
+                                                      E_loc + 1, C2)
+    keep2 = keep2 & (sorted_e < E_loc)
+    rows = torch.clamp(sorted_e.long(), max=E_loc - 1)
+    ebuf = torch.zeros((E_loc, C2 + 1, d_loc), dtype=x.dtype, device=x.device)
+    ebuf[rows, torch.where(keep2, pos2, C2)] = flat_tok[order2]
+    ebuf = ebuf[:, :C2]
+
+    # expert FFN: row-parallel over d_loc, psum_scatter to F_loc, then d_loc
+    g = psum_scatter(torch.bmm(ebuf, p.w_gate), tp_axis, 2, mesh)
+    u = psum_scatter(torch.bmm(ebuf, p.w_up), tp_axis, 2, mesh)
+    h = F.silu(g.float()).to(ebuf.dtype) * u
+    o = psum_scatter(torch.bmm(h, p.w_down), tp_axis, 2, mesh)
+
+    # back to the a2a slots (order2 is a permutation), return trip, combine
+    vals = o[rows, torch.where(keep2, pos2, 0)]
+    vals = torch.where(keep2[:, None], vals, torch.zeros_like(vals))
+    y_slots = torch.empty_like(vals)
+    y_slots[order2] = vals
+    y_back = all_to_all(y_slots.reshape(G, C, d_loc), ep_axes, mesh)
+    y = _combine(y_back, weights.reshape(-1)[order], order, sorted_g, pos,
+                 keep, N, k)
+
+    if p.shared is not None:
+        s = _shared_expert(all_gather(xt, tp_axis, 1, mesh), p.shared)
+        y = y + s.narrow(1, mesh.axis_index(tp_axis) * d_loc, d_loc)
+    return y.reshape(B, T, d_loc)

@@ -6,10 +6,12 @@ attributes carry the reference's pytree keys and weight layouts; the
 functions below take them where the reference takes the dicts. Where the
 reference stacks layers on a leading axis and runs `scan_layers`, the port
 keeps an `nn.ModuleList` and loops in Python (`repro_torch.models.zoo`).
-The reference's sharding hints (`repro.parallel.constrain`) are the
-identity on one card (`repro_torch.parallel.constrain`), so the port does
-not call them; the MoE block runs `moe_ref`, the reference's path without
-an expert-parallel mesh (`moe_sharded` waits for the multi-card slice).
+The reference's sharding hints (`repro.parallel.constrain`) move nothing
+in the port, where each rank already holds its own blocks, so the port
+does not call them. The MoE block runs `moe_sharded` when the parallel
+context spans a process group (of any size, one rank included) with ep
+axes, as the reference does when its mesh has them, and `moe_ref`
+otherwise.
 
 `attn_decode` writes the new token's key and value into the caches it is
 given in place (JAX returns updated copies) and returns them.
@@ -32,7 +34,8 @@ from .layers import (
     rms_norm,
     rope_cos_sin,
 )
-from .moe import MoE, init_moe, moe_ref
+from ..parallel.sharding import current_ctx
+from .moe import MoE, init_moe, moe_ref, moe_sharded
 
 __all__ = ["Attention", "Block", "attn_decode", "attn_forward", "block_forward",
            "init_attn", "init_block"]
@@ -163,6 +166,10 @@ def init_block(p: Block, gen: torch.Generator, cfg) -> Block:
 
 def _ffn(x: torch.Tensor, p: Block, cfg) -> torch.Tensor:
     if cfg.family == "moe":
+        ctx = current_ctx()
+        if ctx.distributed and ctx.axes("ep"):
+            return moe_sharded(x, p.moe, cfg, ctx.mesh, ep_axes=ctx.axes("ep"),
+                               tp_axis=ctx.axes("tp")[0])
         return moe_ref(x, p.moe, cfg)
     return mlp(x, p.mlp, cfg.act)
 

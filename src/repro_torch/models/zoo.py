@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..parallel.sharding import current_ctx, parallel_ctx
 from .config import ModelConfig
 from .layers import decode_attention, init_dense, init_norm, mlp, param, rms_norm
 from .moe import moe_ref
@@ -194,12 +195,25 @@ def _head(p: LM, x: torch.Tensor) -> torch.Tensor:
 def _layers(cfg: ModelConfig, params: LM):
     """How each layer's function is applied: in `torch.utils.checkpoint`
     (non-reentrant) under ``remat`` "block" or "dots" while autograd
-    records, else directly."""
+    records, else directly. The recomputation runs inside the forward's
+    parallel context: on the card autograd runs the backward, and so the
+    recomputation, on a thread of its own, where the context (thread-local,
+    as the reference's) would otherwise be empty and an MoE layer would
+    recompute through `moe_ref` instead of `moe_sharded`."""
     remat = cfg.remat in ("block", "dots") and torch.is_grad_enabled() and \
         any(p.requires_grad for p in params.parameters())
     if not remat:
         return lambda fn, *args: fn(*args)
-    return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+    ctx = current_ctx()
+
+    def in_ctx(fn):
+        def run(*args):
+            with parallel_ctx(ctx.mesh, ctx.rules):
+                return fn(*args)
+        return run
+
+    return lambda fn, *args: checkpoint(in_ctx(fn), *args,
+                                        use_reentrant=False)
 
 
 def forward(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Logical-axis sharding: rules, divisibility-aware mapping, param specs.
+"""Logical-axis sharding: rules, divisibility-aware mapping, param specs,
+and cutting tensors by a spec over a process-group mesh.
 
 Port of `repro.parallel.sharding`. Logical axes:
   dp  — data parallel      -> ("pod", "data") when multi-pod, else ("data",)
@@ -8,18 +9,25 @@ Port of `repro.parallel.sharding`. Logical axes:
 
 A spec is a tuple with one entry per dimension of a tensor: None
 (replicated), a mesh-axis name, or a tuple of names; ``()`` is fully
-replicated (the reference's ``PartitionSpec()``). Mapping is
-divisibility-aware, as the reference's: a dimension that does not divide
-the axes' size is replicated along them (or takes a prefix of them).
+replicated (the reference's ``PartitionSpec()``); dimensions past the
+spec's end are replicated. Mapping is divisibility-aware, as the
+reference's: a dimension that does not divide the axes' size is
+replicated along them (or takes a prefix of them).
 
 `param_pspecs` derives a spec per parameter from its leaf name by the
 reference's rules (`_PARAM_RULES`). The port's layers are an
 `nn.ModuleList`, not a stacked leading axis, so a layer's spec is the
 reference's without its leading None. The meshes are
-`repro_torch.launch.mesh.Mesh`. The port runs one process on one device:
-`constrain` checks its spec and returns the tensor as it is (with no mesh
-or a mesh of one device the reference's is the identity too); placing
-tensors across cards comes with the multi-card slice.
+`repro_torch.launch.mesh.Mesh`.
+
+Where the reference places global arrays and lets GSPMD move them, the
+port runs one process a rank, each holding its own block of every
+tensor: `local_shard` cuts a full tensor to this rank's block by a spec,
+`gather_full` joins the blocks back (all-gathers over the spec's axes),
+`shard_module` cuts an `nn.Module`'s parameters in place. `constrain`,
+the reference's sharding constraint, moves nothing: under an active mesh
+it checks that a tensor is the local block of the global shape it is
+given (a dimension cut over axes of total size s holds dim / s rows).
 """
 from __future__ import annotations
 
@@ -36,9 +44,14 @@ __all__ = [
     "constrain",
     "current_ctx",
     "default_rules",
+    "gather_full",
+    "local_shape",
+    "local_shard",
     "maybe_axis",
     "param_pspecs",
     "parallel_ctx",
+    "shard_module",
+    "spec_axes",
 ]
 
 _STATE = threading.local()
@@ -52,6 +65,12 @@ class ParallelCtx:
     @property
     def active(self) -> bool:
         return self.mesh is not None and math.prod(self.mesh.shape.values()) > 1
+
+    @property
+    def distributed(self) -> bool:
+        """Whether the mesh spans a process group, of any size: the
+        collectives run (even over one rank)."""
+        return self.mesh is not None and getattr(self.mesh, "distributed", False)
 
     def axes(self, logical: Optional[str]):
         if logical is None:
@@ -106,18 +125,87 @@ def maybe_axis(ctx: ParallelCtx, logical: Optional[str], dim: int):
     return axes if len(axes) > 1 else axes[0]
 
 
-def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+def constrain(x: torch.Tensor, *logical: Optional[str],
+              shape: Optional[tuple] = None) -> torch.Tensor:
     """The reference's sharding constraint by logical axes. Without an
-    active mesh it is the identity, as the reference's; with one, the spec
-    is checked against x and x is returned unchanged (one process holds
-    the whole tensor)."""
+    active mesh it is the identity, as the reference's. With one, x is
+    this rank's block and is returned unchanged; its rank is checked
+    against the axes and, given the global `shape`, its shape against the
+    block that `shape` cut by the spec of `logical` leaves each rank."""
     ctx = current_ctx()
-    if not ctx.active:
+    if not (ctx.active or ctx.distributed):
         return x
     if len(logical) != x.ndim:
         raise ValueError(f"{len(logical)} logical axes for shape "
                          f"{tuple(x.shape)}")
+    if shape is not None:
+        spec = tuple(maybe_axis(ctx, ax, d) for ax, d in zip(logical, shape))
+        want = local_shape(shape, spec, ctx.mesh)
+        if tuple(x.shape) != want:
+            raise ValueError(f"shape {tuple(x.shape)} is not the block "
+                             f"{want} of {tuple(shape)} cut by {spec}")
     return x
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry: () for None, (name,) for a name."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shape(shape, spec: tuple, mesh) -> tuple:
+    """Each rank's block of a tensor of `shape` cut by `spec`."""
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if axes:
+            n = mesh.axis_size(axes)
+            if out[i] % n:
+                raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                                 f"over {axes} ({n})")
+            out[i] //= n
+    return tuple(out)
+
+
+def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of the full tensor `t` cut by `spec` (a copy)."""
+    out = t
+    for i, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if axes:
+            n = mesh.axis_size(axes)
+            if out.shape[i] % n:
+                raise ValueError(f"dim {i} of {tuple(t.shape)} does not split"
+                                 f" over {axes} ({n})")
+            c = out.shape[i] // n
+            out = out.narrow(i, mesh.axis_index(axes) * c, c)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def gather_full(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The full tensor from each rank's block `t` cut by `spec`: an
+    all-gather over each cut dimension's axes (every rank of those groups
+    must call it)."""
+    from .collectives import all_gather
+
+    out = t.detach()
+    with torch.no_grad():
+        for i, entry in enumerate(spec):
+            axes = spec_axes(entry)
+            if axes:
+                out = all_gather(out, axes, i, mesh)
+    return out
+
+
+def shard_module(module: torch.nn.Module, specs: dict, mesh) -> torch.nn.Module:
+    """Cut every parameter of `module` to this rank's block of its spec
+    (`specs`: {name: spec}, as `param_pspecs`), in place; returns it."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if any(spec_axes(e) for e in specs[name]):
+                p.data = local_shard(p.data, specs[name], mesh)
+    return module
 
 
 # leaf-name -> logical axes, aligned to the LAST ndim of the leaf

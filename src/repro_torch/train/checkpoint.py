@@ -21,11 +21,20 @@ Fault-tolerance contract, as the reference's:
     checkpoint (restart resumes from the previous LATEST).
   * `restore` copies each leaf into the template state's tensors, on
     whatever device they live: a checkpoint written from the CPU restores
-    onto the card (the port's elastic path on one card).
+    onto the card.
   * `Checkpointer.save_async` copies the state to the host on the caller's
     thread (a consistent snapshot), then writes on a background thread
     (one outstanding save; joins before starting another) and keeps the
     newest `keep` steps.
+
+A state cut over a process-group mesh (it holds a ``placement``,
+`repro_torch.train.optimizer.Placement`) is saved whole: every rank
+all-gathers each leaf by its spec (the collectives need them all) and
+rank 0 writes the files, in the same format, so a one-card checkpoint
+and a W-rank checkpoint of the same state are the same files. `restore`
+reads each leaf whole and cuts this rank's block by the template's
+placement, so a run resumes on another world size (the elastic restart,
+as the reference's ``restore(..., shardings)``).
 """
 from __future__ import annotations
 
@@ -38,8 +47,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["Checkpointer", "latest_step", "restore", "save", "save_async",
-           "state_tensors"]
+__all__ = ["Checkpointer", "latest_step", "read_leaves", "restore", "save",
+           "save_async", "state_tensors"]
 
 
 def state_tensors(state: dict) -> dict:
@@ -71,8 +80,24 @@ def _to_host(t) -> tuple[np.ndarray, str, str]:
     return arr, str(arr.dtype), "npy"
 
 
-def _snapshot(state) -> dict:
-    return {name: _to_host(t) for name, t in state_tensors(state).items()}
+def _snapshot(state) -> dict | None:
+    """{leaf name: host copy}; for a state cut over a mesh, the gathered
+    leaves on rank 0 and None on the other ranks."""
+    leaves = state_tensors(state)
+    pl = state.get("placement") if isinstance(state, dict) else None
+    if pl is None:
+        return {name: _to_host(t) for name, t in leaves.items()}
+    from ..parallel.sharding import gather_full
+
+    specs = pl.leaf_specs()
+    writer = pl.mesh.axis_index(pl.mesh.axis_names) == 0
+    out = {}
+    for name, t in leaves.items():
+        full = gather_full(t, specs[name], pl.mesh)
+        if writer:
+            out[name] = _to_host(full)
+        del full
+    return out if writer else None
 
 
 def _write(ckpt_dir, step: int, snap: dict) -> pathlib.Path:
@@ -103,8 +128,11 @@ def _write(ckpt_dir, step: int, snap: dict) -> pathlib.Path:
 
 def save(ckpt_dir, step: int, state) -> pathlib.Path:
     """Write `state` (a train state or a flat dict of tensors) as step
-    `step` and point LATEST at it; returns the step's directory."""
-    return _write(ckpt_dir, step, _snapshot(state))
+    `step` and point LATEST at it; returns the step's directory (every
+    rank of a cut state calls it; rank 0 writes)."""
+    snap = _snapshot(state)
+    final = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
+    return final if snap is None else _write(ckpt_dir, step, snap)
 
 
 def latest_step(ckpt_dir) -> Optional[int]:
@@ -121,11 +149,21 @@ def _load_leaf(d: pathlib.Path, meta: dict) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def read_leaves(ckpt_dir, step: int, names=None) -> dict:
+    """{leaf name: host tensor} of step `step`, for the leaves `names`
+    (default: all), each whole and in its saved type."""
+    d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
+    manifest = json.loads((d / "manifest.json").read_text())
+    return {m["name"]: _load_leaf(d, m) for m in manifest["leaves"]
+            if names is None or m["name"] in names}
+
+
 def restore(ckpt_dir, step: Optional[int], template):
     """Copy step `step` (None: LATEST) into `template`'s tensors (a train
     state or a flat dict of tensors), each on its own device and in its
-    own type; returns the template. Every leaf's name and shape must match
-    the template's."""
+    own type; returns the template. Every leaf's name must match the
+    template's, and its shape the template's (for a state cut over a
+    mesh: its shape cut by the template's placement)."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -134,6 +172,8 @@ def restore(ckpt_dir, step: Optional[int], template):
     d = ckpt_dir / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     leaves = state_tensors(template)
+    pl = template.get("placement") if isinstance(template, dict) else None
+    specs = pl.leaf_specs() if pl is not None else {}
     names = [m["name"] for m in manifest["leaves"]]
     if set(names) != set(leaves):
         raise ValueError(f"checkpoint leaves differ from the state's: "
@@ -142,6 +182,10 @@ def restore(ckpt_dir, step: Optional[int], template):
         for meta in manifest["leaves"]:
             dst = leaves[meta["name"]]
             src = _load_leaf(d, meta)
+            if pl is not None:
+                from ..parallel.sharding import local_shard
+
+                src = local_shard(src, specs[meta["name"]], pl.mesh)
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"{meta['name']}: shape {tuple(src.shape)}, "
                                  f"expected {tuple(dst.shape)}")
@@ -165,8 +209,10 @@ class Checkpointer:
     def save_async(self, step: int, state):
         self.wait()
         # the host copy on the caller thread (consistent snapshot), IO
-        # off-thread
+        # off-thread; of a cut state, only rank 0 writes
         snap = _snapshot(state)
+        if snap is None:
+            return
 
         def work():
             _write(self.dir, step, snap)

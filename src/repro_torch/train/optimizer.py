@@ -1,4 +1,4 @@
-"""AdamW with global-norm clipping, and ZeRO-1 optimizer-state specs.
+"""AdamW with global-norm clipping, and ZeRO-1 optimizer-state sharding.
 
 Port of `repro.train.optimizer`. Moment tensors are float32 whatever the
 parameter's type; the update computes in float32 and casts back to the
@@ -9,13 +9,30 @@ the moments in place (JAX returns new arrays); the step count is a new
 tensor. The optimizer state is {"m": {name: tensor}, "v": {name: tensor},
 "step": int32 scalar}, keyed by parameter name.
 
-`zero1_pspecs` is the reference's spec logic: each parameter's spec
-extended with the data-parallel axes on its first replicated, divisible
-dimension. The reference's layers are stacked on a leading axis, which
-that rule may take; the port's layers are tensors of their own, so it
-takes the first divisible dimension of the layer's own shape (the
-reference's rule applied to one layer). A spec it does not extend comes
-back as it is: on one device (no mesh, or a mesh of one) every spec.
+`make_placement` is the one rule by which the port cuts a train state:
+each parameter's global shape, its spec (`param_pspecs`) and its
+moments' spec, which is its spec with the data-parallel axes it leaves
+free on its first replicated dimension that they divide. The reference's
+layers are stacked on a leading axis, which that rule may take; the
+port's layers are tensors of their own, so it takes the first divisible
+dimension of the layer's own shape. A free axis of size 1 is named too
+(it cuts nothing), so that a world of one runs the same reduce-scatter
+and all-gather as a world of W. `zero1_pspecs` is the reference's own
+rule, which leaves a spec whose free axes have size 1 as it is; it is
+kept to hold the port's specs to the reference's on abstract meshes.
+
+Under a mesh that spans a process group, each
+rank holds its block of the moments (ZeRO-1). `AdamW.update` then reduces
+each gradient over the data-parallel axes that its parameter does not
+use (a reduce-scatter straight into the moments' block where ZeRO-1 cuts
+the parameter, else an all-reduce) and divides it by the data-parallel
+size; the expert weights, cut over ep = dp, are not reduced (the
+all_to_all's backward has already summed every rank's tokens into them)
+but divided alike. The clip uses the global norm: each rank adds the
+squares of the gradient blocks it owns, a block replicated over some
+axes counted only by the rank at coordinate 0 on them, and the sum is
+all-reduced over the mesh. Each rank updates its block of the parameter
+and the parameter is all-gathered over the axes ZeRO-1 cut it by.
 """
 from __future__ import annotations
 
@@ -25,9 +42,18 @@ from typing import Callable, Optional
 
 import torch
 
-from ..parallel import ParallelCtx, current_ctx
+from ..parallel import (
+    ParallelCtx,
+    current_ctx,
+    default_rules,
+    param_pspecs,
+    parallel_ctx,
+)
+from ..parallel.collectives import all_gather, psum, psum_scatter
+from ..parallel.sharding import local_shape, spec_axes
 
-__all__ = ["AdamW", "cosine_schedule", "zero1_pspecs"]
+__all__ = ["AdamW", "Placement", "cosine_schedule", "make_placement",
+           "zero1_pspecs"]
 
 
 def cosine_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1):
@@ -42,35 +68,96 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1)
     return lr
 
 
+def _free(spec: tuple, dp: tuple) -> tuple:
+    """The dp axes that `spec` leaves unused (expert weights already use
+    the dp axes for expert parallelism)."""
+    used = {a for ax in spec for a in spec_axes(ax)}
+    return tuple(a for a in dp if a not in used)
+
+
+def _extend(spec: tuple, shape, mesh, dp: tuple) -> tuple:
+    """`spec` with the dp axes it leaves free on the first replicated
+    dimension that they divide (ZeRO-1's cut of the moments)."""
+    shape = tuple(getattr(shape, "shape", shape))
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    free = _free(spec, dp)
+    size = math.prod(mesh.shape[a] for a in free)
+    for i, (ax, dim) in enumerate(zip(parts, shape)):
+        if free and ax is None and dim % size == 0 and dim >= size:
+            parts[i] = free if len(free) > 1 else free[0]
+            return tuple(parts)
+    return tuple(spec)  # nothing divisible: stays param-sharded only
+
+
 def zero1_pspecs(param_specs: dict, params_shapes: dict,
                  ctx: Optional[ParallelCtx] = None) -> dict:
-    """Extend param specs ({name: spec}) with DP axes for optimizer-state
-    sharding; `params_shapes` is {name: shape or tensor}."""
+    """The reference's rule: param specs ({name: spec}) extended with the
+    free DP axes where their size is above 1; `params_shapes` is {name:
+    shape or tensor}. The port's trained state is cut by `make_placement`,
+    which also names free axes of size 1."""
     ctx = ctx or current_ctx()
     dp = ctx.axes("dp") if ctx.mesh is not None else None
     if not dp:
         return dict(param_specs)
-
-    def extend(spec: tuple, shape) -> tuple:
-        shape = tuple(getattr(shape, "shape", shape))
-        parts = list(spec) + [None] * (len(shape) - len(spec))
-        used = set()
-        for ax in parts:
-            for a in (ax if isinstance(ax, tuple) else (ax,)):
-                if a is not None:
-                    used.add(a)
-        # only mesh axes not already consumed by the param sharding (e.g.
-        # expert weights already use the dp axes for expert parallelism)
-        free = tuple(a for a in dp if a not in used)
-        size = math.prod(ctx.mesh.shape[a] for a in free)
-        for i, (ax, dim) in enumerate(zip(parts, shape)):
-            if ax is None and size > 1 and dim % size == 0 and dim >= size:
-                parts[i] = free if len(free) > 1 else free[0]
-                return tuple(parts)
-        return tuple(spec)  # nothing divisible: stays param-sharded only
-
-    return {name: extend(spec, params_shapes[name])
+    mesh = ctx.mesh
+    return {name: (_extend(spec, params_shapes[name], mesh, dp)
+                   if math.prod(mesh.shape[a] for a in _free(spec, dp)) > 1
+                   else tuple(spec))
             for name, spec in param_specs.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """How a train state is cut over `mesh` (a process-group mesh): per
+    parameter name its global shape, its spec, and its moments' spec."""
+    mesh: object
+    shapes: dict
+    params: dict
+    state: dict
+
+    def leaf_specs(self) -> dict:
+        """{checkpoint leaf name: spec}: parameters, ``m.*``, ``v.*``,
+        ``step``."""
+        out = dict(self.params)
+        out.update({f"m.{n}": s for n, s in self.state.items()})
+        out.update({f"v.{n}": s for n, s in self.state.items()})
+        out["step"] = ()
+        return out
+
+    def cut(self, name: str):
+        """(dim, axes) by which the moments cut the local parameter block,
+        or (None, ()) where they hold all of it."""
+        state, spec = self.state[name], tuple(self.params[name])
+        spec += (None,) * (len(state) - len(spec))
+        for i, (a, b) in enumerate(zip(state, spec)):
+            if a != b:
+                return i, spec_axes(a)
+        return None, ()
+
+    def free(self, name: str) -> tuple:
+        """The data-parallel axes the parameter's own spec leaves unused:
+        those its gradient is reduced over."""
+        return _free(self.params[name], default_rules(self.mesh)["dp"])
+
+    def owns(self, name: str) -> bool:
+        """Whether this rank counts its gradient block of `name` in the
+        global norm: at coordinate 0 on every axis the block is
+        replicated over."""
+        mesh = self.mesh
+        used = {a for e in self.state[name] for a in spec_axes(e)}
+        return all(c == 0 for a, c in zip(mesh.axis_names, mesh.coords)
+                   if a not in used)
+
+
+def make_placement(shapes: dict, mesh) -> Placement:
+    """The placement of parameters of global `shapes` ({name: shape}) on
+    `mesh`, by `param_pspecs` and ZeRO-1 (on axes of any size)."""
+    with parallel_ctx(mesh) as ctx:
+        p_specs = param_pspecs(shapes, ctx)
+        dp = ctx.axes("dp") or ()
+    state = {n: _extend(p_specs[n], shapes[n], mesh, dp) for n in shapes}
+    return Placement(mesh, {n: tuple(s) for n, s in shapes.items()}, p_specs,
+                     state)
 
 
 @dataclasses.dataclass
@@ -88,27 +175,44 @@ class AdamW:
             return self.lr(step)
         return torch.tensor(self.lr, dtype=torch.float32, device=step.device)
 
-    def init(self, params: torch.nn.Module) -> dict:
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-
+    def init(self, params: torch.nn.Module,
+             placement: Optional[Placement] = None) -> dict:
+        """Zero moments: of each parameter's shape, or under `placement`
+        of this rank's block of its moments' spec."""
         named = list(params.named_parameters())
         dev = named[0][1].device
-        return {"m": {n: zeros(p) for n, p in named},
-                "v": {n: zeros(p) for n, p in named},
+
+        def zeros(n, p):
+            shape = p.shape if placement is None else local_shape(
+                placement.shapes[n], placement.state[n], placement.mesh)
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+        return {"m": {n: zeros(n, p) for n, p in named},
+                "v": {n: zeros(n, p) for n, p in named},
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     def opt_state_pspecs(self, param_specs: dict, params_shapes: dict) -> dict:
-        base = (zero1_pspecs(param_specs, params_shapes) if self.zero1
-                else dict(param_specs))
+        """The moments' specs: under a process-group mesh those the state
+        is cut by (`make_placement`), else the reference's rule."""
+        mesh = current_ctx().mesh
+        if not self.zero1:
+            base = dict(param_specs)
+        elif getattr(mesh, "distributed", False):
+            base = make_placement(dict(params_shapes), mesh).state
+        else:
+            base = zero1_pspecs(param_specs, params_shapes)
         return {"m": base, "v": base, "step": ()}
 
     @torch.no_grad()
-    def update(self, grads: dict, state: dict, params: torch.nn.Module):
+    def update(self, grads: dict, state: dict, params: torch.nn.Module,
+               placement: Optional[Placement] = None):
         """One step: grads {name: tensor} (any float type) -> (params,
         state, {"grad_norm", "lr"}), the parameters and moments updated in
         place. The global norm adds the leaves' float32 sums of squares in
-        parameter order."""
+        parameter order. Under `placement` the step is ZeRO-1's (module
+        docstring); `grads` is emptied as each gradient is reduced."""
+        if placement is not None:
+            return self._update_zero1(grads, state, params, placement)
         step = state["step"] + 1
         lr = self._lr(step)
         gsq = torch.zeros((), dtype=torch.float32, device=step.device)
@@ -117,22 +221,65 @@ class AdamW:
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
-        b1, b2 = self.b1, self.b2
-        stepf = step.to(torch.float32)
-        c1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                        device=step.device), stepf)
-        c2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                        device=step.device), stepf)
+        c1, c2 = self._corrections(step)
         for name, p in params.named_parameters():
-            g = grads[name].float() * scale
-            m = state["m"][name]
-            v = state["v"][name]
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * g * g)
-            mh = m / c1
-            vh = v / c2
-            delta = mh / (torch.sqrt(vh) + self.eps) + \
-                self.weight_decay * p.float()
-            p.copy_((p.float() - lr * delta).to(p.dtype))
+            self._adam(p, grads[name].float() * scale, state["m"][name],
+                       state["v"][name], lr, c1, c2)
+        return params, {"m": state["m"], "v": state["v"], "step": step}, {
+            "grad_norm": gnorm, "lr": lr}
+
+    def _corrections(self, step: torch.Tensor):
+        stepf = step.to(torch.float32)
+        c1 = 1 - torch.pow(torch.tensor(self.b1, dtype=torch.float32,
+                                        device=step.device), stepf)
+        c2 = 1 - torch.pow(torch.tensor(self.b2, dtype=torch.float32,
+                                        device=step.device), stepf)
+        return c1, c2
+
+    def _adam(self, p, g, m, v, lr, c1, c2) -> None:
+        """One AdamW step of p (a parameter or its block) and its moments
+        m, v, in place."""
+        b1, b2 = self.b1, self.b2
+        m.copy_(b1 * m + (1 - b1) * g)
+        v.copy_(b2 * v + (1 - b2) * g * g)
+        mh = m / c1
+        vh = v / c2
+        delta = mh / (torch.sqrt(vh) + self.eps) + \
+            self.weight_decay * p.float()
+        p.copy_((p.float() - lr * delta).to(p.dtype))
+
+    def _update_zero1(self, grads: dict, state: dict, params, pl: Placement):
+        mesh = pl.mesh
+        dp = default_rules(mesh)["dp"]
+        n_dp = mesh.axis_size(dp) if dp else 1
+        step = state["step"] + 1
+        lr = self._lr(step)
+        named = list(params.named_parameters())
+        shards = {}
+        gsq = torch.zeros((), dtype=torch.float32, device=step.device)
+        for name, _ in named:
+            g = grads.pop(name).float()
+            dim, axes = pl.cut(name)
+            if dim is not None:
+                g = psum_scatter(g, axes, dim, mesh)
+            elif pl.free(name):
+                g = psum(g, pl.free(name), mesh)
+            g = g / n_dp
+            if pl.owns(name):
+                gsq = gsq + torch.sum(torch.square(g))
+            shards[name] = g
+        gsq = psum(gsq, mesh.axis_names, mesh)
+        gnorm = torch.sqrt(gsq)
+        scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        c1, c2 = self._corrections(step)
+        for name, p in named:
+            g = shards.pop(name) * scale
+            dim, axes = pl.cut(name)
+            block = p if dim is None else p.narrow(
+                dim, mesh.axis_index(axes) * g.shape[dim], g.shape[dim])
+            self._adam(block, g, state["m"][name], state["v"][name], lr, c1, c2)
+            if dim is not None:
+                p.copy_(all_gather(block, axes, dim, mesh))
         return params, {"m": state["m"], "v": state["v"], "step": step}, {
             "grad_norm": gnorm, "lr": lr}

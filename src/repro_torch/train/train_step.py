@@ -8,6 +8,15 @@ float32 accumulators in microbatch order (the reference's `lax.scan`);
 loss and gradients are then divided by the count. The state is {"params":
 LM (an nn.Module with gradients on), "opt": AdamW state}; the step updates
 it in place and returns it with {"loss", "grad_norm", "lr"}.
+
+Over a mesh that spans a process group (`init_state(..., mesh=)`), the
+state also holds its `Placement` and each rank its blocks: the parameters
+cut by their specs (the expert weights over ep), the moments by ZeRO-1's;
+each rank takes its block of the batch (`launch.specs.batch_pspecs`).
+The step then reduces the gradients and updates through ZeRO-1
+(`AdamW.update`), and the loss is averaged over the data-parallel axes.
+It takes this path at any world size, one rank included: nothing
+shortcuts the reductions.
 """
 from __future__ import annotations
 
@@ -15,20 +24,45 @@ import torch
 
 from ..models import init_params, loss_fn
 from ..models.config import ModelConfig
-from .optimizer import AdamW
+from ..parallel import default_rules, psum
+from ..parallel.sharding import local_shard, shard_module
+from .optimizer import AdamW, make_placement
 
-__all__ = ["TrainState", "init_state", "make_train_step"]
+__all__ = ["TrainState", "init_state", "make_train_step", "shard_state"]
 
-TrainState = dict  # {"params": LM, "opt": {"m", "v", "step"}}
+TrainState = dict  # {"params": LM, "opt": {"m", "v", "step"}[, "placement"]}
 
 
 def init_state(cfg: ModelConfig, seed: int, opt: AdamW,
-               device: str | torch.device = "cuda") -> TrainState:
+               device: str | torch.device = "cuda", mesh=None) -> TrainState:
     """A model of `cfg` from `seed` (`init_params`) on `device`, its
-    gradients turned on, and the optimizer's state."""
+    gradients turned on, and the optimizer's state. With `mesh` (a mesh
+    over a process group) every rank draws the same global parameters and
+    keeps its blocks (`shard_state`)."""
     params = init_params(cfg, seed, device)
     params.requires_grad_(True)
-    return {"params": params, "opt": opt.init(params)}
+    if mesh is None:
+        return {"params": params, "opt": opt.init(params)}
+    pl = make_placement({n: p.shape for n, p in params.named_parameters()},
+                        mesh)
+    shard_module(params, pl.params, mesh)
+    return {"params": params, "opt": opt.init(params, pl), "placement": pl}
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """Cut a full train state (one device's, or a converted reference
+    state) to this rank's blocks on `mesh`, in place: the parameters by
+    their specs, the moments by ZeRO-1's; returns it with its placement."""
+    params = state["params"]
+    pl = make_placement({n: p.shape for n, p in params.named_parameters()},
+                        mesh)
+    shard_module(params, pl.params, mesh)
+    opt = state["opt"]
+    for key in ("m", "v"):
+        opt[key] = {n: local_shard(t, pl.state[n], mesh)
+                    for n, t in opt[key].items()}
+    state["placement"] = pl
+    return state
 
 
 def _split_mb(batch: dict, n: int, i: int) -> dict:
@@ -50,6 +84,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1):
 
     def train_step(state: TrainState, batch: dict):
         params = state["params"]
+        placement = state.get("placement")
         names, plist = zip(*params.named_parameters())
         if microbatches <= 1:
             loss, grads = grads_of(params, plist, batch)
@@ -65,9 +100,16 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1):
                 del g
             loss = loss / microbatches
             grads = [g / microbatches for g in grads]
-        _, new_opt, metrics = opt.update(dict(zip(names, grads)), state["opt"],
-                                         params)
+        grads = dict(zip(names, grads))
+        kw = {} if placement is None else {"placement": placement}
+        _, new_opt, metrics = opt.update(grads, state["opt"], params, **kw)
+        if placement is not None:
+            dp = default_rules(placement.mesh)["dp"]
+            loss = psum(loss, dp, placement.mesh) / placement.mesh.axis_size(dp)
         metrics["loss"] = loss
-        return {"params": params, "opt": new_opt}, metrics
+        out = {"params": params, "opt": new_opt}
+        if placement is not None:
+            out["placement"] = placement
+        return out, metrics
 
     return train_step

@@ -1146,3 +1146,131 @@ def test_training_step_kernels_equal_plain(cuda, arch):  # noqa: F811
     assert torch.equal(m0["loss"], m1["loss"])
     assert torch.equal(m0["grad_norm"], m1["grad_norm"])
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+# ---------------------------------------------------------------------------
+# the collectives and expert parallelism over NCCL
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_one(cuda, tmp_path):  # noqa: F811
+    """A process group of one rank over NCCL on the card, and its mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+
+    init_distributed("cuda", 0, 1, f"file://{tmp_path / 'pg'}", local_rank=0)
+    try:
+        yield make_local_mesh(1, 1, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_collectives_one_rank_over_nccl(nccl_one):
+    """Over one rank every collective is the identity, forward and
+    backward, bitwise, and each call is counted."""
+    from repro_torch.parallel import all_gather, all_to_all, psum, psum_scatter
+    from repro_torch.parallel.collectives import counts, reset_counts
+
+    mesh = nccl_one
+    g = torch.Generator(device="cuda").manual_seed(0)
+    reset_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        for op in (lambda t: psum(t, "data", mesh),
+                   lambda t: psum_scatter(t, "data", 1, mesh),
+                   lambda t: all_gather(t, "data", 1, mesh),
+                   lambda t: all_to_all(t, ("data", "model"), mesh)):
+            x = torch.randn((6, 10, 4), generator=g, device="cuda").to(dtype)
+            x.requires_grad_(True)
+            y = op(x)
+            w = torch.randn(y.shape, generator=g, device="cuda").to(dtype)
+            (gx,) = torch.autograd.grad((y * w).sum(), [x])
+            assert torch.equal(y, x) and torch.equal(gx, w)
+    c = counts()
+    assert {k: v["calls"] for k, v in c.items()} == {
+        "all_reduce": 4, "reduce_scatter": 4, "all_gather": 4,
+        "all_to_all": 4}
+
+
+@pytest.mark.parametrize("cf", [1.25, 8.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "kimi-k2-1t-a32b"])
+def test_moe_sharded_one_rank_is_moe_ref_at_c2(nccl_one, arch, dtype, cf):
+    """At a world of one, `moe_sharded` over NCCL is `moe_ref` at the
+    capacity factor that makes its capacity C2: output and every gradient
+    bitwise, on the card."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import moe as tmoe
+
+    mesh = nccl_one
+    cfg = dataclasses.replace(configs.get_reduced(arch), n_expert_slots=8,
+                              capacity_factor=cf)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    p = tmoe.MoE(cfg.d_model, cfg, dtype, torch.device("cuda"))
+    with torch.no_grad():
+        for w in p.parameters():
+            w.copy_(torch.randn(w.shape, generator=g, device="cuda") * 0.2)
+    p.requires_grad_(True)
+    B, T = 2, 96
+    x = torch.randn((B, T, cfg.d_model), generator=g, device="cuda").to(dtype)
+    x = (x + torch.randn(cfg.d_model, generator=g, device="cuda").to(dtype)
+         ).requires_grad_(True)
+    dy = torch.randn((B, T, cfg.d_model), generator=g, device="cuda").to(dtype)
+    N, k = B * T, cfg.experts_per_tok
+    C2 = tmoe._capacity(tmoe._capacity(N * k, 1, cf), cfg.expert_slots, cf)
+    cf2 = (C2 - 0.5) * cfg.n_experts / (N * k)
+    assert tmoe._capacity(N * k, cfg.n_experts, cf2) == C2
+    ys = tmoe.moe_sharded(x, p, cfg, mesh, ep_axes=("data",))
+    gs = torch.autograd.grad((ys * dy).sum(), [x, *p.parameters()])
+    yr = tmoe.moe_ref(x, p, dataclasses.replace(cfg, capacity_factor=cf2))
+    gr = torch.autograd.grad((yr * dy).sum(), [x, *p.parameters()])
+    assert torch.equal(ys, yr)
+    assert all(torch.equal(a, b) for a, b in zip(gs, gr))
+
+
+def test_collectives_across_two_cards(cuda, tmp_path):  # noqa: F811
+    """Two NCCL ranks, one a card: each collective's result on small
+    integers, exactly."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from _torch_dist import run_world
+
+    ranks = run_world(2, {"collectives_exact": {}}, tmp_path, device="cuda")
+    for r in ranks:
+        for name, (got, want) in r["collectives_exact"].items():
+            np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_model_over_nccl_is_moe_ref_at_c2(nccl_one, dtype):
+    """`loss_fn` of the reduced qwen2-moe (remat "block") through
+    `moe_sharded` over an NCCL group of one: the loss and every gradient
+    bitwise those through `moe_ref` at capacity C2. The backward, and with
+    it each layer's recomputation, runs on autograd's device thread."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.parallel import parallel_ctx
+    from repro_torch.train.data import make_batch
+
+    mesh = nccl_one
+    cfg = dataclasses.replace(configs.get_reduced("qwen2-moe-a2.7b"),
+                              dtype=dtype, remat="block")
+    params = init_params(cfg, 0, "cuda").requires_grad_(True)
+    batch = make_batch(cfg, ShapeSpec("t", 40, 2, "train"), 0, device="cuda")
+    N, k, cf = 80, cfg.experts_per_tok, cfg.capacity_factor
+    C2 = tmoe._capacity(tmoe._capacity(N * k, 1, cf), cfg.expert_slots, cf)
+    cf2 = (C2 - 0.5) * cfg.n_experts / (N * k)
+    plist = list(params.parameters())
+    with parallel_ctx(mesh):
+        loss = loss_fn(params, batch, cfg)
+        gs = torch.autograd.grad(loss, plist)
+    ref = loss_fn(params, batch, dataclasses.replace(cfg, capacity_factor=cf2))
+    gr = torch.autograd.grad(ref, plist)
+    assert torch.equal(loss, ref)
+    assert all(torch.equal(a, b) for a, b in zip(gs, gr))

@@ -92,7 +92,9 @@ SLICE_MODULES = (
     "repro_torch.train.optimizer",
     "repro_torch.train.train_step",
     "repro_torch.parallel.sharding",
+    "repro_torch.parallel.collectives",
     "repro_torch.launch.mesh",
+    "repro_torch.launch.specs",
     "repro_torch.launch.train",
 )
 
