@@ -248,6 +248,22 @@ Phases, each printing one JSON line:
    first-stage token buffer timed alone, one pass traced. Each line has
    W, its seconds, each step's collective calls and bytes (checked above
    0), peak GB and the launches, which the `kernels` line adds up.
+   Since slice 16 every layer runs its tensor-parallel collectives over
+   the (data, model) mesh's model axis, here of size 1 (each a copy), and
+   the W = 1 checks above stay bitwise. On W > 1 cards
+   (``--multicard-only``; `tp_meshes` picks the meshes, each printed)
+   `multicard_tp` follows `multicard_train`: the same command on
+   (W / 2, 2) (on two cards (2, 1)) for 3 steps with a checkpoint at step
+   2, then again from it (its step bitwise the uninterrupted one), and on
+   (1, W) for 2 steps, held to a one-card run of the same global batch
+   first (`multicard_tp_one_card`; losses within MC_TP_LOSS_ATOL, grad
+   norms within MC_TP_GNORM_RTOL); then, from four cards, qwen3-8b at
+   full width cut to 8 layers on (1, W) held to one card the same way
+   over 3 steps, and whole on (1, W): bf16, T 4096, global batch 4 in 2
+   microbatches, 3 steps (step ms the median of steps 1-2, tokens/s, peak
+   GB a rank, losses finite, whether they rose), each step's collectives
+   equal to `launch.specs.train_collectives`' closed form, one more step
+   traced (NCCL's device ms).
 15. train_reduced: every reduced config in float32 and bf16, one
    `make_train_step` step (2 x 40 tokens, 2 microbatches, AdamW) on the
    kernel path and on the plain path: loss, grad norm, every gradient and
@@ -507,6 +523,24 @@ MC_MOE_ARCH, MC_MOE_LAYERS, MC_MOE_T, MC_MOE_B = "qwen2-moe-a2.7b", 2, 2048, 2
 # timed runs of each multicard_moe measurement (after one warm-up)
 MC_MOE_REPS = 3
 MC_TIMEOUT = 600
+# multicard over the model axis (slice 16), on W > 1 cards (after
+# multicard_train on (W, 1)): the train phase's zamba2-1.2b on (W / 2, 2)
+# from four cards up, else (W, 1), with a restart from its step-2
+# checkpoint, and on (1, W) beside a one-card run of the same global
+# batch (losses within MC_TP_LOSS_ATOL, grad norms within
+# MC_TP_GNORM_RTOL: bf16 partial sums over the model axis against one
+# product); then MC_TP_ARCH at full width on (1, W), which one card cannot
+# hold (bf16 T 4096, global batch 4 in 2 microbatches, MC_TP_STEPS steps)
+MC_TP_ARCH, MC_TP_STEPS, MC_TP_BATCH, MC_TP_MB = "qwen3-8b", 3, 4, 2
+# MC_TP_ARCH cut to this depth at full width (about the deepest whose
+# train state one card holds: 2.79B parameters, 39 GB of weights,
+# gradient sums and moments) trains MC_TP_STEPS steps of the launcher's
+# schedule and batches on one card and on (1, W): held to each other as
+# zamba2-1.2b's (1, W) run is, and the witness of how the whole model's
+# losses move under the first steps
+MC_TP_CHECK_LAYERS = 8
+MC_TP_LOSS_ATOL, MC_TP_GNORM_RTOL = 0.02, 0.05
+MC_TP_TIMEOUT = 1500
 
 
 def ptxas_entries(log: str, names: tuple[str, ...]) -> list[dict]:
@@ -2407,7 +2441,8 @@ def multicard_train_rank(dev, world: int, train_dir, counters) -> dict:
         traced = counts()
     del state, batch, step_fn, params
     torch.cuda.empty_cache()
-    return dict(losses=losses, step_seconds=report["step_seconds"],
+    return dict(mesh=mesh.shape, losses=losses,
+                step_seconds=report["step_seconds"],
                 grad_norms=report["grad_norms"], lrs=report["lrs"],
                 collectives=report["collectives"], run_seconds=run_s,
                 compare_seconds=compare_s, trace_seconds=trace_s,
@@ -2418,6 +2453,170 @@ def multicard_train_rank(dev, world: int, train_dir, counters) -> dict:
                                  busy_share=prof["busy_share"],
                                  kernels=prof["kernels"], collectives=traced,
                                  **nccl_rows(prof)))
+
+
+def tp_meshes(world: int) -> list:
+    """The (data, model) meshes `multicard_tp_rank` trains zamba2-1.2b on
+    over `world` > 1 cards: (world / 2, 2) from four cards up, else
+    (world, 1) (a data axis above 1 either way), restarted from its
+    checkpoint; then (1, world)."""
+    return [(world // 2, 2) if world >= 4 else (world, 1), (1, world)]
+
+
+def multicard_tp_rank(dev, world: int, train_dir, counters) -> dict:
+    """This rank's `multicard_tp` (W > 1): the train phase's zamba2-1.2b
+    command through `launch.train` on each of `tp_meshes` (the first 3
+    steps with a checkpoint at step 2, then again from that checkpoint;
+    the next 2 steps, the global batch the one-card one); then
+    MC_TP_ARCH at full width on (1, W), MC_TP_STEPS steps and one more
+    traced."""
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import batch_pspecs, train_collectives
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.parallel import local_shard, parallel_ctx
+    from repro_torch.parallel.collectives import counts, reset_counts
+    from repro_torch.train import AdamW, cosine_schedule, make_train_step
+    from repro_torch.train.data import make_batch
+
+    def run(argv):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*counters.values())
+        report = {}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            losses = launch_train.main(argv, report=report)
+        torch.cuda.synchronize()
+        steady = sorted(report["step_seconds"][1:]) or report["step_seconds"]
+        return dict(
+            mesh=report["mesh"].shape, start=report["start"], losses=losses,
+            grad_norms=report["grad_norms"], lrs=report["lrs"],
+            step_seconds=report["step_seconds"],
+            step_ms=statistics.median(steady) * 1e3,
+            collectives=report["collectives"],
+            launches={k: f.launches for k, f in counters.items()},
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            run_seconds=time.perf_counter() - t0), report
+
+    out = {"zamba2": []}
+    for data, model in tp_meshes(world):
+        restart = data > 1
+        d = Path(train_dir) / f"tp_{data}x{model}"
+        argv = train_argv(d if restart else None) + [
+            "--data", str(data), "--model", str(model),
+            "--steps", "3" if restart else "2"]
+        res, report = run(argv)
+        del report
+        if restart:
+            again, report = run(argv)
+            del report
+            res["restart"] = dict(start=again["start"], losses=again["losses"],
+                                  step_seconds=again["step_seconds"],
+                                  equal=again["losses"] == res["losses"][2:],
+                                  run_seconds=again["run_seconds"])
+        res["tokens_per_s"] = TRAIN_BATCH * TRAIN_T / res["step_ms"] * 1e3
+        out["zamba2"].append(res)
+    if world < 4:
+        return out
+    # MC_TP_ARCH at full width over the model axis: cut in depth (held to
+    # one card), then whole, then one step traced
+    cut = tp_cut_run(dev, make_local_mesh(1, world, dev))
+    cfg = configs.get(MC_TP_ARCH)
+    shape = ShapeSpec("cli", TRAIN_T, MC_TP_BATCH, "train")
+    argv = ["--arch", MC_TP_ARCH, "--steps", str(MC_TP_STEPS),
+            "--batch", str(MC_TP_BATCH), "--seq", str(TRAIN_T),
+            "--microbatches", str(MC_TP_MB), "--seed", "0", "--device", "cuda",
+            "--data", "1", "--model", str(world)]
+    res, report = run(argv)
+    state, mesh = report.pop("state"), report.pop("mesh")
+    res["cut"] = cut
+    res["loss_rose"] = res["losses"][-1] > res["losses"][0]
+    res["tokens_per_s"] = MC_TP_BATCH * TRAIN_T / res["step_ms"] * 1e3
+    res["closed_form"] = train_collectives(cfg, shape, 1, world, MC_TP_MB)
+    res["collectives_equal_closed_form"] = [
+        c == res["closed_form"] for c in res["collectives"]]
+    step_fn = make_train_step(cfg, AdamW(lr=cosine_schedule(
+        3e-4, 10, MC_TP_STEPS)), MC_TP_MB)
+    with parallel_ctx(mesh) as ctx:
+        batch = make_batch(cfg, shape, MC_TP_STEPS, 0, dev)
+        specs = batch_pspecs(batch, ctx)
+        batch = {k: local_shard(v, specs[k], mesh) for k, v in batch.items()}
+        reset_counts()
+        t0 = time.perf_counter()
+        prof = device_profile(lambda: step_fn(state, batch), 1,
+                              host_ops=False, top=None)
+        res["traced_step"] = dict(
+            window_ms=prof["window_ms"], device_busy_ms=prof["device_busy_ms"],
+            busy_share=prof["busy_share"], kernels=prof["kernels"],
+            collectives=counts(), seconds=time.perf_counter() - t0,
+            **nccl_rows(prof))
+    res["params"] = sum(p.numel() for p in state["params"].parameters())
+    del state, batch, step_fn, report
+    torch.cuda.empty_cache()
+    out[MC_TP_ARCH] = res
+    return out
+
+
+def tp_cut_run(dev, mesh=None) -> dict:
+    """MC_TP_ARCH at full width cut to MC_TP_CHECK_LAYERS layers:
+    MC_TP_STEPS steps of the launcher's schedule and batches (seed 0), on
+    one card or over `mesh`, each rank its block of the batch."""
+    from repro_torch import configs
+    from repro_torch.launch.specs import batch_pspecs
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.parallel import local_shard, parallel_ctx
+    from repro_torch.train import (
+        AdamW,
+        cosine_schedule,
+        init_state,
+        make_train_step,
+    )
+    from repro_torch.train.data import make_batch
+
+    cfg = dataclasses.replace(configs.get(MC_TP_ARCH),
+                              n_layers=MC_TP_CHECK_LAYERS)
+    shape = ShapeSpec("cut", TRAIN_T, MC_TP_BATCH, "train")
+    opt = AdamW(lr=cosine_schedule(3e-4, 10, MC_TP_STEPS))
+    step = make_train_step(cfg, opt, MC_TP_MB)
+    losses, gnorms = [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with parallel_ctx(mesh) as ctx:
+        state = init_state(cfg, 0, opt, dev, mesh)
+        for i in range(MC_TP_STEPS):
+            batch = make_batch(cfg, shape, i, 0, dev)
+            if mesh is not None:
+                specs = batch_pspecs(batch, ctx)
+                batch = {k: local_shard(v, specs[k], mesh)
+                         for k, v in batch.items()}
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+    del state, batch
+    torch.cuda.empty_cache()
+    return dict(layers=MC_TP_CHECK_LAYERS, losses=losses, grad_norms=gnorms,
+                loss_rose=losses[-1] > losses[0],
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def one_card_tp_reference(dev) -> dict:
+    """The train phase's zamba2-1.2b command on one card for 2 steps: the
+    losses and grad norms `multicard_tp`'s (1, W) run is held to."""
+    from repro_torch.launch import train as launch_train
+
+    report = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        losses = launch_train.main(train_argv(None) + ["--steps", "2"],
+                                   report=report)
+    torch.cuda.synchronize()
+    del report["state"]
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grad_norms=report["grad_norms"],
+                step_seconds=report["step_seconds"], cut=tp_cut_run(dev),
+                seconds=time.perf_counter() - t0)
 
 
 def multicard_moe_rank(dev, world: int, counters, flush) -> dict:
@@ -2529,8 +2728,9 @@ def multicard_rank(rank: str, world: str, init: str, out_path: str,
                    train_dir: str, started: str) -> None:
     """One rank of the multicard phases, in a process of its own (the
     parent starts W of them at wall-clock time `started`): the NCCL group,
-    `multicard_train_rank`, then `multicard_moe_rank`; rank 0 writes what
-    both returned to `out_path`."""
+    `multicard_train_rank` on (W, 1), at W > 1 then `multicard_tp_rank`,
+    then `multicard_moe_rank`; rank 0 writes what they returned to
+    `out_path`."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_distributed
@@ -2549,6 +2749,10 @@ def multicard_rank(rank: str, world: str, init: str, out_path: str,
         t0 = time.perf_counter()
         out["train"] = multicard_train_rank(dev, world, train_dir, counters)
         out["train"]["rank_seconds"] = time.perf_counter() - t0
+        if world > 1:
+            t0 = time.perf_counter()
+            out["tp"] = multicard_tp_rank(dev, world, train_dir, counters)
+            out["tp"]["rank_seconds"] = time.perf_counter() - t0
         out["moe"] = multicard_moe_rank(dev, world, counters, flush)
     finally:
         dist.destroy_process_group()
@@ -2556,16 +2760,20 @@ def multicard_rank(rank: str, world: str, init: str, out_path: str,
         Path(out_path).write_text(json.dumps(out))
 
 
-def multicard_phase(train_dir, train: dict | None) -> tuple[dict, dict]:
-    """Both multicard phases over an NCCL group of W =
+def multicard_phase(train_dir, train: dict) -> tuple[dict, dict | None,
+                                                      dict]:
+    """The multicard phases over an NCCL group of W =
     torch.cuda.device_count() ranks, one process a card, started here and
-    stopped here whatever happens (`train` None: no train phase ran, W >
-    1). `multicard_train` at W = 1 is checked
-    bitwise against the train phase: its losses at steps 0 and 1, and
-    every parameter after step 2 against the train phase's step-2
-    checkpoint in `train_dir`; `multicard_moe` at W = 1 against `moe_ref`
-    at capacity C2 (loss and every gradient bitwise). Every step must have
-    run collectives."""
+    stopped here whatever happens: (`multicard_train`, `multicard_tp` or
+    None at W = 1, `multicard_moe`). `multicard_train` must give finite
+    losses, run the collectives of both axes at each step and launch every
+    training kernel. At W = 1 (`train`: the train phase's line) it is also
+    checked bitwise against the train phase: its losses at steps 0 and 1,
+    and every parameter after step 2 against the train phase's step-2
+    checkpoint in `train_dir`; `multicard_moe` against `moe_ref` at
+    capacity C2 (loss and every gradient bitwise). At W > 1 (`train`:
+    `one_card_tp_reference`'s line) `multicard_tp` follows, checked by
+    `check_tp`."""
     W = torch.cuda.device_count()
     out_path = Path(train_dir) / "multicard.json"
     torch.cuda.empty_cache()
@@ -2575,11 +2783,12 @@ def multicard_phase(train_dir, train: dict | None) -> tuple[dict, dict]:
          str(r), str(W), f"file://{Path(train_dir) / 'multicard_pg'}",
          str(out_path), str(train_dir), repr(time.time())],
         stdout=sys.stderr, stderr=sys.stderr) for r in range(W)]
-    deadline = time.monotonic() + MC_TIMEOUT
+    limit = MC_TIMEOUT if W == 1 else MC_TP_TIMEOUT
+    deadline = time.monotonic() + limit
     try:
         while any(p.poll() is None for p in procs):
             check(time.monotonic() < deadline,
-                  f"multicard ranks outlived {MC_TIMEOUT} s")
+                  f"multicard ranks outlived {limit} s")
             check(all(p.poll() in (None, 0) for p in procs),
                   f"a multicard rank failed: {[p.poll() for p in procs]}")
             time.sleep(0.2)
@@ -2592,17 +2801,19 @@ def multicard_phase(train_dir, train: dict | None) -> tuple[dict, dict]:
                 p.wait()
     seconds = time.perf_counter() - t0
     res = json.loads(out_path.read_text())
-    tr, moe = res["train"], res["moe"]
+    moe = res["moe"]
+    moe.update(world=W)
+    check(moe["finite"] and moe["collectives"]["all_to_all"]["calls"] > 0,
+          f"multicard_moe: {moe}")
+    check(moe["launches"]["flash_attention"] > 0
+          and moe["launches"]["flash_attention_bwd"] > 0,
+          f"multicard_moe launches {moe['launches']}")
+    tr = res["train"]
     calls = [{k: v["calls"] for k, v in c.items()} for c in tr["collectives"]]
     tr.update(world=W, start_seconds=res["start_seconds"],
               init_seconds=res["init_seconds"],
-              step1_ms=tr["step_seconds"][-1] * 1e3, collective_calls=calls)
-    if train is not None:
-        tr.update(train_step_ms=train["step_ms"],
-                  losses_equal_train=tr["losses"] == train["losses"][:2],
-                  loss_gaps=[a - b for a, b in zip(tr["losses"],
-                                                   train["losses"])])
-    moe.update(world=W)
+              step1_ms=tr["step_seconds"][-1] * 1e3, collective_calls=calls,
+              tokens_per_s=TRAIN_BATCH * W * TRAIN_T / tr["step_seconds"][-1])
     check(all(math.isfinite(x) for x in tr["losses"]) and len(tr["losses"]) == 2,
           f"multicard_train losses {tr['losses']}")
     check(all(c.get("all_reduce", 0) > 0 and c.get("reduce_scatter", 0) > 0
@@ -2610,24 +2821,80 @@ def multicard_phase(train_dir, train: dict | None) -> tuple[dict, dict]:
           f"multicard_train collectives {calls}")
     check(all(n > 0 for n in tr["launches"].values()),
           f"multicard_train launches {tr['launches']}")
-    check(moe["finite"] and moe["collectives"]["all_to_all"]["calls"] > 0,
-          f"multicard_moe: {moe}")
-    check(moe["launches"]["flash_attention"] > 0
-          and moe["launches"]["flash_attention_bwd"] > 0,
-          f"multicard_moe launches {moe['launches']}")
-    if W == 1:
-        check(train is not None, "at W = 1 the train phase runs first")
-        check(tr["losses_equal_train"],
-              f"multicard_train losses {tr['losses']} vs train's "
-              f"{train['losses'][:2]}")
-        check(tr["params_equal_train"] == tr["param_leaves"],
-              f"multicard_train parameters after step 2 vs train's: "
-              f"{tr['params_equal_train']} of {tr['param_leaves']} equal")
-        check(moe["loss_equal"] and moe["grads_bitwise"] == moe["grad_leaves"],
-              f"multicard_moe vs moe_ref at C2: {moe}")
+    if W > 1:
+        tp = check_tp(res["tp"], train, W)
+        tp.update(world=W, seconds=tp["rank_seconds"])
+        return (dict(tr, seconds=tr["rank_seconds"],
+                     multicard_seconds=seconds), tp, moe)
+    tr.update(train_step_ms=train["step_ms"],
+              losses_equal_train=tr["losses"] == train["losses"][:2],
+              loss_gaps=[a - b for a, b in zip(tr["losses"],
+                                               train["losses"])])
+    check(tr["losses_equal_train"],
+          f"multicard_train losses {tr['losses']} vs train's "
+          f"{train['losses'][:2]}")
+    check(tr["params_equal_train"] == tr["param_leaves"],
+          f"multicard_train parameters after step 2 vs train's: "
+          f"{tr['params_equal_train']} of {tr['param_leaves']} equal")
+    check(moe["loss_equal"] and moe["grads_bitwise"] == moe["grad_leaves"],
+          f"multicard_moe vs moe_ref at C2: {moe}")
     # the train phase's seconds: the ranks' start and NCCL's set-up with it
     return dict(tr, seconds=seconds - moe["seconds"],
-                multicard_seconds=seconds), moe
+                multicard_seconds=seconds), None, moe
+
+
+def vs_one_card(run: dict, one: dict, what: str) -> dict:
+    """`run`'s losses and grad norms against `one`'s (one card, the same
+    global batches), checked within MC_TP_LOSS_ATOL and MC_TP_GNORM_RTOL."""
+    out = dict(one_card=one, loss_gaps=[a - b for a, b in zip(
+        run["losses"], one["losses"])], grad_norm_rel=[
+            a / b - 1 for a, b in zip(run["grad_norms"], one["grad_norms"])])
+    check(len(run["losses"]) == len(one["losses"])
+          and all(abs(g) <= MC_TP_LOSS_ATOL for g in out["loss_gaps"])
+          and all(abs(g) <= MC_TP_GNORM_RTOL for g in out["grad_norm_rel"]),
+          f"multicard_tp {what} vs one card: {out}")
+    return out
+
+
+def check_tp(tp: dict, one: dict, world: int) -> dict:
+    """`multicard_tp`'s checks (W > 1): on every mesh finite losses, the
+    model axis's collectives each step and every training kernel launched;
+    the first mesh's restart from its step-2 checkpoint bitwise the
+    uninterrupted step; the (1, W) run's losses and grad norms within
+    MC_TP_LOSS_ATOL and MC_TP_GNORM_RTOL of `one` (the one-card run of the
+    same global batch); MC_TP_ARCH cut to MC_TP_CHECK_LAYERS layers held
+    to one card the same way; MC_TP_ARCH's losses finite, each step's
+    collectives the closed form's."""
+    for run in tp["zamba2"]:
+        mesh = (run["mesh"]["data"], run["mesh"]["model"])
+        check(all(math.isfinite(x) for x in run["losses"]),
+              f"multicard_tp {mesh} losses {run['losses']}")
+        check(all(c.get("reduce_scatter", {}).get("calls", 0) > 0
+                  and c.get("all_gather", {}).get("calls", 0) > 0
+                  for c in run["collectives"]),
+              f"multicard_tp {mesh} collectives {run['collectives']}")
+        check(all(n > 0 for n in run["launches"].values()),
+              f"multicard_tp {mesh} launches {run['launches']}")
+        if "restart" in run:
+            check(run["restart"]["start"] == 2 and run["restart"]["equal"],
+                  f"multicard_tp {mesh} restart {run['restart']} vs "
+                  f"{run['losses']}")
+        if mesh == (1, world):
+            run["vs_one_card"] = vs_one_card(run, one, f"{mesh}")
+    big = tp.get(MC_TP_ARCH)
+    if big is not None:
+        check(all(math.isfinite(x) for x in big["losses"]),
+              f"multicard_tp {MC_TP_ARCH} losses {big['losses']}")
+        big["cut"]["vs_one_card"] = vs_one_card(
+            big["cut"], one["cut"], f"{MC_TP_ARCH} cut to "
+            f"{MC_TP_CHECK_LAYERS} layers on (1, {world})")
+        check(all(big["collectives_equal_closed_form"]),
+              f"multicard_tp {MC_TP_ARCH} collectives {big['collectives']} vs "
+              f"the closed form {big['closed_form']}")
+        check(big["launches"]["flash_attention"] > 0
+              and big["launches"]["flash_attention_bwd"] > 0,
+              f"multicard_tp {MC_TP_ARCH} launches {big['launches']}")
+    return tp
 
 
 def lm_batch(cfg, B: int, n_tokens: int, gen, dev, n_embed: int = 0,
@@ -3819,7 +4086,7 @@ def main() -> None:
         emit("train_kernel_times", timing=trk["timing"], seconds=trk_seconds)
 
         # 14b. multicard: data- and expert-parallel training over NCCL ------
-        mc_train, mc_moe = multicard_phase(ckpt_root, train)
+        mc_train, _, mc_moe = multicard_phase(ckpt_root, train)
     emit("multicard_train", **mc_train)
     emit("multicard_moe", **mc_moe)
     mc_launches = {k: mc_train["launches"][k] + mc_moe["launches"][k]
@@ -4027,8 +4294,11 @@ def main() -> None:
 
 def multicard_only() -> None:
     """``python3 chip_smoke.py --multicard-only``: the build, then the
-    multicard phases alone (at W = 1 after the train phase they are held
-    to), for a machine with several cards."""
+    multicard phases alone, for a machine with several cards: at W = 1
+    after the train phase they are held to; at W > 1 after a one-card run
+    of the train phase's command for 2 steps (`one_card_tp_reference`),
+    `multicard_train` on (W, 1), `multicard_tp` on the meshes `tp_meshes`
+    picks, then MC_TP_ARCH on (1, W) from four cards up."""
     from repro_torch.kernels import _build
 
     check(torch.cuda.is_available(), "no CUDA device")
@@ -4041,12 +4311,23 @@ def multicard_only() -> None:
     emit("build", seconds=time.perf_counter() - t0)
     build_dir = Path(__file__).resolve().parent / "build"
     build_dir.mkdir(exist_ok=True)
+    W = torch.cuda.device_count()
     with tempfile.TemporaryDirectory(dir=build_dir) as d:
-        train = None
-        if torch.cuda.device_count() == 1:
+        if W == 1:
             train = train_phase(torch.device("cuda"), d)
-        mc_train, mc_moe = multicard_phase(d, train)
+        else:
+            train = one_card_tp_reference(torch.device("cuda", 0))
+            emit("multicard_tp_one_card", **train)
+        mc_train, mc_tp, mc_moe = multicard_phase(d, train)
     emit("multicard_train", **mc_train)
+    if mc_tp is not None:
+        for run in mc_tp["zamba2"]:
+            emit("multicard_tp", arch=TRAIN_ARCH, **run)
+        if MC_TP_ARCH in mc_tp:
+            emit("multicard_tp", arch=MC_TP_ARCH, **mc_tp[MC_TP_ARCH])
+        emit("multicard_tp_summary", world=W,
+             meshes=[r["mesh"] for r in mc_tp["zamba2"]],
+             big=MC_TP_ARCH in mc_tp, seconds=mc_tp["seconds"])
     emit("multicard_moe", **mc_moe)
     print(smi, flush=True)
 

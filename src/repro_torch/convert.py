@@ -224,4 +224,4 @@ def train_state_shard_from_numpy(tree: dict, cfg, mesh,
     their specs, moments by ZeRO-1's), with its placement."""
     from .train.train_step import shard_state
 
-    return shard_state(train_state_from_numpy(tree, cfg, device), mesh)
+    return shard_state(train_state_from_numpy(tree, cfg, device), mesh, cfg)

@@ -14,14 +14,23 @@ cuts its block of the inputs (`local_shard`).
 `build_cell(cfg, shape, mesh, ...)` assembles a cell: the step function
 (train, prefill or decode) run under the mesh's parallel context, its
 inputs as meta tensors, and the specs by which each rank's inputs are
-cut, parallel to them. The reference returns a jitted function for
-`.lower().compile()`; the port has no compile step (a census of
-parameters, FLOPs, memory and collective bytes per config is queued with
-the tensor-parallel slice).
+cut, parallel to them: a train cell's are those its trained state holds
+(`train.optimizer.make_placement`, the port's tensor-parallel layout),
+a serving cell's the reference's `param_pspecs`. The prefill and decode
+steps refuse a model axis above 1 (serving under tensor parallelism is
+slice 17 of the port). The reference returns a jitted function for
+`.lower().compile()`; the port has no compile step (the census of
+parameters, FLOPs, memory and collective bytes per config, on both
+production meshes, is queued for slice 17 with the serving cells).
+
+`train_collectives` is the closed-form count of the collectives one
+dense training step runs over a (data, model) mesh, by kind: what
+`parallel.collectives.counts` must show.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -36,7 +45,7 @@ from ..train.optimizer import make_placement
 
 __all__ = [
     "Cell", "batch_pspecs", "build_cell", "cache_pspecs",
-    "decode_input_specs", "input_specs", "skip_reason",
+    "decode_input_specs", "input_specs", "skip_reason", "train_collectives",
 ]
 
 _DT = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -171,7 +180,9 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
         if shape.kind == "train":
             opt = AdamW(zero1=zero1)
             shapes = {n: p.shape for n, p in params.named_parameters()}
-            base = make_placement(shapes, mesh).state if zero1 else p_specs
+            pl = make_placement(shapes, mesh, cfg)
+            p_specs = pl.params
+            base = pl.state if zero1 else p_specs
             opt_specs = {"m": base, "v": base, "step": ()}
             state = {"params": params, "opt": opt.init(params)}
             batch = input_specs(cfg, shape)
@@ -206,3 +217,96 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
         return Cell(decode_fn, (params, cache, tokens), "decode",
                     (p_specs, cache_pspecs(cache, ctx, cfg),
                      batch_pspecs(tokens, ctx)))
+
+
+# ---------------------------------------------------------------------------
+# the collectives of one dense training step, in closed form
+# ---------------------------------------------------------------------------
+
+def _dense_param_shapes(cfg: ModelConfig, model: int) -> list:
+    """[(local shape, its replicated dimensions' sizes, partial)] of a
+    dense model's parameters on a model axis of `model`
+    (`parallel.sharding.tp_pspecs` written out): heads, kv heads, d_ff and
+    the vocabulary cut, the norms replicated."""
+    d, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.heads_eff, cfg.n_kv_heads
+    ff, V, M = cfg.d_ff, cfg.vocab_size, model
+    by_default = cfg.residual == "tp"
+    norm = ((d,), (d,), by_default)
+    kv = ((d, Hkv * hd // M), (d,), False) if Hkv % M == 0 else \
+        ((d, Hkv * hd), (d, Hkv * hd), True)
+    layer = [norm, ((d, H * hd // M), (d,), False), kv, kv,
+             ((H * hd // M, d), (d,), False), norm,
+             ((d, ff // M), (d,), False), ((ff // M, d), (d,), False)]
+    if cfg.act == "swiglu":
+        layer.append(((d, ff // M), (d,), False))
+    if cfg.qk_norm:
+        layer += [((hd,), (hd,), True)] * 2
+    return ([((V // M, d), (d,), False), norm, ((d, V // M), (d,), False)]
+            + layer * cfg.n_layers)
+
+
+def train_collectives(cfg: ModelConfig, shape: ShapeSpec, data: int,
+                      model: int, microbatches: int = 1) -> dict:
+    """{kind: {"calls", "bytes"}} of one `make_train_step` step of a dense
+    model over a (data, model) mesh, each call's bytes its input's (as
+    `parallel.collectives.counts`), written from the config: for every
+    microbatch of B / data / microbatches rows, per layer the forward's,
+    the recomputation's under remat and the backward's collectives, the
+    embedding's, the head's and the loss's; then the step's loss average
+    and ZeRO-1's per parameter (a reduce-scatter into the moments' block
+    and an all-gather of the updated block, or an all-reduce where no
+    dimension splits over data), one sum of the partial gradients over the
+    model axis and the global norm. The recomputation stops at the
+    layer's last saved input (`torch.utils.checkpoint`'s early stop), so
+    the MLP's exit is not run again. Needs heads, d_ff and the
+    vocabulary divisible by `model`."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"closed form for dense configs, not "
+                                  f"{cfg.family}")
+    d, V, M = cfg.d_model, cfg.vocab_size, model
+    if cfg.heads_eff % M or cfg.d_ff % M or V % M or d % M:
+        raise ValueError(f"{cfg.name} does not cut evenly over {M}")
+    es = torch.finfo(_DT[cfg.dtype]).bits // 8
+    n = shape.global_batch // data // microbatches * shape.seq_len
+    out: dict = {}
+
+    def add(kind, calls, nbytes):
+        c = out.setdefault(kind, {"calls": 0, "bytes": 0})
+        c["calls"] += calls
+        c["bytes"] += calls * nbytes
+
+    full, block, f32 = n * d * es, n * d // M * es, n * 4
+    remat = cfg.remat in ("block", "dots")
+    L, mb = cfg.n_layers, microbatches
+    if cfg.residual == "tp":
+        # a layer: two entries (the residual all-gathered, then normed
+        # whole), two exits (reduce-scatter); backward the transposes
+        add("all_gather", L * mb * (2 + 2 * remat), block)
+        add("reduce_scatter", L * mb * (2 + remat), full)
+        add("reduce_scatter", L * mb * 2, full)
+        add("all_gather", L * mb * 2, block)
+        # embedding (exit, its backward) and head (entry, its backward)
+        add("reduce_scatter", mb * 2, full)
+        add("all_gather", mb * 2, block)
+    else:
+        # a layer: two exits (psum_replicated); backward the two entries'
+        # sums (replicated_copy)
+        add("all_reduce", L * mb * (2 + remat + 2), full)
+        add("all_reduce", mb * 2, full)      # embedding; the head's backward
+    add("all_reduce", mb * 3, f32)           # loss: max, sum of exp, target
+    add("all_reduce", 1, 4)                  # the loss over data
+    partial_numel = 0
+    for local, free, partial in _dense_param_shapes(cfg, M):
+        numel = math.prod(local)
+        if any(dim % data == 0 and dim >= data for dim in free):
+            add("reduce_scatter", 1, numel * 4)
+            add("all_gather", 1, numel // data * es)
+            shard = numel // data
+        else:
+            add("all_reduce", 1, numel * 4)
+            shard = numel
+        partial_numel += shard if partial else 0
+    if partial_numel:                        # the partial parts, end to end
+        add("all_reduce", 1, partial_numel * 4)
+    add("all_reduce", 1, 4)                  # the global norm
+    return out

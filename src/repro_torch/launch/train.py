@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
         --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
-        --arch zamba2-1.2b --data 4 --batch 8 --seq 4096 --microbatches 2
+        --arch qwen3-8b --data 1 --model 4 --batch 4 --seq 4096 \
+        --microbatches 2
 
 Port of `repro.launch.train`, with ``--device`` (default ``cuda``; the
 CPU runs the kernels' plain versions, and nothing falls back to it):
@@ -16,14 +17,18 @@ Under torchrun, or in a process whose caller has started a process group
 (`repro_torch.launch.mesh.init_distributed`), it trains over a (data,
 model) mesh of the whole group: ``--data 0`` means world // model, as the
 reference's. Every rank draws the same global parameters from the seed
-and keeps its blocks (the expert weights cut over ep, the AdamW moments
-by ZeRO-1), takes its block of each global batch (`launch.specs.
-batch_pspecs`), and steps through the gradient reduction and ZeRO-1
-(`repro_torch.train`) at any world size, one rank included. A checkpoint
-is gathered and written whole by rank 0, and restores onto any world
-size. ``--model`` above 1 raises: tensor parallelism over the model axis
-is queued for slice 16. Without a process group it trains on one device,
-as before (``--data`` and ``--model`` 1).
+and keeps its blocks by the port's tensor-parallel layout
+(`parallel.sharding.tp_pspecs`: heads, columns and vocabulary rows over
+the model axis, the expert weights over ep, the AdamW moments by
+ZeRO-1), takes its block of each global batch (`launch.specs.
+batch_pspecs`), and steps through the model's tensor-parallel
+collectives, the gradient reduction and ZeRO-1 (`repro_torch.train`) at
+any world size, one rank included. A checkpoint is gathered and written
+whole by rank 0, and restores onto any mesh. On the card every rank is a
+process on its own card over NCCL (``torchrun --nproc-per-node W``, or
+`chip_smoke.py --multicard-only` on four cards); ``--device cpu`` runs
+the same path over gloo. Without a process group it trains on one
+device, as before (``--data`` and ``--model`` 1).
 
 Straggler mitigation: per-step wall times (each step ends in a host read
 of its loss, so the card has finished it) feed an EWMA; steps slower than
@@ -78,12 +83,6 @@ def main(argv=None, report: dict | None = None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.model > 1:
-        raise NotImplementedError(
-            f"--model {args.model}: tensor parallelism over the model axis "
-            "(heads, row-parallel projections, the vocab-parallel embedding "
-            "and loss) is slice 16 of the port; this slice trains over the "
-            "data and expert axes")
     cfg = configs.get_reduced(args.arch) if args.reduced else configs.get(args.arch)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
 
@@ -188,6 +187,10 @@ def _run(args, cfg, shape, mesh, device, opt, step_fn, pctx, say, report):
                 break
         if ckpt:
             ckpt.wait()
+        if mesh.distributed:
+            # rank 0 writes the checkpoints: no rank leaves (to restart
+            # from LATEST, say) before the last one is on disk
+            psum(torch.zeros((), device=device), mesh.axis_names, mesh)
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
     if losses:

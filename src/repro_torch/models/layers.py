@@ -12,17 +12,45 @@ reference's ``attn_impl="pallas"`` branch; the reference's default XLA
 path computes the same function) and `decode_attention` through B7 (the
 counterpart of `decode_attention_xla`). On CPU tensors both run the
 kernels' plain versions.
+
+Tensor parallelism (`TP`, `tp_of`): under a parallel context whose mesh
+spans a process group with a model axis, of any size, one rank included,
+each rank holds its blocks of the weights (`parallel.sharding.tp_pspecs`)
+and the layers run their own collectives. A block enters through
+`tp_enter` (its pre-norm; under ``cfg.residual == "tp"``, where each rank
+holds a d / tp block of the residual, the blocks all-gathered and normed
+whole on every rank; under "replicated" the whole normed residual,
+through `replicated_copy` into a cut block),
+computes on its heads or columns, and leaves through `tp_leave` (after a
+row-parallel product a reduce-scatter over d, or a `psum_replicated`;
+from a block replicated whole, this rank's d block, or all of it). A norm
+over a dimension cut over the axis (Mamba2's and the mLSTM's inner norms,
+the MoE block's input under "tp") sums its mean of squares over the axis
+(`rms_norm_tp`). At a model axis of size 1 every collective is a copy and
+every block its whole: the same arithmetic as without a mesh, bit for
+bit.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel.collectives import (
+    all_gather,
+    psum,
+    psum_replicated,
+    psum_scatter,
+    replicated_copy,
+)
+from ..parallel.sharding import current_ctx
 
 __all__ = [
     "MLP",
+    "TP",
     "apply_rope",
     "attention",
     "decode_attention",
@@ -32,7 +60,12 @@ __all__ = [
     "mlp",
     "param",
     "rms_norm",
+    "rms_norm_tp",
     "rope_cos_sin",
+    "tp_enter",
+    "tp_leave",
+    "tp_of",
+    "whole_block",
 ]
 
 
@@ -60,9 +93,96 @@ def init_norm(w: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    """RMSNorm in float32. x enters through one node (the cast, or of a
+    float32 x a view), so that the gradients of its uses in here add up
+    there before they reach x, as they do where x is first all-gathered
+    (`tp_enter`)."""
+    xf = _as_f32(x)
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _as_f32(x: torch.Tensor) -> torch.Tensor:
+    return x.float() if x.dtype != torch.float32 else x.view_as(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """This rank's place on the model axis of a process-group mesh: the
+    axis, its size, this rank's index along it, and the residual layout
+    (``cfg.residual``)."""
+    mesh: object
+    axis: object
+    size: int
+    index: int
+    residual: str
+
+
+def tp_of(cfg) -> TP | None:
+    """The model axis of the current parallel context, or None where the
+    context spans no process group or has no model axis."""
+    ctx = current_ctx()
+    axes = ctx.axes("tp") if ctx.distributed else None
+    if not axes:
+        return None
+    if cfg.residual not in ("tp", "replicated"):
+        raise ValueError(f"residual layout {cfg.residual!r}")
+    mesh = ctx.mesh
+    return TP(mesh, axes[0] if len(axes) == 1 else tuple(axes),
+              mesh.axis_size(axes), mesh.axis_index(axes), cfg.residual)
+
+
+def whole_block(tp: TP | None, local: int, full: int) -> bool:
+    """Whether a block whose weight has `local` of `full` columns here is
+    replicated whole over a model axis above 1 (its heads or columns not
+    divisible by it)."""
+    return tp is not None and tp.size > 1 and local == full
+
+
+def rms_norm_tp(x: torch.Tensor, w: torch.Tensor, tp: TP,
+                eps: float = 1e-6) -> torch.Tensor:
+    """`rms_norm` over a last dimension cut over the model axis: the mean
+    of squares is the ranks' means of their blocks summed (`psum`: each
+    rank scales only its own block) over the axis size. `w` is the whole
+    weight (this rank's block of it is taken) or the block."""
+    xf = _as_f32(x)
+    var = psum((xf * xf).mean(dim=-1, keepdim=True), tp.axis,
+               tp.mesh) / tp.size
+    n = x.shape[-1]
+    if w.shape[0] != n:
+        w = w.narrow(0, tp.index * n, n)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def tp_enter(x: torch.Tensor, w: torch.Tensor, tp: TP | None,
+             whole: bool = False) -> torch.Tensor:
+    """A block's pre-norm with weight `w` and its way in: the whole normed
+    input, on each rank (module docstring). Under residual "tp" the
+    residual's blocks are all-gathered and every rank norms the whole (the
+    same bytes as gathering the normed blocks, and no sum of squares to
+    reduce). Without a model axis `rms_norm`."""
+    if tp is None:
+        return rms_norm(x, w)
+    if tp.residual == "tp":
+        return rms_norm(all_gather(x, tp.axis, x.ndim - 1, tp.mesh), w)
+    h = rms_norm(x, w)
+    return h if whole else replicated_copy(h, tp.axis, tp.mesh)
+
+
+def tp_leave(y: torch.Tensor, tp: TP | None, whole: bool = False) -> torch.Tensor:
+    """A block's output back into the residual's layout: `y` is the
+    row-parallel product's partial sum, or with `whole` the whole output
+    every rank computed."""
+    if tp is None:
+        return y
+    if whole:
+        if tp.residual != "tp":
+            return y
+        n = y.shape[-1] // tp.size
+        return y.narrow(-1, tp.index * n, n)
+    if tp.residual == "tp":
+        return psum_scatter(y, tp.axis, y.ndim - 1, tp.mesh)
+    return psum_replicated(y, tp.axis, tp.mesh)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):

@@ -224,7 +224,8 @@ def moe_sharded(x: torch.Tensor, p: MoE, cfg, mesh, *, ep_axes,
     same block of the output, G the ranks along `ep_axes`; `p` holds this
     rank's blocks of the weights, cut as the reference's ``specs_in``:
     w_router (d / tp, n_experts), w_gate and w_up (slots / G, d / tp, F),
-    w_down (slots / G, F / tp, d), the shared expert whole. Every rank of
+    w_down (slots / G, F / tp, d), the shared expert column- and
+    row-parallel (its hidden columns over tp) or whole. Every rank of
     `mesh` (a process-group mesh) calls it together.
 
     It follows the reference step by step: the capacities C =
@@ -234,7 +235,8 @@ def moe_sharded(x: torch.Tensor, p: MoE, cfg, mesh, *, ep_axes,
     before softmax and top-k; the three partial expert products
     psum_scatter'd over tp on dim 2; the all_to_all back, the weighted
     combine, then the shared expert (on the tokens all-gathered over tp,
-    this rank's d block kept). What differs: dispatch is an indexed write
+    reduce-scattered back to this rank's d block, or of a whole shared
+    expert that block kept). What differs: dispatch is an indexed write
     of unique (group, position) and (expert, position) pairs, each dropped
     slot sent to a spare column; the first-stage expert table marks the
     overflow the reference's duplicate write leaves (`_slot_experts`);
@@ -304,6 +306,14 @@ def moe_sharded(x: torch.Tensor, p: MoE, cfg, mesh, *, ep_axes,
                  keep, N, k)
 
     if p.shared is not None:
+        # column- and row-parallel on the tokens all-gathered over tp
+        # (this rank's block of its hidden columns, reduce-scattered back
+        # to d_loc), or whole where the hidden size does not divide tp
         s = _shared_expert(all_gather(xt, tp_axis, 1, mesh), p.shared)
-        y = y + s.narrow(1, mesh.axis_index(tp_axis) * d_loc, d_loc)
+        tp = mesh.axis_size(tp_axis)
+        if tp > 1 and p.shared.w_up.shape[1] == cfg.moe_d_ff * \
+                cfg.n_shared_experts:
+            y = y + s.narrow(1, mesh.axis_index(tp_axis) * d_loc, d_loc)
+        else:
+            y = y + psum_scatter(s, tp_axis, 1, mesh)
     return y.reshape(B, T, d_loc)

@@ -15,6 +15,17 @@ runs `chunked_ssd`, the reference's own jnp path, in torch ops, and its
 decode the O(1) recurrence. The sLSTM is a per-unit scalar recurrence,
 scanned over time by a Python loop, one step per token, as the reference
 scans it. The decode steps update the states they are given in place.
+
+Under a model axis (`tp`, `layers.tp_of`; the forwards take the whole
+normed input and return the row-parallel product's partial sum, or of a
+block replicated whole its whole output) Mamba2 runs on this rank's heads:
+`w_in`'s z, x and dt columns and `conv_w`'s x columns are its heads',
+B and C whole (one group shared by every head), B8/B8b over its heads, the
+gated norm over the cut inner dimension with its mean of squares summed
+over the axis (`layers.rms_norm_tp`), `w_out` row-parallel. The mLSTM runs
+on its heads the same way (`w_gates` cut per gate). The sLSTM runs whole
+on every rank: cutting its gates would need an all-gather of h at every
+one of its T steps.
 """
 from __future__ import annotations
 
@@ -24,7 +35,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.mamba_scan import chunked_ssd
-from .layers import init_dense, init_norm, param, rms_norm
+from .layers import init_dense, init_norm, param, rms_norm, rms_norm_tp, whole_block
 
 __all__ = [
     "MLSTM",
@@ -37,8 +48,10 @@ __all__ = [
     "mamba2_decode_step",
     "mamba2_forward",
     "mamba2_init_state",
+    "mamba2_whole",
     "mlstm_decode_step",
     "mlstm_forward",
+    "mlstm_whole",
     "slstm_decode_step",
     "slstm_forward",
 ]
@@ -98,11 +111,28 @@ def _mamba_split(zxbcdt: torch.Tensor, di: int, H: int, S: int):
     return torch.split(zxbcdt, [di, di, S, S, H], dim=-1)
 
 
-def mamba2_forward(x: torch.Tensor, p: Mamba2, cfg):
+def _inner_norm(y: torch.Tensor, w: torch.Tensor, tp, whole: bool):
+    """The norm over a block's inner dimension: cut over the model axis
+    unless the block is whole."""
+    if tp is None or whole:
+        return rms_norm(y, w)
+    return rms_norm_tp(y, w, tp)
+
+
+def mamba2_whole(p: Mamba2, cfg, tp) -> bool:
+    """Whether this Mamba2 block runs whole on every rank."""
+    return whole_block(tp, p.A_log.shape[0],
+                       _mamba_dims(cfg.d_model, cfg)[1])
+
+
+def mamba2_forward(x: torch.Tensor, p: Mamba2, cfg, tp=None):
     """x (B,T,d) -> (out (B,T,d), {"ssm": final state (B,H,P,S) float32,
-    "conv": the conv input's last K-1 steps})."""
+    "conv": the conv input's last K-1 steps}); under a model axis on this
+    rank's H heads (module docstring)."""
     B, T, d = x.shape
-    di, H, S = _mamba_dims(d, cfg)
+    S = cfg.ssm_state
+    H = p.A_log.shape[0]
+    di = H * _HEAD_P
     zxbcdt = x @ p.w_in
     z, xs, B_, C_, dt = _mamba_split(zxbcdt, di, H, S)
     conv_out, conv_tail = _causal_conv(torch.cat([xs, B_, C_], dim=-1), p.conv_w)
@@ -115,7 +145,8 @@ def mamba2_forward(x: torch.Tensor, p: Mamba2, cfg):
                                B_.contiguous(), C_.contiguous(),
                                chunk=cfg.ssd_chunk)
     y = (y + p.D[None, None, :, None] * xh).to(x.dtype).reshape(B, T, di)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), p.norm)
+    y = _inner_norm(y * F.silu(z.float()).to(y.dtype), p.norm, tp,
+                    mamba2_whole(p, cfg, tp))
     out = (y @ p.w_out).to(x.dtype)
     return out, {"ssm": h_last, "conv": conv_tail}
 
@@ -183,18 +214,27 @@ def init_mlstm(p: MLSTM, gen: torch.Generator) -> MLSTM:
     return p
 
 
-def mlstm_forward(x: torch.Tensor, p: MLSTM, n_heads: int, chunk: int = 128):
-    """x (B, T, d) -> (out (B, T, d), final state (B, H, hd, hd) float32)."""
+def mlstm_whole(p: MLSTM, n_heads: int, tp) -> bool:
+    """Whether this mLSTM block runs whole on every rank."""
+    return whole_block(tp, p.w_gates.shape[1] // 2, n_heads)
+
+
+def mlstm_forward(x: torch.Tensor, p: MLSTM, n_heads: int, chunk: int = 128,
+                  tp=None):
+    """x (B, T, d) -> (out (B, T, d), final state (B, H, hd, hd) float32);
+    under a model axis on this rank's H heads (module docstring)."""
     B, T, d = x.shape
     hd = d // n_heads
-    q = (x @ p.w_q).reshape(B, T, n_heads, hd)
-    k = (x @ p.w_k).reshape(B, T, n_heads, hd)
-    v = (x @ p.w_v).reshape(B, T, n_heads, hd)
+    H = p.w_gates.shape[1] // 2
+    q = (x @ p.w_q).reshape(B, T, H, hd)
+    k = (x @ p.w_k).reshape(B, T, H, hd)
+    v = (x @ p.w_v).reshape(B, T, H, hd)
     gates = x.float() @ p.w_gates
     i_g, f_g = torch.chunk(gates, 2, dim=-1)                  # (B, T, H)
     y, h_last = chunked_ssd(v, F.logsigmoid(f_g), torch.sigmoid(i_g),
                             k * (hd ** -0.5), q, chunk=chunk)
-    y = rms_norm(y.reshape(B, T, d), p.norm)
+    y = _inner_norm(y.reshape(B, T, H * hd), p.norm, tp,
+                    mlstm_whole(p, n_heads, tp))
     return y @ p.w_out, h_last
 
 

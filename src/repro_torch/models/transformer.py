@@ -8,10 +8,18 @@ reference stacks layers on a leading axis and runs `scan_layers`, the port
 keeps an `nn.ModuleList` and loops in Python (`repro_torch.models.zoo`).
 The reference's sharding hints (`repro.parallel.constrain`) move nothing
 in the port, where each rank already holds its own blocks, so the port
-does not call them. The MoE block runs `moe_sharded` when the parallel
+does not call them; under a model axis the blocks run on their heads and
+columns instead (`layers.tp_enter`/`tp_leave`): attention column-parallel
+in `w_q`/`w_k`/`w_v` on this rank's heads (the per-head q/k norms and
+RoPE local, B6 on the local heads), row-parallel in `w_o`; where the kv
+heads are replicated, each rank projects those its q heads use; cross
+attention projects its keys and values from the whole encoder memory the
+same way; the gated MLP column-parallel in `w_gate`/`w_up`, row-parallel
+in `w_down`; a block whose heads or columns the axis does not divide runs
+whole on every rank. The MoE block runs `moe_sharded` when the parallel
 context spans a process group (of any size, one rank included) with ep
-axes, as the reference does when its mesh has them, and `moe_ref`
-otherwise.
+axes, as the reference does when its mesh has them, on this rank's d
+block of its normed input, and `moe_ref` otherwise.
 
 `attn_decode` writes the new token's key and value into the caches it is
 given in place (JAX returns updated copies) and returns them.
@@ -20,6 +28,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+
+import torch.nn.functional as F
 
 from .layers import (
     MLP,
@@ -32,13 +42,19 @@ from .layers import (
     mlp,
     param,
     rms_norm,
+    rms_norm_tp,
     rope_cos_sin,
+    tp_enter,
+    tp_leave,
+    tp_of,
+    whole_block,
 )
+from ..parallel.collectives import psum_replicated, replicated_copy
 from ..parallel.sharding import current_ctx
 from .moe import MoE, init_moe, moe_ref, moe_sharded
 
-__all__ = ["Attention", "Block", "attn_decode", "attn_forward", "block_forward",
-           "init_attn", "init_block"]
+__all__ = ["Attention", "Block", "attn_block", "attn_decode", "attn_forward",
+           "attn_whole", "block_forward", "init_attn", "init_block"]
 
 
 class Attention(nn.Module):
@@ -75,36 +91,83 @@ def init_attn(p: Attention, gen: torch.Generator, cfg) -> Attention:
     return p
 
 
-def _qkv(x: torch.Tensor, p: Attention, cfg, kv_src=None):
+def _kv_weights(p: Attention, cfg, Hq: int, tp):
+    """The kv projections for this rank's `Hq` q heads: `w_k`/`w_v` as
+    they are where they are cut with the q heads or the block is whole;
+    where they are replicated and the q heads cut, the columns of the kv
+    heads those q heads use, and, where those q heads do not fall in equal
+    groups on them, the kv head of each q head (a selection)."""
+    hd, Hkv = cfg.hd, cfg.n_kv_heads
+    if Hq == cfg.heads_eff or p.w_k.shape[1] != Hkv * hd:
+        return p.w_k, p.w_v, None
+    G = cfg.heads_eff // Hkv
+    kv = [(tp.index * Hq + j) // G for j in range(Hq)]
+    lo, n = kv[0], kv[-1] - kv[0] + 1
+    cols = slice(lo * hd, (lo + n) * hd)
+    sel = None
+    if Hq % n or kv != [lo + j // (Hq // n) for j in range(Hq)]:
+        sel = torch.tensor([h - lo for h in kv], device=p.w_k.device)
+    return p.w_k[:, cols], p.w_v[:, cols], sel
+
+
+def _qkv(x: torch.Tensor, p: Attention, cfg, kv_src=None, tp=None):
     B, T, _ = x.shape
     hd = cfg.hd
     kv_in = x if kv_src is None else kv_src
     Tk = kv_in.shape[1]
-    q = (x @ p.w_q).reshape(B, T, cfg.heads_eff, hd)
-    k = (kv_in @ p.w_k).reshape(B, Tk, cfg.n_kv_heads, hd)
-    v = (kv_in @ p.w_v).reshape(B, Tk, cfg.n_kv_heads, hd)
+    Hq = p.w_q.shape[1] // hd
+    w_k, w_v, sel = _kv_weights(p, cfg, Hq, tp)
+    q = (x @ p.w_q).reshape(B, T, Hq, hd)
+    k = (kv_in @ w_k).reshape(B, Tk, w_k.shape[1] // hd, hd)
+    v = (kv_in @ w_v).reshape(B, Tk, w_v.shape[1] // hd, hd)
     if p.q_norm is not None:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
+    if sel is not None:
+        k, v = k.index_select(2, sel), v.index_select(2, sel)
     return q, k, v
 
 
 def attn_forward(x: torch.Tensor, p: Attention, cfg, *, causal: bool = True,
-                 use_rope: bool = True,
-                 kv_src: torch.Tensor | None = None) -> torch.Tensor:
+                 use_rope: bool = True, kv_src: torch.Tensor | None = None,
+                 tp=None) -> torch.Tensor:
     """Attention over a full sequence, x (B, T, d) -> (B, T, d): causal
     self-attention with RoPE by default; ``causal=False`` for an encoder;
     with ``kv_src`` (B, Tk, d) cross attention, its keys and values
-    projected from kv_src and, as in the reference, no RoPE."""
+    projected from kv_src and, as in the reference, no RoPE. Under a
+    model axis (`tp`, `layers.tp_of`) x and kv_src are whole, the heads
+    this rank's, and the output the row-parallel product's partial sum
+    (or, of a block replicated whole, the whole output)."""
     B, T, _ = x.shape
-    q, k, v = _qkv(x, p, cfg, kv_src)
+    q, k, v = _qkv(x, p, cfg, kv_src, tp)
     if use_rope and kv_src is None:
         cos, sin = rope_cos_sin(torch.arange(T, device=x.device)[None, :],
                                 cfg.hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     o = attention(q, k, v, causal=causal)
-    return o.reshape(B, T, cfg.heads_eff * cfg.hd) @ p.w_o
+    return o.reshape(B, T, q.shape[2] * cfg.hd) @ p.w_o
+
+
+def attn_whole(p: Attention, cfg, tp) -> bool:
+    """Whether this attention block runs whole on every rank."""
+    return whole_block(tp, p.w_q.shape[1], cfg.heads_eff * cfg.hd)
+
+
+def attn_block(x: torch.Tensor, ln: torch.Tensor, p: Attention, cfg, tp, *,
+               causal: bool = True, use_rope: bool = True,
+               memory: torch.Tensor | None = None) -> torch.Tensor:
+    """The residual update of a pre-norm attention block on x (this rank's
+    residual: its d block under residual "tp"). `memory`, for cross
+    attention, is the whole normed encoder output on every rank."""
+    whole = attn_whole(p, cfg, tp)
+    h = tp_enter(x, ln, tp, whole)
+    if memory is not None and tp is not None and tp.residual != "tp" \
+            and not whole:
+        memory = replicated_copy(memory, tp.axis, tp.mesh)
+    o = attn_forward(h, p, cfg, causal=causal, use_rope=use_rope,
+                     kv_src=memory, tp=tp)
+    return tp_leave(o, tp, whole)
 
 
 def attn_decode(x: torch.Tensor, p: Attention, cfg, k_cache: torch.Tensor,
@@ -164,24 +227,46 @@ def init_block(p: Block, gen: torch.Generator, cfg) -> Block:
     return p
 
 
-def _ffn(x: torch.Tensor, p: Block, cfg) -> torch.Tensor:
+def _moe(x: torch.Tensor, p: Block, cfg, tp) -> torch.Tensor:
+    """The MoE block's residual update. Over a process group with ep axes
+    `moe_sharded` takes this rank's d block of the normed input: under
+    residual "tp" the block the rank holds, under "replicated" its slice
+    of the whole (its output summed back whole)."""
+    ctx = current_ctx()
+    if not (tp is not None and ctx.axes("ep")):
+        return moe_ref(rms_norm(x, p.ln2), p.moe, cfg)
+
+    def sharded(h):
+        return moe_sharded(h, p.moe, cfg, tp.mesh, ep_axes=ctx.axes("ep"),
+                           tp_axis=tp.axis)
+
+    if tp.residual == "tp":
+        return sharded(rms_norm_tp(x, p.ln2, tp))
+    h = replicated_copy(rms_norm(x, p.ln2), tp.axis, tp.mesh)
+    n = h.shape[-1] // tp.size
+    y = sharded(h.narrow(-1, tp.index * n, n))
+    y = F.pad(y, (tp.index * n, (tp.size - 1 - tp.index) * n))
+    return psum_replicated(y, tp.axis, tp.mesh)
+
+
+def _ffn(x: torch.Tensor, p: Block, cfg, tp) -> torch.Tensor:
     if cfg.family == "moe":
-        ctx = current_ctx()
-        if ctx.distributed and ctx.axes("ep"):
-            return moe_sharded(x, p.moe, cfg, ctx.mesh, ep_axes=ctx.axes("ep"),
-                               tp_axis=ctx.axes("tp")[0])
-        return moe_ref(x, p.moe, cfg)
-    return mlp(x, p.mlp, cfg.act)
+        return _moe(x, p, cfg, tp)
+    whole = whole_block(tp, p.mlp.w_up.shape[1], cfg.d_ff)
+    return tp_leave(mlp(tp_enter(x, p.ln2, tp, whole), p.mlp, cfg.act), tp,
+                    whole)
 
 
 def block_forward(x: torch.Tensor, p: Block, cfg, *, causal: bool = True,
                   use_rope: bool = True,
                   memory: torch.Tensor | None = None) -> torch.Tensor:
     """One block over a full sequence; with `memory` (B, Tk, d) and a cross
-    block, cross attention to it after the self-attention."""
-    x = x + attn_forward(rms_norm(x, p.ln1), p.attn, cfg, causal=causal,
-                         use_rope=use_rope)
+    block, cross attention to it after the self-attention. Under a model
+    axis x is this rank's residual and `memory` whole (`attn_block`)."""
+    tp = tp_of(cfg)
+    x = x + attn_block(x, p.ln1, p.attn, cfg, tp, causal=causal,
+                       use_rope=use_rope)
     if memory is not None and hasattr(p, "xattn"):
-        x = x + attn_forward(rms_norm(x, p.ln_x), p.xattn, cfg, causal=False,
-                             use_rope=False, kv_src=memory)
-    return x + _ffn(rms_norm(x, p.ln2), p, cfg)
+        x = x + attn_block(x, p.ln_x, p.xattn, cfg, tp, causal=False,
+                           use_rope=False, memory=memory)
+    return x + _ffn(x, p, cfg, tp)

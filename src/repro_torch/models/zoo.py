@@ -34,6 +34,20 @@ layer with the shared attention is two such regions, the attention and
 the Mamba layer. "none" keeps every activation. Serving builds no graph: the parameters are made
 without ``requires_grad``, and the serving entry points run under
 `torch.no_grad`.
+
+Under a model axis (`layers.tp_of`: a process-group context, one rank
+included) `loss_fn` trains on this rank's blocks: the embedding looks up
+the tokens of its vocabulary rows (the others zero) and sums them over
+the axis into the residual's layout; whisper's frames and internvl2's
+patches arrive cut over d (`launch.specs.batch_pspecs`) and are gathered
+where the residual is whole; the encoder memory is gathered (or taken)
+whole once; zamba2's shared block takes the whole [h, e0] (its `w_concat`
+is replicated); the head is column-parallel over the vocabulary and the
+cross-entropy vocab-parallel (`_xent`). A vocabulary the axis does not
+divide (internvl2's 92,553, whisper's 51,865) is replicated, and the
+head's input then gathered whole. `forward` and `decode_step` refuse a
+model axis above 1: serving under tensor parallelism is slice 17 of the
+port.
 """
 from __future__ import annotations
 
@@ -45,9 +59,27 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..parallel.collectives import (
+    all_gather,
+    pmax,
+    psum_replicated,
+    replicated_copy,
+)
 from ..parallel.sharding import current_ctx, parallel_ctx
 from .config import ModelConfig
-from .layers import decode_attention, init_dense, init_norm, mlp, param, rms_norm
+from .layers import (
+    decode_attention,
+    init_dense,
+    init_norm,
+    mlp,
+    param,
+    rms_norm,
+    rms_norm_tp,
+    tp_enter,
+    tp_leave,
+    tp_of,
+    whole_block,
+)
 from .moe import moe_ref
 from .ssm import (
     _CONV_K,
@@ -61,8 +93,10 @@ from .ssm import (
     init_slstm,
     mamba2_decode_step,
     mamba2_forward,
+    mamba2_whole,
     mlstm_decode_step,
     mlstm_forward,
+    mlstm_whole,
     slstm_decode_step,
     slstm_forward,
 )
@@ -71,6 +105,7 @@ from .transformer import (
     Block,
     attn_decode,
     attn_forward,
+    attn_whole,
     block_forward,
     init_attn,
     init_block,
@@ -192,6 +227,104 @@ def _head(p: LM, x: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, p.ln_f) @ p.lm_head
 
 
+def _refuse_tp(cfg: ModelConfig, what: str) -> None:
+    tp = tp_of(cfg)
+    if tp is not None and tp.size > 1:
+        raise NotImplementedError(
+            f"{what} over a model axis of {tp.size}: serving under tensor "
+            "parallelism (the KV cache and SSM states cut by heads) is "
+            "slice 17 of the port; training runs through loss_fn")
+
+
+def _embed(p: LM, tokens: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """The token embeddings in the residual's layout. Vocab-parallel: this
+    rank's rows look up the tokens in their range, the others zero, summed
+    over the model axis (`layers.tp_leave`)."""
+    emb = p.tok_emb
+    if tp is None:
+        return F.embedding(tokens, emb)
+    n = emb.shape[0]
+    if whole_block(tp, n, cfg.vocab_size):
+        return tp_leave(F.embedding(tokens, emb), tp, whole=True)
+    local = tokens - tp.index * n
+    ok = (local >= 0) & (local < n)
+    e = F.embedding(torch.where(ok, local, torch.zeros_like(local)), emb)
+    e = torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                  device=e.device))
+    return tp_leave(e, tp)
+
+
+def _embedded_input(t: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """Frames or patches (B, T', d or its d / tp block) in the residual's
+    layout, in the model's type."""
+    t = t.to(_DT[cfg.dtype])
+    if tp is None:
+        return t
+    d = cfg.d_model
+    if tp.residual == "tp" and t.shape[-1] == d and tp.size > 1:
+        n = d // tp.size
+        return t.narrow(-1, tp.index * n, n)
+    if tp.residual != "tp" and t.shape[-1] != d:
+        with torch.no_grad():
+            return all_gather(t, tp.axis, t.ndim - 1, tp.mesh)
+    return t
+
+
+def _whole(x: torch.Tensor, tp) -> torch.Tensor:
+    """The whole of a residual-layout tensor, for a consumer whose
+    gradients each rank computes a part of: an all-gather under residual
+    "tp"; else the tensor, through a node of its own, so that its uses'
+    gradients add up there, in the order they add up in the all-gather's
+    (the same bits at a model axis of 1 as without one)."""
+    if tp is not None and tp.residual == "tp":
+        return all_gather(x, tp.axis, x.ndim - 1, tp.mesh)
+    return x.view_as(x)
+
+
+def _logits(p: LM, x: torch.Tensor, cfg: ModelConfig, tp):
+    """(logits, first vocabulary index): this rank's vocabulary block of
+    the logits (all of them without a model axis, or of a replicated
+    `lm_head`)."""
+    if tp is None:
+        return _head(p, x), 0
+    n = p.lm_head.shape[1]
+    if not whole_block(tp, n, cfg.vocab_size):
+        return tp_enter(x, p.ln_f, tp) @ p.lm_head, tp.index * n
+    # a replicated head: every rank computes all the logits, so its input
+    # is gathered whole with a backward that keeps each rank's block
+    # (this rank's block normed first, so that ln_f's gradient stays this
+    # rank's part of it, as every norm weight's under residual "tp")
+    if tp.residual != "tp":
+        return rms_norm(x, p.ln_f) @ p.lm_head, 0
+    h = rms_norm_tp(x, p.ln_f, tp)
+    k = h.shape[-1]
+    h = F.pad(h, (tp.index * k, (tp.size - 1 - tp.index) * k))
+    return psum_replicated(h, tp.axis, tp.mesh) @ p.lm_head, 0
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor, lo: int, tp):
+    """Per-position cross-entropy in float32 from this rank's vocabulary
+    block [lo, lo + n) of the logits. Vocab-parallel (`tp`): the shift is
+    the maximum over the axis, the sum of exponentials and the target's
+    logit are summed over it with `psum_replicated` (every rank computes
+    the same loss). The target's logit is picked by a select against the
+    vocabulary index (the reference multiplies by a one-hot: the same
+    value, a single non-zero term), whose backward is elementwise."""
+    m = torch.amax(logits.detach(), dim=-1)
+    if tp is not None:
+        m = pmax(m, tp.axis, tp.mesh)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    se = torch.exp(logits - m[..., None]).sum(-1)
+    vocab = torch.arange(lo, lo + logits.shape[-1], device=logits.device)
+    hit = vocab == targets[..., None].long()
+    picked = torch.where(hit, logits, torch.zeros((), device=logits.device)
+                         ).sum(-1)
+    if tp is not None:
+        se = psum_replicated(se, tp.axis, tp.mesh)
+        picked = psum_replicated(picked, tp.axis, tp.mesh)
+    return torch.log(se) + m - picked
+
+
 def _layers(cfg: ModelConfig, params: LM):
     """How each layer's function is applied: in `torch.utils.checkpoint`
     (non-reentrant) under ``remat`` "block" or "dots" while autograd
@@ -216,79 +349,100 @@ def _layers(cfg: ModelConfig, params: LM):
                                         use_reentrant=False)
 
 
-def forward(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Logits of the full sequence: (B, T, V) for ``batch["tokens"]`` (B,
-    T); for the vlm family (B, Np + T, V), the patches first; for the audio
-    family the decoder's (B, Td, V) over the encoded ``batch["frames"]``.
-    Each layer runs under ``cfg.remat`` (`_layers`)."""
+def _hidden(params: LM, batch: dict, cfg: ModelConfig, tp) -> torch.Tensor:
+    """The residual stream after the last layer (this rank's layout of
+    it under a model axis), each layer run under ``cfg.remat``."""
     _check_family(cfg)
     fam = cfg.family
     layer = _layers(cfg, params)
-    x = F.embedding(batch["tokens"], params.tok_emb)
+    x = _embed(params, batch["tokens"], cfg, tp)
     if fam == "vlm":
-        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        x = torch.cat([_embedded_input(batch["patches"], cfg, tp), x], dim=1)
     if fam in ("dense", "moe", "vlm"):
         for blk in params.blocks:
             x = layer(lambda h, blk=blk: block_forward(h, blk, cfg), x)
-        return _head(params, x)
+        return x
     if fam == "audio":
-        enc = batch["frames"].to(_DT[cfg.dtype])
+        enc = _embedded_input(batch["frames"], cfg, tp)
         for blk in params.enc_blocks:
             enc = layer(lambda h, blk=blk: block_forward(h, blk, cfg,
                                                          causal=False), enc)
-        enc = rms_norm(enc, params.ln_enc)
+        enc = rms_norm(_whole(enc, tp) if tp is not None else enc,
+                       params.ln_enc)
         for blk in params.dec_blocks:
             x = layer(lambda h, m, blk=blk: block_forward(h, blk, cfg,
                                                           memory=m), x, enc)
-        return _head(params, x)
+        return x
     if fam == "ssm":
         def pair_fn(h, pair):
-            h = h + mlstm_forward(rms_norm(h, pair.ln_m), pair.mlstm,
-                                  cfg.n_heads, chunk=cfg.ssd_chunk)[0]
-            return h + slstm_forward(rms_norm(h, pair.ln_s), pair.slstm)[0]
+            whole = mlstm_whole(pair.mlstm, cfg.n_heads, tp)
+            y = mlstm_forward(tp_enter(h, pair.ln_m, tp, whole), pair.mlstm,
+                              cfg.n_heads, chunk=cfg.ssd_chunk, tp=tp)[0]
+            h = h + tp_leave(y, tp, whole)
+            y = slstm_forward(tp_enter(h, pair.ln_s, tp, True), pair.slstm)[0]
+            return h + tp_leave(y, tp, True)
 
         for pair in params.pairs:
             x = layer(lambda h, pair=pair: pair_fn(h, pair), x)
-        return _head(params, x)
+        return x
     shared = params.shared
+    a_whole = attn_whole(shared.attn, cfg, tp)
 
     def attn_fn(h, e0):
-        a_in = torch.cat([h, e0], dim=-1) @ shared.w_concat
-        return h + attn_forward(rms_norm(a_in, shared.ln), shared.attn, cfg)
+        a_in = torch.cat([_whole(h, tp), e0], dim=-1) @ shared.w_concat
+        a_in = rms_norm(a_in, shared.ln)
+        if tp is not None and tp.residual != "tp" and not a_whole:
+            a_in = replicated_copy(a_in, tp.axis, tp.mesh)
+        return h + tp_leave(attn_forward(a_in, shared.attn, cfg, tp=tp), tp,
+                            a_whole)
 
     def mamba_fn(h, blk):
-        return h + mamba2_forward(rms_norm(h, blk.ln), blk.mamba, cfg)[0]
+        whole = mamba2_whole(blk.mamba, cfg, tp)
+        y = mamba2_forward(tp_enter(h, blk.ln, tp, whole), blk.mamba, cfg,
+                           tp)[0]
+        return h + tp_leave(y, tp, whole)
 
     # a shared-attention application and a Mamba layer are two regions:
     # without remat each frees its input as the old value of x, as serving
-    # always did; under remat each keeps only its input
-    emb0 = x
+    # always did; under remat each keeps only its input. The concat-skip's
+    # embedding is one tensor of its own (gathered whole once under a
+    # model axis), so the gradients of its uses add up in one place.
+    emb0 = _whole(x, tp)
     for i, blk in enumerate(params.blocks):
         if i % cfg.shared_attn_every == 0:
             x = layer(attn_fn, x, emb0)
         x = layer(lambda h, blk=blk: mamba_fn(h, blk), x)
-    return _head(params, x)
+    return x
+
+
+def forward(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Logits of the full sequence: (B, T, V) for ``batch["tokens"]`` (B,
+    T); for the vlm family (B, Np + T, V), the patches first; for the audio
+    family the decoder's (B, Td, V) over the encoded ``batch["frames"]``.
+    Each layer runs under ``cfg.remat`` (`_layers`). Not over a model axis
+    above 1 (module docstring)."""
+    _refuse_tp(cfg, "forward (prefill)")
+    tp = tp_of(cfg)
+    return _logits(params, _hidden(params, batch, cfg, tp), cfg, tp)[0]
 
 
 def loss_fn(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Mean next-token cross-entropy over ``batch["targets"]`` (B, T), in
-    float32 from `forward`'s logits, as `repro.models.loss_fn`: the vlm
-    family scores only the text tail (the last T positions), and targets
-    below 0 are masked out. The target's logit is picked by a select
-    against the vocabulary index (the reference multiplies by a one-hot:
-    the same value, a single non-zero term), whose backward is elementwise
-    and so the same bits every run."""
-    logits = forward(params, batch, cfg).float()
+    float32 from the logits, as `repro.models.loss_fn`: the vlm family
+    scores only the text tail (the last T positions), and targets below 0
+    are masked out. Under a model axis on this rank's blocks, the
+    cross-entropy vocab-parallel (`_xent`); every rank returns the loss."""
+    tp = tp_of(cfg)
+    logits, lo = _logits(params, _hidden(params, batch, cfg, tp), cfg, tp)
+    logits = logits.float()
     targets = batch["targets"]
     if cfg.family == "vlm":
         logits = logits[:, -targets.shape[1]:]
-    lse = torch.logsumexp(logits, dim=-1)
-    vocab = torch.arange(logits.shape[-1], device=logits.device)
-    hit = vocab == targets[..., None].long()
-    picked = torch.where(hit, logits, torch.zeros((), device=logits.device)
-                         ).sum(-1)
+    cut = tp is not None and not whole_block(tp, params.lm_head.shape[1],
+                                             cfg.vocab_size)
+    nll = _xent(logits, targets, lo, tp if cut else None)
     mask = (targets >= 0).float()
-    return ((lse - picked) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -344,8 +498,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(params: LM, cache: dict, tokens: torch.Tensor,
                 cfg: ModelConfig):
     """One decode step. tokens (B,) -> (logits (B, V), cache), the cache
-    updated in place."""
+    updated in place. Not over a model axis above 1."""
     _check_family(cfg)
+    _refuse_tp(cfg, "decode_step")
     fam = cfg.family
     pos = cache["pos"]
     x = F.embedding(tokens, params.tok_emb)                      # (B, d)

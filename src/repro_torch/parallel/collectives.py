@@ -16,16 +16,38 @@ absmax scaling): the pods' int8 shards and scales are gathered, decoded
 and summed in pod order. The reference's docstring names a trainer flag
 for it that its trainer does not have; the port adds none either.
 
-Beside them, the differentiable collectives that `models.moe.moe_sharded`
-and the train step use, each tiled as the reference's ``tiled=True``:
-`psum`, `psum_scatter` along a dim, `all_gather` along a dim and
-`all_to_all` on dim 0 (chunk j of this rank goes to rank j of the group;
-the chunks received are laid out in the senders' order). Their backward
-passes are the reference's transposes: psum <-> psum, psum_scatter <->
-all_gather, all_to_all <-> all_to_all. Every call, forward or backward,
-adds one to its kind's count and its input's bytes to the kind's bytes
-(`counts`, `reset_counts`), so that a run can show which collectives
-its path ran.
+Beside them, the differentiable collectives that `models.moe.moe_sharded`,
+the tensor-parallel layers and the train step use, each tiled as the
+reference's ``tiled=True``: `psum_scatter` along a dim, `all_gather`
+along a dim and `all_to_all` on dim 0 (chunk j of this rank goes to rank
+j of the group; the chunks received are laid out in the senders' order),
+whose backward passes are the reference's transposes (psum_scatter <->
+all_gather, all_to_all <-> all_to_all), and three sums.
+
+Which sum gets which backward. A rank's gradient of a tensor is either
+whole (every rank holds all of it) or partial (the ranks' gradients add
+up to it). After a sum over the axis every rank holds the same value, and
+what its gradient is depends on who consumes that value:
+  `psum`: backward `psum`, the reference's transpose. For a sum whose
+    consumer each rank does only a part of, so that each rank's incoming
+    gradient is partial: `moe_sharded`'s router logits, a norm's sum of
+    squares over a dimension cut over the axis (each rank scales only its
+    own block).
+  `psum_replicated`: backward the identity. For a sum whose consumer
+    every rank repeats whole: a replicated residual stream after a
+    row-parallel product, the loss's sums over a vocabulary cut over the
+    axis. Each rank's incoming gradient is already whole; `psum` there
+    would make it the axis size times too large.
+  `replicated_copy`: forward the identity (no collective), backward
+    `psum`. For a replicated tensor entering work each rank does only a
+    part of (a column-parallel product on a replicated residual): each
+    rank's gradient is partial, and the sum makes it whole.
+  `pmax`: the maximum, outside autograd (the logsumexp's shift, whose
+    gradient is zero).
+Every call, forward or backward, adds one to its kind's count and its
+input's bytes to the kind's bytes (`counts`, `reset_counts`; the sums and
+the maximum count as "all_reduce"), so that a run can show which
+collectives its path ran.
 """
 from __future__ import annotations
 
@@ -35,8 +57,9 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather", "all_to_all", "compressed_pod_psum", "counts",
-           "hierarchical_psum", "int8_decode", "int8_encode", "psum",
-           "psum_scatter", "reset_counts"]
+           "hierarchical_psum", "int8_decode", "int8_encode", "pmax", "psum",
+           "psum_replicated", "psum_scatter", "replicated_copy",
+           "reset_counts"]
 
 _COUNTS: dict = {}
 
@@ -74,36 +97,49 @@ def int8_decode(q: torch.Tensor, absmax: torch.Tensor,
 # the collectives on one group (counted; no autograd)
 # ---------------------------------------------------------------------------
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     _count("all_reduce", x)
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, group=group)
+    dist.all_reduce(y, op=op, group=group)
     return y
 
 
 def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Rank i's block i of the sum along `dim`: x viewed as (..., n, size
+    / n, ...) with the blocks moved first (one copy, none for dim 0), so
+    that each rank's output is its block, contiguous."""
     _count("reduce_scatter", x)
     n = dist.get_world_size(group)
-    xt = x.movedim(dim, 0).contiguous()
-    if xt.shape[0] % n:
+    dim = dim % x.ndim
+    if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"over {n} ranks")
-    out = xt.new_empty((xt.shape[0] // n, *xt.shape[1:]))
+    blocks = x.reshape(*x.shape[:dim], n, x.shape[dim] // n,
+                       *x.shape[dim + 1:])
+    xt = blocks.movedim(dim, 0).contiguous()
+    out = xt.new_empty(xt.shape[1:])
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)   # renamed in 2.13
-        dist.reduce_scatter_tensor(out, xt, group=group)
-    return out.movedim(0, dim).contiguous()
+        dist.reduce_scatter_tensor(
+            out, xt.reshape(n * out.shape[0], *out.shape[1:]), group=group)
+    return out
 
 
 def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' blocks joined along `dim` in rank order: gathered as
+    (n, *x.shape), then the rank axis moved beside `dim` and merged with
+    it (one copy, none for dim 0)."""
     _count("all_gather", x)
     n = dist.get_world_size(group)
-    xt = x.movedim(dim, 0).contiguous()
-    out = xt.new_empty((xt.shape[0] * n, *xt.shape[1:]))
+    dim = dim % x.ndim
+    xt = x.contiguous()
+    out = xt.new_empty((n * xt.shape[0], *xt.shape[1:]))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)   # renamed in 2.13
         dist.all_gather_into_tensor(out, xt, group=group)
-    return out.movedim(0, dim).contiguous()
+    out = out.reshape(n, *xt.shape).movedim(0, dim)
+    return out.reshape(*out.shape[:dim], n * x.shape[dim],
+                       *out.shape[dim + 2:]).contiguous()
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -123,6 +159,27 @@ class _Psum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _PsumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ReplicatedCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
@@ -177,6 +234,23 @@ def _group(axes, mesh):
 def psum(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
     """The sum of x over the ranks along `axes`, on each of them."""
     return _Psum.apply(x, _group(axes, mesh))
+
+
+def psum_replicated(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """The sum of x over the ranks along `axes`, for a consumer every rank
+    repeats whole: its backward is the identity."""
+    return _PsumReplicated.apply(x, _group(axes, mesh))
+
+
+def replicated_copy(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """x itself, entering work each rank along `axes` does a part of: its
+    backward sums the ranks' partial gradients."""
+    return _ReplicatedCopy.apply(x, _group(axes, mesh))
+
+
+def pmax(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """The elementwise maximum over the ranks along `axes`, detached."""
+    return _all_reduce(x.detach(), _group(axes, mesh), dist.ReduceOp.MAX)
 
 
 def psum_scatter(x: torch.Tensor, axes, dim: int = 0, mesh=None) -> torch.Tensor:

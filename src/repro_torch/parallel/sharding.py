@@ -28,6 +28,35 @@ tensor: `local_shard` cuts a full tensor to this rank's block by a spec,
 the reference's sharding constraint, moves nothing: under an active mesh
 it checks that a tensor is the local block of the global shape it is
 given (a dimension cut over axes of total size s holds dim / s rows).
+The port's layers run their own collectives on their blocks instead
+(`models.layers`: the tensor-parallel helpers).
+
+`tp_pspecs` is the port's tensor-parallel layout, the one the trained
+state is cut by (`train.optimizer.make_placement`); `param_pspecs` stays
+the reference's rule. They differ where the reference's rule would cut
+inside a head or across a packed projection, which GSPMD can move but a
+rank's local block cannot compute on:
+  - a block whose heads the model axis does not divide is replicated
+    whole (attention by `heads_eff`, Mamba2 by its di / 64 heads, mLSTM
+    by `n_heads`), as `maybe_axis` replicates a dimension it does not
+    divide (yi-34b-reduced's 7 heads on 2 ranks);
+  - `w_k`/`w_v` when `n_kv_heads` does not divide the axis: replicated,
+    each rank projecting the kv heads its q heads use;
+  - Mamba2's packed `w_in` (z, x, B, C, dt) and `conv_w` (x, B, C): a
+    `Segments` entry, z, x and dt cut by heads, B and C (one group shared
+    by every head) replicated;
+  - mLSTM's `w_gates` (i, f): `Segments`, each gate cut by heads;
+  - the sLSTM (`w_x`, `w_h`, `w_out`): replicated: its recurrence would
+    need an all-gather of h at every one of T steps.
+It also says which replicated parameters' gradients are partial, each
+rank holding only the part its own work produced, and so must be summed
+over the model axis before the data-parallel reduction: under
+``cfg.residual == "tp"`` every one but a replicated `lm_head` (norms
+over the cut residual, replicated blocks, `w_concat`); under
+"replicated" those used inside a cut block (the per-head q/k norms,
+replicated `w_k`/`w_v`, the Mamba and mLSTM norms over their cut inner
+dimension, a replicated MoE shared expert). Of a `Segments` parameter
+the replicated segments are the partial part.
 """
 from __future__ import annotations
 
@@ -41,6 +70,7 @@ import torch
 
 __all__ = [
     "ParallelCtx",
+    "Segments",
     "constrain",
     "current_ctx",
     "default_rules",
@@ -52,6 +82,7 @@ __all__ = [
     "parallel_ctx",
     "shard_module",
     "spec_axes",
+    "tp_pspecs",
 ]
 
 _STATE = threading.local()
@@ -147,10 +178,40 @@ def constrain(x: torch.Tensor, *logical: Optional[str],
     return x
 
 
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A spec entry for a dimension packed of segments (Mamba2's `w_in`
+    columns z, x, B, C, dt): segment i has global size ``sizes[i]`` and is
+    cut over `axes` where ``cut[i]``, else replicated. A rank's block is
+    its block of every cut segment and the whole of every other, in the
+    segments' order."""
+    sizes: tuple
+    cut: tuple
+    axes: object
+
+    def local_sizes(self, n: int) -> tuple:
+        for s, c in zip(self.sizes, self.cut):
+            if c and s % n:
+                raise ValueError(f"segment {s} of {self.sizes} does not "
+                                 f"split over {self.axes} ({n})")
+        return tuple(s // n if c else s for s, c in zip(self.sizes, self.cut))
+
+    def replicated_ranges(self, n: int) -> list:
+        """[(start, length)] of the replicated segments in a rank's block."""
+        out, at = [], 0
+        for size, c in zip(self.local_sizes(n), self.cut):
+            if not c:
+                out.append((at, size))
+            at += size
+        return out
+
+
 def spec_axes(entry) -> tuple:
     """The mesh axes of one spec entry: () for None, (name,) for a name."""
     if entry is None:
         return ()
+    if isinstance(entry, Segments):
+        return spec_axes(entry.axes)
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
@@ -159,7 +220,12 @@ def local_shape(shape, spec: tuple, mesh) -> tuple:
     out = list(shape)
     for i, entry in enumerate(spec):
         axes = spec_axes(entry)
-        if axes:
+        if isinstance(entry, Segments):
+            if sum(entry.sizes) != out[i]:
+                raise ValueError(f"dim {i} of {tuple(shape)} is not "
+                                 f"{entry.sizes}")
+            out[i] = sum(entry.local_sizes(mesh.axis_size(axes)))
+        elif axes:
             n = mesh.axis_size(axes)
             if out[i] % n:
                 raise ValueError(f"dim {i} of {tuple(shape)} does not split "
@@ -173,7 +239,14 @@ def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     out = t
     for i, entry in enumerate(spec):
         axes = spec_axes(entry)
-        if axes:
+        if isinstance(entry, Segments):
+            n, r = mesh.axis_size(axes), mesh.axis_index(axes)
+            local_shape(out.shape, (None,) * i + (entry,), mesh)
+            parts = torch.split(out, list(entry.sizes), dim=i)
+            out = torch.cat([p.narrow(i, r * (p.shape[i] // n), p.shape[i] // n)
+                             if c else p for p, c in zip(parts, entry.cut)],
+                            dim=i)
+        elif axes:
             n = mesh.axis_size(axes)
             if out.shape[i] % n:
                 raise ValueError(f"dim {i} of {tuple(t.shape)} does not split"
@@ -186,14 +259,33 @@ def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 def gather_full(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """The full tensor from each rank's block `t` cut by `spec`: an
     all-gather over each cut dimension's axes (every rank of those groups
-    must call it)."""
+    must call it); of a `Segments` dimension, one all-gather of its cut
+    segments."""
     from .collectives import all_gather
 
     out = t.detach()
     with torch.no_grad():
         for i, entry in enumerate(spec):
             axes = spec_axes(entry)
-            if axes:
+            if isinstance(entry, Segments):
+                n = mesh.axis_size(axes)
+                parts = torch.split(out, list(entry.local_sizes(n)), dim=i)
+                cut = [p for p, c in zip(parts, entry.cut) if c]
+                got = all_gather(torch.cat(cut, dim=i), axes, i, mesh)
+                # rank-major blocks of the cut segments, back in order
+                blocks = torch.split(got, [sum(p.shape[i] for p in cut)] * n,
+                                     dim=i)
+                pieces, k = [], 0
+                for p, c in zip(parts, entry.cut):
+                    if c:
+                        w = p.shape[i]
+                        pieces.append(torch.cat([b.narrow(i, k, w)
+                                                 for b in blocks], dim=i))
+                        k += w
+                    else:
+                        pieces.append(p)
+                out = torch.cat(pieces, dim=i)
+            elif axes:
                 out = all_gather(out, axes, i, mesh)
     return out
 
@@ -264,3 +356,72 @@ def param_pspecs(params, ctx: Optional[ParallelCtx] = None) -> dict:
              else params.items())
     return {name: _spec_for(name, tuple(getattr(t, "shape", t)), ctx)
             for name, t in items}
+
+
+def tp_pspecs(shapes: dict, cfg, ctx: Optional[ParallelCtx] = None):
+    """The port's tensor-parallel layout of parameters of global `shapes`
+    ({name: shape}) for `cfg`: ({name: spec}, {name: partial}). The specs
+    are `param_pspecs`'s but for the departures the module docstring
+    lists; ``partial[name]`` says that the replicated part of the
+    parameter's gradient is partial over the model axis."""
+    ctx = ctx or current_ctx()
+    specs = param_pspecs(shapes, ctx)
+    tp_axes = ctx.axes("tp") if ctx.mesh is not None else None
+    if not tp_axes:
+        return specs, {n: False for n in specs}
+    tp = ctx.axis_size("tp")
+    ax = tp_axes[0] if len(tp_axes) == 1 else tuple(tp_axes)
+    if cfg.residual == "tp" and cfg.d_model % tp:
+        raise ValueError(f"d_model {cfg.d_model} does not split over the "
+                         f"model axis ({tp}) under residual 'tp'")
+    by_default = cfg.residual == "tp"
+    d, S = cfg.d_model, cfg.ssm_state
+    di = cfg.ssm_expand * d
+    Hm = di // 64
+    out, partial = {}, {}
+    for name, shape in shapes.items():
+        shape = tuple(getattr(shape, "shape", shape))
+        parts = name.split(".")
+        leaf, mod = parts[-1], (parts[-2] if len(parts) > 1 else "")
+        spec, part = specs[name], by_default
+        whole = (None,) * len(shape)
+        # cut over the axis (at size 1, where `maybe_axis` names no axis,
+        # every block is its whole: cut, as the layers treat it)
+        cut = tp == 1 or any(spec_axes(e) for e in spec)
+        if mod in ("attn", "xattn"):
+            if cfg.heads_eff % tp:
+                spec = whole
+            elif leaf in ("w_k", "w_v") and cfg.n_kv_heads % tp:
+                spec, part = whole, True
+            else:
+                part = leaf in ("q_norm", "k_norm")
+        elif mod == "mamba":
+            if Hm % tp:
+                spec = whole
+            elif leaf == "w_in":
+                spec = (None, Segments((di, di, S, S, Hm),
+                                       (True, True, False, False, True), ax))
+                part = True
+            elif leaf == "conv_w":
+                spec = (None, Segments((di, S, S), (True, False, False), ax))
+                part = True
+            else:
+                part = leaf == "norm"
+        elif mod == "mlstm":
+            H = cfg.n_heads
+            if H % tp:
+                spec = whole
+            elif leaf == "w_gates":
+                spec, part = (None, Segments((H, H), (True, True), ax)), False
+            else:
+                part = leaf == "norm"
+        elif mod == "slstm":
+            spec = whole
+        elif mod == "shared" and "moe" in parts:
+            part = not cut
+        elif mod in ("moe", "mlp") or leaf == "tok_emb":
+            part = part and not cut
+        elif leaf == "lm_head":
+            part = False
+        out[name], partial[name] = tuple(spec), bool(part)
+    return out, partial

@@ -10,9 +10,12 @@ tensor. The optimizer state is {"m": {name: tensor}, "v": {name: tensor},
 "step": int32 scalar}, keyed by parameter name.
 
 `make_placement` is the one rule by which the port cuts a train state:
-each parameter's global shape, its spec (`param_pspecs`) and its
-moments' spec, which is its spec with the data-parallel axes it leaves
-free on its first replicated dimension that they divide. The reference's
+each parameter's global shape, its spec (the port's tensor-parallel
+layout, `parallel.sharding.tp_pspecs`: the reference's `param_pspecs`
+but where a rank's block could not compute on its heads), whether its
+gradient is partial over the model axis, and its moments' spec, which is
+its spec with the data-parallel axes it leaves free on its first
+replicated dimension that they divide. The reference's
 layers are stacked on a leading axis, which that rule may take; the
 port's layers are tensors of their own, so it takes the first divisible
 dimension of the layer's own shape. A free axis of size 1 is named too
@@ -25,13 +28,17 @@ Under a mesh that spans a process group, each
 rank holds its block of the moments (ZeRO-1). `AdamW.update` then reduces
 each gradient over the data-parallel axes that its parameter does not
 use (a reduce-scatter straight into the moments' block where ZeRO-1 cuts
-the parameter, else an all-reduce) and divides it by the data-parallel
-size; the expert weights, cut over ep = dp, are not reduced (the
-all_to_all's backward has already summed every rank's tokens into them)
-but divided alike. The clip uses the global norm: each rank adds the
-squares of the gradient blocks it owns, a block replicated over some
-axes counted only by the rank at coordinate 0 on them, and the sum is
-all-reduced over the mesh. Each rank updates its block of the parameter
+the parameter, else an all-reduce), sums the partial parts of the
+gradients over the model axis in one all-reduce (`Placement.tp_sum`: a
+replicated parameter whose every rank computed only its own part, the
+replicated segments of a `Segments` one), and divides them by the
+data-parallel size; the expert
+weights, cut over ep = dp, are not reduced (the all_to_all's backward has
+already summed every rank's tokens into them) but divided alike. The clip
+uses the global norm: each rank adds the squares of the gradient blocks
+it owns, a block replicated over some axes counted only by the rank at
+coordinate 0 on them (of a `Segments` parameter, its replicated segments
+only at model coordinate 0), and the sum is all-reduced over the mesh. Each rank updates its block of the parameter
 and the parameter is all-gathered over the axes ZeRO-1 cut it by.
 """
 from __future__ import annotations
@@ -46,11 +53,10 @@ from ..parallel import (
     ParallelCtx,
     current_ctx,
     default_rules,
-    param_pspecs,
     parallel_ctx,
 )
 from ..parallel.collectives import all_gather, psum, psum_scatter
-from ..parallel.sharding import local_shape, spec_axes
+from ..parallel.sharding import Segments, local_shape, spec_axes, tp_pspecs
 
 __all__ = ["AdamW", "Placement", "cosine_schedule", "make_placement",
            "zero1_pspecs"]
@@ -109,11 +115,65 @@ def zero1_pspecs(param_specs: dict, params_shapes: dict,
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """How a train state is cut over `mesh` (a process-group mesh): per
-    parameter name its global shape, its spec, and its moments' spec."""
+    parameter name its global shape, its spec, its moments' spec, and
+    whether the replicated part of its gradient is partial over the model
+    axis (`parallel.sharding.tp_pspecs`)."""
     mesh: object
     shapes: dict
     params: dict
     state: dict
+    partial: dict = dataclasses.field(default_factory=dict)
+
+    def _tp(self):
+        return default_rules(self.mesh)["tp"]
+
+    def _segments(self, name: str):
+        """(dim, `Segments`) of a packed parameter, else (None, None)."""
+        for i, e in enumerate(self.params[name]):
+            if isinstance(e, Segments):
+                return i, e
+        return None, None
+
+    def partial_parts(self, name: str, g: torch.Tensor) -> list:
+        """The views of `g` (this rank's gradient block, or ZeRO-1's block
+        of it) that are partial over the model axis: all of it, the
+        replicated segments of a `Segments` parameter, or none."""
+        if not self.partial.get(name):
+            return []
+        dim, seg = self._segments(name)
+        if seg is None:
+            return [g]
+        return [g.narrow(dim, a, n) for a, n in
+                seg.replicated_ranges(self.mesh.axis_size(seg.axes))]
+
+    def tp_sum(self, grads: dict) -> None:
+        """Sum the partial parts of `grads` ({name: block}) over the model
+        axis in place, in one all-reduce of them laid end to end."""
+        parts = [v for n, g in grads.items() for v in self.partial_parts(n, g)]
+        if not parts:
+            return
+        flat = torch.cat([v.reshape(-1) for v in parts])
+        flat = psum(flat, self._tp(), self.mesh)
+        at = 0
+        for v in parts:
+            v.copy_(flat[at:at + v.numel()].view_as(v))
+            at += v.numel()
+
+    def sq_norm(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the squared global norm from its block `g`
+        of the gradient of `name` (whole after `tp_sum`): all of it where
+        it `owns` the block, and of a `Segments` parameter off model
+        coordinate 0 only its cut segments."""
+        if not self.owns(name):
+            return torch.zeros((), dtype=torch.float32, device=g.device)
+        dim, seg = self._segments(name)
+        if seg is None or self.mesh.axis_index(seg.axes) == 0:
+            return torch.sum(torch.square(g))
+        n = self.mesh.axis_size(seg.axes)
+        sizes = seg.local_sizes(n)
+        parts = torch.split(g, list(sizes), dim=dim)
+        return sum(torch.sum(torch.square(p)) for p, c in zip(parts, seg.cut)
+                   if c)
 
     def leaf_specs(self) -> dict:
         """{checkpoint leaf name: spec}: parameters, ``m.*``, ``v.*``,
@@ -149,15 +209,16 @@ class Placement:
                    if a not in used)
 
 
-def make_placement(shapes: dict, mesh) -> Placement:
-    """The placement of parameters of global `shapes` ({name: shape}) on
-    `mesh`, by `param_pspecs` and ZeRO-1 (on axes of any size)."""
+def make_placement(shapes: dict, mesh, cfg) -> Placement:
+    """The placement of parameters of global `shapes` ({name: shape}) of a
+    model of `cfg` on `mesh`, by `tp_pspecs` and ZeRO-1 (on axes of any
+    size)."""
     with parallel_ctx(mesh) as ctx:
-        p_specs = param_pspecs(shapes, ctx)
+        p_specs, partial = tp_pspecs(shapes, cfg, ctx)
         dp = ctx.axes("dp") or ()
     state = {n: _extend(p_specs[n], shapes[n], mesh, dp) for n in shapes}
     return Placement(mesh, {n: tuple(s) for n, s in shapes.items()}, p_specs,
-                     state)
+                     state, partial)
 
 
 @dataclasses.dataclass
@@ -190,18 +251,6 @@ class AdamW:
         return {"m": {n: zeros(n, p) for n, p in named},
                 "v": {n: zeros(n, p) for n, p in named},
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
-
-    def opt_state_pspecs(self, param_specs: dict, params_shapes: dict) -> dict:
-        """The moments' specs: under a process-group mesh those the state
-        is cut by (`make_placement`), else the reference's rule."""
-        mesh = current_ctx().mesh
-        if not self.zero1:
-            base = dict(param_specs)
-        elif getattr(mesh, "distributed", False):
-            base = make_placement(dict(params_shapes), mesh).state
-        else:
-            base = zero1_pspecs(param_specs, params_shapes)
-        return {"m": base, "v": base, "step": ()}
 
     @torch.no_grad()
     def update(self, grads: dict, state: dict, params: torch.nn.Module,
@@ -256,7 +305,6 @@ class AdamW:
         lr = self._lr(step)
         named = list(params.named_parameters())
         shards = {}
-        gsq = torch.zeros((), dtype=torch.float32, device=step.device)
         for name, _ in named:
             g = grads.pop(name).float()
             dim, axes = pl.cut(name)
@@ -264,9 +312,12 @@ class AdamW:
                 g = psum_scatter(g, axes, dim, mesh)
             elif pl.free(name):
                 g = psum(g, pl.free(name), mesh)
-            g = g / n_dp
-            if pl.owns(name):
-                gsq = gsq + torch.sum(torch.square(g))
+            shards[name] = g
+        pl.tp_sum(shards)
+        gsq = torch.zeros((), dtype=torch.float32, device=step.device)
+        for name, _ in named:
+            g = shards[name] / n_dp
+            gsq = gsq + pl.sq_norm(name, g)
             shards[name] = g
         gsq = psum(gsq, mesh.axis_names, mesh)
         gnorm = torch.sqrt(gsq)

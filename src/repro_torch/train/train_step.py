@@ -11,12 +11,14 @@ it in place and returns it with {"loss", "grad_norm", "lr"}.
 
 Over a mesh that spans a process group (`init_state(..., mesh=)`), the
 state also holds its `Placement` and each rank its blocks: the parameters
-cut by their specs (the expert weights over ep), the moments by ZeRO-1's;
-each rank takes its block of the batch (`launch.specs.batch_pspecs`).
-The step then reduces the gradients and updates through ZeRO-1
-(`AdamW.update`), and the loss is averaged over the data-parallel axes.
-It takes this path at any world size, one rank included: nothing
-shortcuts the reductions.
+cut by their specs (the expert weights over ep, the heads, columns and
+vocabulary rows over the model axis), the moments by ZeRO-1's; each rank
+takes its block of the batch (`launch.specs.batch_pspecs`). `loss_fn`
+then runs the model's tensor-parallel collectives, the step reduces the
+gradients (the partial ones over the model axis too) and updates through
+ZeRO-1 (`AdamW.update`), and the loss, which every model rank computes
+whole, is averaged over the data-parallel axes only. It takes this path
+at any world size, one rank included: nothing shortcuts the reductions.
 """
 from __future__ import annotations
 
@@ -44,18 +46,19 @@ def init_state(cfg: ModelConfig, seed: int, opt: AdamW,
     if mesh is None:
         return {"params": params, "opt": opt.init(params)}
     pl = make_placement({n: p.shape for n, p in params.named_parameters()},
-                        mesh)
+                        mesh, cfg)
     shard_module(params, pl.params, mesh)
     return {"params": params, "opt": opt.init(params, pl), "placement": pl}
 
 
-def shard_state(state: TrainState, mesh) -> TrainState:
-    """Cut a full train state (one device's, or a converted reference
-    state) to this rank's blocks on `mesh`, in place: the parameters by
+def shard_state(state: TrainState, mesh, cfg: ModelConfig) -> TrainState:
+    """Cut a full train state of a model of `cfg` (one device's, or a
+    converted reference state) to this rank's blocks on `mesh`, in place:
+    the parameters by
     their specs, the moments by ZeRO-1's; returns it with its placement."""
     params = state["params"]
     pl = make_placement({n: p.shape for n, p in params.named_parameters()},
-                        mesh)
+                        mesh, cfg)
     shard_module(params, pl.params, mesh)
     opt = state["opt"]
     for key in ("m", "v"):

@@ -267,11 +267,12 @@ def _cfg(case):
     return cfg
 
 
-def _step(state, cfg, batch, mesh, microbatches=1, lr=1e-3):
+def _step(state, cfg, batch, mesh, microbatches=1, lr=1e-3, eps=1e-8):
     from repro_torch.launch.specs import batch_pspecs
     from repro_torch.train import AdamW, make_train_step
 
-    step = make_train_step(cfg, AdamW(lr=lr, zero1=True), microbatches)
+    step = make_train_step(cfg, AdamW(lr=lr, eps=eps, zero1=True),
+                           microbatches)
     with parallel_ctx(mesh) as ctx:
         specs = batch_pspecs(batch, ctx)
         local = {k: local_shard(v, specs[k], mesh) for k, v in batch.items()}
@@ -340,7 +341,8 @@ def launcher(rank, world, payload):
     """`launch.train.main` on the CPU over the group: 4 steps; then in
     another directory the same command with ``--steps 2`` (which
     checkpoints at step 2 by ``--ckpt-every``) and the command again with
-    ``--steps 4``, resuming there; and a ``--model 2`` that raises."""
+    ``--steps 4``, resuming there; then the same over the model axis
+    (``--data 1 --model 2``): 4 steps, and 2 steps resumed to 4."""
     from repro_torch.launch import train as launch_train
 
     d = pathlib.Path(payload["dir"])
@@ -353,11 +355,203 @@ def launcher(rank, world, payload):
     resumed = {}
     launch_train.main([*argv, "--steps", "4", "--ckpt-dir", str(d / "sliced")],
                       report=resumed)
-    try:
-        launch_train.main([*argv, "--steps", "4", "--model", "2"])
-        model_error = None
-    except NotImplementedError as e:
-        model_error = str(e)
+    tp = [*argv, "--data", "1", "--model", "2"]
+    tp_full = {}
+    tp_losses = launch_train.main([*tp, "--steps", "4", "--ckpt-dir",
+                                   str(d / "tp_full")], report=tp_full)
+    tp_sliced = launch_train.main([*tp, "--steps", "2", "--ckpt-dir",
+                                   str(d / "tp_sliced")])
+    tp_resumed = {}
+    launch_train.main([*tp, "--steps", "4", "--ckpt-dir", str(d / "tp_sliced")],
+                      report=tp_resumed)
     return {"losses": losses, "sliced": sliced, "resumed": resumed["losses"],
             "start": resumed["start"], "collectives": full["collectives"],
-            "model_error": model_error, "mesh": full["mesh"].shape}
+            "mesh": full["mesh"].shape,
+            "model": {"losses": tp_losses, "sliced": tp_sliced,
+                      "resumed": tp_resumed["losses"],
+                      "start": tp_resumed["start"],
+                      "mesh": tp_full["mesh"].shape,
+                      "collectives": tp_full["collectives"]}}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+
+def _named(t: dict) -> dict:
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in t.items()}
+
+
+def tp_conjugates(rank, world, payload):
+    """On (data 1, model world): the gradients of small consumers through
+    each sum (the ranks' blocks `u`, a replicated `z`, per-rank weights
+    `a`), and `Segments` blocks round trips."""
+    from repro_torch.parallel.collectives import (
+        pmax,
+        psum_replicated,
+        replicated_copy,
+    )
+    from repro_torch.parallel.sharding import Segments
+
+    mesh = make_local_mesh(1, world, "cpu")
+    c = torch.from_numpy(payload["c"])
+    out = {}
+    with parallel_ctx(mesh):
+        # a sum every rank consumes whole: L = sum(c * s^2), s = sum_r u_r
+        for key, op in (("psum_replicated", psum_replicated), ("psum", psum)):
+            u = torch.from_numpy(payload["u"][rank]).requires_grad_(True)
+            loss = (c * op(u, "model") ** 2).sum()
+            out[key] = _np(torch.autograd.grad(loss, u)[0])
+        # a replicated z entering work each rank does a part of:
+        # L = sum_r sum((a_r * z)^2), summed whole on every rank
+        a = torch.from_numpy(payload["a"][rank])
+        for key, enter in (("replicated_copy",
+                            lambda z: replicated_copy(z, "model")),
+                           ("no_copy", lambda z: z)):
+            z = torch.from_numpy(payload["z"]).requires_grad_(True)
+            part = ((a * enter(z)) ** 2).sum()
+            loss = psum_replicated(part, "model")
+            out[key] = _np(torch.autograd.grad(loss, z)[0])
+        # a vocab-parallel logsumexp: the shift by pmax, the sum of
+        # exponentials through psum_replicated
+        x = torch.from_numpy(payload["x"][rank]).requires_grad_(True)
+        m = pmax(torch.amax(x.detach(), -1), "model")
+        se = psum_replicated(torch.exp(x - m[..., None]).sum(-1), "model")
+        lse = torch.log(se) + m
+        out["pmax"] = (_np(m), m.requires_grad)
+        w = torch.from_numpy(payload["w"])
+        out["lse"] = (_np(lse), _np(torch.autograd.grad((w * lse).sum(),
+                                                        x)[0]))
+        full = torch.arange(2 * 22, dtype=torch.float32).reshape(2, 22)
+        seg = Segments((4, 4, 2, 2, 10), (True, True, False, False, True), "model")
+        block = local_shard(full, (None, seg), mesh)
+        out["segments"] = (tuple(block.shape), _np(block),
+                           bool(torch.equal(gather_full(block, (None, seg),
+                                                        mesh), full)))
+    return out
+
+
+def tp_counts(rank, world, payload):
+    """One step of the reduced qwen3-8b on (1, world) under each residual
+    layout: the step's collectives and their closed form."""
+    from repro_torch.launch.specs import train_collectives
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import AdamW, init_state
+    from repro_torch.train.data import make_batch
+
+    mesh = make_local_mesh(1, world, "cpu")
+    shape = ShapeSpec("t", payload["seq"], payload["batch"], "train")
+    out = {}
+    for residual in ("tp", "replicated"):
+        for mb in (1, 2):
+            cfg = dataclasses.replace(configs.get_reduced("qwen3-8b"),
+                                      dtype="float32", residual=residual)
+            with parallel_ctx(mesh):
+                state = init_state(cfg, 0, AdamW(lr=1e-3), "cpu", mesh)
+            batch = make_batch(cfg, shape, 0, 0, "cpu")
+            reset_counts()
+            _step(state, cfg, batch, mesh, mb)
+            out[(residual, mb)] = (counts(), train_collectives(
+                cfg, shape, 1, world, mb))
+    return out
+
+
+def tp_train_step(rank, world, payload):
+    """One step of each case on its own (data, model) mesh: the loss, the
+    global gradient norm, the gathered parameters and the collectives;
+    with ``"one_device"`` also the port's one-device step from the same
+    state in this process."""
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.train import AdamW, make_train_step
+
+    out = {}
+    for key, case in payload.items():
+        cfg = _cfg(case)
+        mesh = make_local_mesh(*case["mesh"], "cpu")
+        state = train_state_shard_from_numpy(case["state"], cfg, mesh, "cpu")
+        batch = _named(case["batch"])
+        eps = case.get("eps", 1e-8)
+        reset_counts()
+        state, met = _step(state, cfg, batch, mesh, eps=eps)
+        res = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+               "params": _full_params(state), "counts": counts()}
+        if case.get("one_device"):
+            st = train_state_from_numpy(case["state"], cfg, "cpu")
+            st, m1 = make_train_step(cfg, AdamW(lr=1e-3, eps=eps, zero1=True),
+                                     1)(st, batch)
+            res["one_device"] = {
+                "loss": float(m1["loss"]), "grad_norm": float(m1["grad_norm"]),
+                "params": {n: _np(p) for n, p in
+                           st["params"].named_parameters()}}
+        out[key] = res
+    return out
+
+
+def _tp_ckpt_setup(payload, mesh):
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import AdamW, init_state
+    from repro_torch.train.data import make_batch
+
+    cfg = dataclasses.replace(configs.get_reduced(payload["arch"]),
+                              dtype="float32")
+    shape = ShapeSpec("t", 16, 4, "train")
+    batches = [make_batch(cfg, shape, i, 0, "cpu") for i in range(2)]
+    with parallel_ctx(mesh):
+        state = init_state(cfg, 0, AdamW(lr=1e-3), "cpu", mesh)
+    return cfg, batches, state
+
+
+def tp_checkpoint(rank, world, payload):
+    """On the first mesh: step 0, a checkpoint of step 1, step 1 (the
+    uninterrupted run), then a fresh state restored from the checkpoint
+    takes step 1 again; on each further mesh a fresh state restored from
+    that checkpoint takes step 1. ``"write"`` False: only restore (the
+    checkpoint another world wrote)."""
+    from repro_torch.train.checkpoint import restore, save
+
+    out = {}
+    meshes = payload["meshes"]
+    if payload["write"]:
+        mesh = make_local_mesh(*meshes[0], "cpu")
+        cfg, batches, state = _tp_ckpt_setup(payload, mesh)
+        state, _ = _step(state, cfg, batches[0], mesh)
+        save(payload["dir"], 1, state)
+        dist.barrier()
+        _, met = _step(state, cfg, batches[1], mesh)
+        out["loss"] = float(met["loss"])
+    for shape in meshes:
+        mesh = make_local_mesh(*shape, "cpu")
+        cfg, batches, state = _tp_ckpt_setup(payload, mesh)
+        restore(payload["dir"], 1, state)
+        _, met = _step(state, cfg, batches[1], mesh)
+        out[tuple(shape)] = float(met["loss"])
+    return out
+
+
+def tp_serving_refuses(rank, world, payload):
+    """Prefill and decode of the reduced qwen3-8b under a (1, world) mesh:
+    the error each raises (None if it ran); then under (world, 1), where
+    the model axis has size 1, whether both run."""
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serve import make_prefill, make_serve_step
+
+    cfg = configs.get_reduced("qwen3-8b")
+    params = init_params(cfg, 0, "cpu")
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    out = {}
+    for shape in ((1, world), (world, 1)):
+        mesh = make_local_mesh(*shape, "cpu")
+        got = {}
+        with parallel_ctx(mesh):
+            for name, run in (
+                    ("prefill", lambda: make_prefill(cfg, "cpu")(
+                        params, {"tokens": tokens})),
+                    ("decode", lambda: make_serve_step(cfg, device="cpu")(
+                        params, init_cache(cfg, 2, 16, "cpu"), tokens[:, 0]))):
+                try:
+                    run()
+                    got[name] = None
+                except NotImplementedError as e:
+                    got[name] = str(e)
+        out[shape] = got
+    return out

@@ -23,7 +23,8 @@ distributed step on 4 fake host devices in one subprocess
   1, 2 and 4; the next step's loss equals the uninterrupted run's bitwise
   on the same world, and within 1e-6 relative on another.
 - Launcher: `launch.train` with ``--device cpu`` over a world of 2
-  resumes bitwise; ``--model 2`` raises.
+  resumes bitwise, over the data axis and over the model axis
+  (``--data 1 --model 2``).
 - Specs: `batch_pspecs`, `cache_pspecs`, the shapes and dtypes of
   `input_specs`/`decode_input_specs` and `skip_reason` equal the
   reference's for every config and shape on both production meshes.
@@ -45,8 +46,9 @@ from repro_torch.launch.specs import (
     decode_input_specs,
     input_specs,
     skip_reason,
+    train_collectives,
 )
-from repro_torch.models.config import SHAPES
+from repro_torch.models.config import SHAPES, ShapeSpec
 from repro_torch.parallel import parallel_ctx
 from repro_torch.train import AdamW, make_train_step
 
@@ -271,7 +273,10 @@ def test_dense_step_matches_where_zero1_cannot_cut(worlds, reference):
     """On 3 ranks no parameter of the reduced qwen3-8b has a dimension
     that 3 divides: every moment stays whole on every rank, every gradient
     is all-reduced, and only rank 0 counts it in the global norm. The step, its loss and its
-    norm equal the one-device step's on the same 6-row batch."""
+    norm equal the one-device step's on the same 6-row batch; its
+    collectives are `train_collectives`' closed form, the only
+    reduce-scatters the model axis's (of size 1: the residual's layer
+    exits, the embedding and the head's backward)."""
     got = worlds[3][0]["train_step"]["dense"]
     loss, gnorm, params = _one_device(reference["dense"],
                                       _batch6(reference["dense"]))
@@ -280,7 +285,13 @@ def test_dense_step_matches_where_zero1_cannot_cut(worlds, reference):
                                atol=0)
     _assert_close(got["params"], params, TOL)
     assert got["counts"]["all_reduce"]["calls"] > 0
-    assert "reduce_scatter" not in got["counts"]
+    # no reduce-scatter but the model axis's own (one of size 1 here): the
+    # step's collectives are the closed form's, where ZeRO-1 cuts nothing
+    cfg = dataclasses.replace(configs.get_reduced("qwen3-8b"), dtype="float32")
+    closed = train_collectives(cfg, ShapeSpec("t", 16, 6, "train"), 3, 1)
+    assert got["counts"] == closed
+    assert closed["reduce_scatter"]["calls"] == \
+        cfg.n_layers * (2 + 1 + 2) + 2
 
 
 def test_moe_step_matches_reference(worlds, reference):
@@ -331,8 +342,26 @@ def test_launcher_resumes_bitwise_over_two_ranks(worlds):
 
 
 def test_launcher_refuses_the_model_axis(worlds):
-    msg = worlds[2][0]["launcher"]["model_error"]
-    assert msg is not None and "slice 16" in msg
+    """Named for what it checked while the launcher refused ``--model``
+    above 1: ``--data 1 --model 2`` over a world of 2 now trains, and a
+    run of 2 steps resumed to 4 gives the uninterrupted run's losses
+    bitwise, within 1e-4 of the data-parallel run's (the same global
+    batches and seed, cut the other way)."""
+    for r in worlds[2]:
+        got = r["launcher"]["model"]
+        assert len(got["losses"]) == 4
+        assert got["sliced"] == got["losses"][:2]
+        assert got["start"] == 2 and got["resumed"] == got["losses"][2:]
+        assert got["mesh"] == {"data": 1, "model": 2}
+        np.testing.assert_allclose(got["losses"], r["launcher"]["losses"],
+                                   rtol=0, atol=1e-4)
+        # the model axis's collectives: reduce-scatters of the residual
+        # beside ZeRO-1's one a parameter
+        assert all(c["reduce_scatter"]["calls"] > 25
+                   for c in got["collectives"])
+    ranks = worlds[2]
+    assert ranks[0]["launcher"]["model"]["losses"] == \
+        ranks[1]["launcher"]["model"]["losses"]
 
 
 def test_local_blocks_and_constrain_over_two_ranks(worlds):
