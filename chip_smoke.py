@@ -63,13 +63,19 @@ Phases, each printing one JSON line:
    bf16): B6 non-causal at its encoder's 2 x 1024 and at 448 decoder
    positions against 1500 frames of memory (Tq != Tk), B7 at its served
    cross-attention decode (every length mem_len = 168) and at mem_len
-   1500. Each is bitwise its plain version (torch.equal; B7's
-   with its split count, B8's y and final state with its block count and
-   scratch bytes);
+   1500; then B7 on a rank's block of phi3-medium-14b's cache cut by
+   sequence over four cards (8, 40 / 10 heads, S 16, D 128, lengths 0 to
+   16). Each is bitwise its plain version (torch.equal; B7's
+   with its split count, and with its rows' softmax statistics (M, L)
+   asked for, both outputs bitwise the plain version's and `out` the
+   same bits as without them; B8's y and final state with its block
+   count and scratch bytes);
    then each one's time at the main-path shapes (B6 and B7 at qwen3-8b's
    shape, at zamba2-1.2b's (B7's served cache), at the reduced
    qwen3-8b's heads and at whisper-small's encoder and cross attention
-   (B6) and served cross-attention decode (B7)) beside its plain version, one PyTorch call computing
+   (B6) and served cross-attention decode (B7), B7 also at the
+   sequence-cut block and every B7 shape also with (M, L) written) beside
+   its plain version, one PyTorch call computing
    the same function (scaled_dot_product_attention for B6 and B7; the
    port never calls it) and its bound, and B6's achieved TFLOP/s; B6's,
    B7's and B8's times also with the launch queued behind a spin of the
@@ -264,6 +270,27 @@ Phases, each printing one JSON line:
    GB a rank, losses finite, whether they rose), each step's collectives
    equal to `launch.specs.train_collectives`' closed form, one more step
    traced (NCCL's device ms).
+   Last, `multicard_serve` (slice 17; `serve_cases` picks the models and
+   meshes, MC_SERVE_* the sizes and tolerances): each model drawn whole
+   on every card from seed 0, served once on rank 0's card alone, then
+   cut to each rank's blocks (`tp_pspecs`) and served over the (data,
+   model) mesh through `launch.specs.build_cell`'s prefill and decode
+   cells (the forced decode steps through `models.decode_step` under the
+   mesh, the cache cut by `tp_cache_pspecs`), the launch counters set to
+   0 just before and read just after. At W = 1 zamba2-1.2b on (1, 1),
+   bitwise the one-card run (prefill logits, each forced step's logits,
+   the greedy tokens, every cache tensor); on four cards qwen3-8b and
+   phi3-medium-14b (its cache cut by sequence: B7's statistics and the
+   merge across ranks) on (1, 4) and zamba2-1.2b on (2, 2), each within
+   MC_SERVE_* of the one-card run, the dense models' collectives equal to
+   `launch.specs.serve_collectives`; each line has prefill and decode ms,
+   peak GB a rank, one greedy step traced (NCCL's device ms), and the
+   one-card times. ``--multicard-only --serve-only`` runs it alone and
+   prints `nvidia-smi topo -m` with every card's name and power limit.
+14c. census_train: the census (`repro_torch.launch.dryrun.measure`, on
+   meta tensors, a fake process group of one) of the train phase's cell,
+   its arguments and temporaries beside the phase's measured peak; it
+   runs on the host while the multicard ranks work on the card.
 15. train_reduced: every reduced config in float32 and bf16, one
    `make_train_step` step (2 x 40 tokens, 2 microbatches, AdamW) on the
    kernel path and on the plain path: loss, grad norm, every gradient and
@@ -456,6 +483,13 @@ LM_WHISPER_B7_CASES = (
      torch.bfloat16, LM_CACHE_LEN),
     ("whisper-small-memory", (LM_SERVE_B, 12, 12, 1500, 64), torch.bfloat16,
      1500))
+# B7 on a rank's block of phi3-medium-14b's cache cut by sequence over a
+# model axis of 4 (multicard_serve: 40 query heads gathered, 10 kv heads,
+# 16 of 64 positions), at local lengths 0 (a rank past every position),
+# 1, a split's edge and 16; drawn after every other case
+LM_SEQ_B7_CASES = (
+    ("phi3-medium-14b-seq", (8, 40, 10, 16, 128), torch.bfloat16,
+     (0, 1, 15, 16, 0, 7, 16, 2)),)
 LM_SMALL_DIMS = (8, 12, 16, 20)
 LM_SMALL_B6_CASES = (
     ("qwen3-8b-reduced", (2, 4, 2, 2048, 2048, 16), torch.float32, (True,)),
@@ -467,7 +501,7 @@ LM_SMALL_B7_CASES = (
       for D in LM_SMALL_DIMS for dt in (torch.float32, torch.bfloat16)))
 LM_TIMED = ("qwen3-8b", "zamba2-1.2b", "qwen3-8b-reduced")
 LM_TIMED_B6 = LM_TIMED + ("whisper-small-encoder", "whisper-small-cross")
-LM_TIMED_B7 = LM_TIMED + ("whisper-small-cross",)
+LM_TIMED_B7 = LM_TIMED + ("whisper-small-cross", "phi3-medium-14b-seq")
 # the lm_reduced phase: every reduced config, in its own float32 and in
 # bf16: a prefill of B x T through B6 (whisper's frames T + 8 long, so its
 # cross attention has Tq != Tk; internvl2's patches its config's 16), then
@@ -541,6 +575,38 @@ MC_TP_ARCH, MC_TP_STEPS, MC_TP_BATCH, MC_TP_MB = "qwen3-8b", 3, 4, 2
 MC_TP_CHECK_LAYERS = 8
 MC_TP_LOSS_ATOL, MC_TP_GNORM_RTOL = 0.02, 0.05
 MC_TP_TIMEOUT = 1500
+# serving over the (data, model) mesh (slice 17): each case's full-width
+# bf16 model (seed-0 weights, drawn whole on every card and cut to its
+# blocks) prefills MC_SERVE_B x MC_SERVE_T tokens through `build_cell`'s
+# prefill cell, then decodes a batch of MC_SERVE_DECODE_B from an empty
+# cache of MC_SERVE_MAX_LEN positions: the forced steps through
+# `decode_step` (their logits kept), then greedy ones through the decode
+# cell. At W = 1 zamba2-1.2b on (1, 1) is held bitwise to the one-card
+# serve path in the same process (prefill logits, each forced step's
+# logits, the greedy tokens, every cache tensor); on four cards qwen3-8b
+# (kv heads cut over 4), phi3-medium-14b (10 kv heads: the cache cut by
+# sequence, 16 positions a rank, the last rank's never reached) and
+# zamba2-1.2b on (2, 2), each to a one-card run on rank 0 within the
+# MC_SERVE_* tolerances (the argmax share over the prefill's positions
+# and over all forced steps' rows together, the gaps step by step): bf16
+# partial sums over 4 ranks, added in another
+# order than one product's, move logits by bf16 ulps that 32-64 random
+# layers carry on (zamba2-1.2b's 38 layers moved the mean logit gap of a
+# one-ulp B6 difference to 0.052, `LM_ARGMAX_MIN`'s note)
+MC_SERVE_T, MC_SERVE_B, MC_SERVE_DECODE_B, MC_SERVE_MAX_LEN = 2048, 2, 8, 64
+MC_SERVE_STEPS = {1: (8, 8), 4: (31, 16)}     # (forced, greedy) by W
+MC_SERVE_ARGMAX_MIN, MC_SERVE_MEAN_GAP, MC_SERVE_MAX_GAP = 0.9, 0.1, 2.0
+# a hybrid (zamba2-1.2b: 38 layers and an SSM state) carries bf16 rounding
+# further: one card's bf16 path agrees with a float32 run of its own
+# weights on 0.80 of the argmaxes, mean gap 0.0725 (`lm_serve`'s
+# vs_truth). Its mesh run is held to that float32 run instead, over the
+# prefill and over all forced steps: its argmax share at least one
+# card's less MC_SERVE_TRUTH_SIGMAS standard deviations of the difference
+# of two binomial shares of the n rows (3 sqrt(2 p (1 - p) / n): 0.027
+# over the prefill's 4,096 positions at p 0.8, 0.11 over 248 forced
+# rows), and its mean gap at most MC_SERVE_TRUTH_RATIO times one card's
+MC_SERVE_TRUTH_SIGMAS, MC_SERVE_TRUTH_RATIO = 3.0, 1.1
+MC_SERVE_TIMEOUT = 900
 
 
 def ptxas_entries(log: str, names: tuple[str, ...]) -> list[dict]:
@@ -1818,8 +1884,10 @@ def lm_kernel_phase(dev, flush) -> dict:
                     tile_width=tile_width(D)))
                 check(cases[-1]["bitwise"], f"B6 {cases[-1]}")
 
-    # B7: (B, Hq, Hkv, S, D), lengths in [1, S]; the plain version repeats
-    # the split kernel's arithmetic, so the two agree to the last bit
+    # B7: (B, Hq, Hkv, S, D), lengths in [1, S] (or as given); the plain
+    # version repeats the split kernel's arithmetic, so the two agree to
+    # the last bit, the rows' statistics (M, L) too; `out` is the same
+    # with or without them
     def check_b7(case_list):
         for name, (B, Hq, Hkv, S, D), dtype, length in case_list:
             q = randn((B, Hq, D), dtype)
@@ -1828,20 +1896,32 @@ def lm_kernel_phase(dev, flush) -> dict:
                 lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
                                      dtype=torch.int32)
                 lens[-1] = S
+            elif isinstance(length, tuple):
+                lens = torch.tensor(length, device=dev, dtype=torch.int32)
             else:
                 lens = torch.full((B,), length, device=dev, dtype=torch.int32)
             da_inputs[name] = (q, kc, vc, lens)
             got = decode_attention_kernel_call(q, kc, vc, lens)
             want = decode_attention_plain(q, kc, vc, lens)
+            got_s, st = decode_attention_kernel_call(q, kc, vc, lens,
+                                                     stats=True)
+            want_s, st_plain = decode_attention_plain(q, kc, vc, lens,
+                                                      stats=True)
             n_split, split_len = split_plan(B, Hkv, S)
             cases.append(dict(kernel="decode_attention", case=name,
                               shape=[B, Hq, Hkv, S, D], lengths=lens.tolist(),
                               dtype=str(dtype), max_abs_err=err(got, want),
                               bitwise=bool(torch.equal(got, want)), tol=0.0,
+                              stats_max_abs_err=err(st, st_plain),
+                              stats_bitwise=bool(torch.equal(st, st_plain)),
+                              out_unchanged_with_stats=bool(
+                                  torch.equal(got_s, got)
+                                  and torch.equal(want_s, want)),
                               n_split=n_split, split_len=split_len,
                               blocks=B * Hkv * n_split,
                               tile_width=tile_width(D)))
-            check(cases[-1]["bitwise"], f"B7 {cases[-1]}")
+            check(cases[-1]["bitwise"] and cases[-1]["stats_bitwise"]
+                  and cases[-1]["out_unchanged_with_stats"], f"B7 {cases[-1]}")
 
     check_b6(LM_B6_CASES)
     check_b7(LM_B7_CASES)
@@ -1871,6 +1951,7 @@ def lm_kernel_phase(dev, flush) -> dict:
     # whisper-small's: non-causal, Tq != Tk, and decode at mem_len
     check_b6(LM_WHISPER_B6_CASES)
     check_b7(LM_WHISPER_B7_CASES)
+    check_b7(LM_SEQ_B7_CASES)
     torch.cuda.synchronize()
     for c in cases:
         emit("lm_kernel_check", **c)
@@ -1923,12 +2004,20 @@ def lm_kernel_phase(dev, flush) -> dict:
             return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
                                                   enable_gqa=True)
 
+        def kernel_stats():
+            return decode_attention_kernel_call(q, kc, vc, lens, stats=True)
+
         t = dict(
             ms=time_ms(kernel, KERNEL_REPS, flush),
             plain_ms=time_ms(lambda: decode_attention_plain(q, kc, vc, lens),
                              PLAIN_REPS, flush),
             library_ms=time_ms(library, KERNEL_REPS, flush),
             device_ms=time_ms(kernel, KERNEL_REPS, flush, queued=True),
+            # with the rows' (M, L) written too (decode over a cache cut by
+            # sequence)
+            stats_ms=time_ms(kernel_stats, KERNEL_REPS, flush),
+            stats_device_ms=time_ms(kernel_stats, KERNEL_REPS, flush,
+                                    queued=True),
             library_device_ms=time_ms(library, KERNEL_REPS, flush,
                                       queued=True),
             # q and out, the valid K and V rows, the lengths
@@ -2724,12 +2813,314 @@ def multicard_moe_rank(dev, world: int, counters, flush) -> dict:
     return out
 
 
+def serve_cases(world: int) -> list:
+    """(arch, (data, model)) of `multicard_serve` on `world` cards."""
+    if world == 1:
+        return [("zamba2-1.2b", (1, 1))]
+    if world >= 4:
+        return [("qwen3-8b", (1, 4)), ("phi3-medium-14b", (1, 4)),
+                ("zamba2-1.2b", (2, 2))]
+    return [("qwen3-8b", (1, world)), ("zamba2-1.2b", (world, 1))]
+
+
+def serve_run(params, cfg, prompt, forced, n_greedy: int, dev, mesh=None,
+              counters=None) -> dict:
+    """Prefill `prompt` and decode `forced` then `n_greedy` greedy tokens
+    from an empty cache of MC_SERVE_MAX_LEN positions, on one card
+    (`mesh` None: `make_prefill`, `decode_step`, `make_serve_step`) or on
+    this rank's blocks under `mesh` (`build_cell`'s prefill and decode
+    cells, the forced steps through `decode_step` under the mesh's
+    context, the cache cut by `tp_cache_pspecs`). Returns the whole
+    batch's prefill logits, forced logits and greedy tokens (gathered
+    over data), the whole cache, the times, the collectives of the
+    prefill and of the first forced step, and under a mesh one greedy
+    step traced (NCCL's device time)."""
+    from repro_torch.launch.specs import batch_pspecs, build_cell
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.parallel import gather_full, local_shard, parallel_ctx
+    from repro_torch.parallel.collectives import counts, reset_counts
+    from repro_torch.parallel.sharding import tp_cache_pspecs
+    from repro_torch.serve import make_prefill, make_serve_step
+
+    B = forced.shape[0]
+    ctx = parallel_ctx(mesh) if mesh is not None else contextlib.nullcontext()
+    with ctx as c:
+        cache = init_cache(cfg, B, MC_SERVE_MAX_LEN, dev)
+        if mesh is None:
+            prefill = make_prefill(cfg, dev)
+            greedy = make_serve_step(cfg, device=dev)
+            tok_spec, c_specs = None, None
+        else:
+            prefill = build_cell(cfg, ShapeSpec("mc", MC_SERVE_T, MC_SERVE_B,
+                                                "prefill"), mesh,
+                                 device=dev).fn
+            greedy = build_cell(cfg, ShapeSpec("mc", MC_SERVE_MAX_LEN, B,
+                                               "decode"), mesh, device=dev).fn
+            c_specs = tp_cache_pspecs(cache, cfg, c)
+            cache = {k: local_shard(v, c_specs[k], mesh)
+                     for k, v in cache.items()}
+            tok_spec = batch_pspecs(forced[:, 0], c)
+
+    def cut(t, spec):
+        return t if spec is None else local_shard(t, spec, mesh)
+
+    def whole(t, spec):
+        return t if spec is None else gather_full(t, spec, mesh)
+
+    p_spec = None if mesh is None else (tok_spec[0], None)
+    prompt_l = cut(prompt, p_spec)
+    forced_l = cut(forced, p_spec)
+    if counters is not None:
+        reset_launches(*counters.values())
+    times = []
+    for i in range(3):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": prompt_l})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i < 2:
+            pre_counts = counts()
+            del logits
+    out = dict(prefill_ms=statistics.median(times[1:]), prefill_ms_all=times,
+               prefill_collectives=pre_counts,
+               prefill=whole(logits, (None if mesh is None else tok_spec[0],
+                                      None, None)).cpu())
+    del logits
+    ctx = parallel_ctx(mesh) if mesh is not None else contextlib.nullcontext()
+    step_logits, step_ms = [], []
+    with ctx, torch.no_grad():
+        for t in range(forced.shape[1]):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg = decode_step(params, cache, forced_l[:, t], cfg,
+                             MC_SERVE_MAX_LEN)[0]
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if t == 0:
+                out["decode_collectives"] = counts()
+            step_logits.append(whole(lg, None if mesh is None
+                                     else (tok_spec[0], None)).cpu())
+        tok = lg.argmax(-1).to(torch.int32)
+        tokens, greedy_ms = [], []
+        for _ in range(n_greedy):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, cache = greedy(params, cache, tok)
+            torch.cuda.synchronize()
+            greedy_ms.append((time.perf_counter() - t0) * 1e3)
+            tokens.append(whole(tok, tok_spec).cpu())
+    if counters is not None:
+        out["launches"] = {k: f.launches for k, f in counters.items()}
+    out.update(forced_logits=torch.stack(step_logits),
+               tokens=torch.stack(tokens, 1) if tokens else None,
+               forced_ms=statistics.median(step_ms[1:]),
+               decode_ms=statistics.median(greedy_ms[1:]) if tokens else None,
+               cache={k: whole(v, None if c_specs is None else c_specs[k]
+                               ).to("cpu", copy=True) for k, v in cache.items()})
+    if mesh is not None:
+        prof = device_profile(lambda: greedy(params, cache, tok), 1,
+                              host_ops=False, top=None)
+        out["traced_decode_step"] = dict(
+            window_ms=prof["window_ms"], device_busy_ms=prof["device_busy_ms"],
+            kernels=prof["kernels"], **nccl_rows(prof))
+    return out
+
+
+def serve_truth(params, cfg, prompt, forced, dev) -> dict:
+    """The prefill and forced-step logits of a float32 copy of `params`
+    (the same weights, upcast) on this card alone."""
+    from repro_torch.models.zoo import LM
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = LM(cfg32, dev)
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(p32.named_parameters(),
+                                  params.named_parameters()):
+            a.copy_(b.float())
+    run = serve_run(p32, cfg32, prompt, forced, 0, dev)
+    del p32
+    torch.cuda.empty_cache()
+    return {k: run[k] for k in ("prefill", "forced_logits")}
+
+
+def serve_gaps(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Logits `a` against `b` (any leading dims): the largest and mean
+    gap, the share of positions with the same argmax."""
+    d = (a.float() - b.float()).abs()
+    same = a.argmax(-1) == b.argmax(-1)
+    return dict(max_gap=float(d.max()), mean_gap=float(d.mean()),
+                argmax_agree=float(same.float().mean()), rows=same.numel())
+
+
+def multicard_serve_rank(dev, world: int, counters) -> dict:
+    """This rank's `multicard_serve` (MC_SERVE_*): for each of
+    `serve_cases`, the model drawn whole on every card from seed 0, its
+    one-card run on rank 0 while the others wait (its cache and logits
+    kept on the host), then every rank cuts its blocks (`tp_pspecs`) and
+    serves over the mesh (`serve_run`); rank 0 compares."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import decode_attention_kernel_call
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import serve_collectives
+    from repro_torch.models import init_params
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.parallel import parallel_ctx, shard_module
+    from repro_torch.parallel.sharding import tp_pspecs
+
+    rank = dist.get_rank()
+    n_forced, n_greedy = MC_SERVE_STEPS[1 if world == 1 else 4]
+    counters = dict(counters, decode_attention=decode_attention_kernel_call)
+    out = []
+    for arch, shape in serve_cases(world):
+        t0 = time.perf_counter()
+        cfg = configs.get(arch)
+        gen = torch.Generator().manual_seed(17)
+        prompt = torch.randint(0, cfg.vocab_size, (MC_SERVE_B, MC_SERVE_T),
+                               generator=gen, dtype=torch.int32).to(dev)
+        forced = torch.randint(0, cfg.vocab_size, (MC_SERVE_DECODE_B,
+                                                   n_forced), generator=gen,
+                               dtype=torch.int32).to(dev)
+        params = init_params(cfg, 0, dev)
+        one = None
+        if rank == 0:
+            one = serve_run(params, cfg, prompt, forced, n_greedy, dev)
+            if world > 1 and cfg.family == "hybrid":
+                truth = serve_truth(params, cfg, prompt, forced, dev)
+            torch.cuda.empty_cache()
+        dist.barrier()
+        mesh = make_mesh(shape, ("data", "model"), dev)
+        with parallel_ctx(mesh) as ctx:
+            shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
+            shard_module(params, tp_pspecs(shapes, cfg, ctx)[0], mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = serve_run(params, cfg, prompt, forced, n_greedy, dev, mesh,
+                        counters)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        rank_params = sum(p.numel() for p in params.parameters())
+        del params
+        torch.cuda.empty_cache()
+        res = dict(arch=arch, mesh=dict(data=shape[0], model=shape[1]),
+                   world=world, peak_gb=peak_gb, rank_params=rank_params,
+                   params=sum(math.prod(s) for s in shapes.values()),
+                   **{k: run[k] for k in ("prefill_ms", "prefill_ms_all",
+                                          "forced_ms", "decode_ms",
+                                          "prefill_collectives",
+                                          "decode_collectives",
+                                          "traced_decode_step", "launches")})
+        if cfg.family == "dense":
+            dshape = ShapeSpec("mc", MC_SERVE_MAX_LEN, MC_SERVE_DECODE_B,
+                               "decode")
+            pshape = ShapeSpec("mc", MC_SERVE_T, MC_SERVE_B, "prefill")
+            res["closed_form"] = dict(
+                prefill=serve_collectives(cfg, pshape, *shape),
+                decode=serve_collectives(cfg, dshape, *shape))
+            res["collectives_equal_closed_form"] = [
+                run["prefill_collectives"] == res["closed_form"]["prefill"],
+                run["decode_collectives"] == res["closed_form"]["decode"]]
+        if rank == 0:
+            res["one_card"] = {k: one[k] for k in ("prefill_ms", "forced_ms",
+                                                   "decode_ms")}
+            res["prefill_vs_one_card"] = serve_gaps(run["prefill"],
+                                                    one["prefill"])
+            res["forced_vs_one_card"] = [
+                serve_gaps(a, b) for a, b in zip(run["forced_logits"],
+                                                 one["forced_logits"])]
+            if world > 1 and cfg.family == "hybrid":
+                res["vs_truth"] = {
+                    side: dict(prefill=serve_gaps(r["prefill"],
+                                                  truth["prefill"]),
+                               forced=serve_gaps(r["forced_logits"],
+                                                 truth["forced_logits"]))
+                    for side, r in (("mesh", run), ("one_card", one))}
+                del truth
+            same = (run["tokens"] == one["tokens"]).all(0)
+            res["greedy_steps_equal"] = int(same.long().cumprod(0).sum())
+            res["greedy_steps"] = n_greedy
+            if world == 1:
+                res["bitwise"] = dict(
+                    prefill=bool(torch.equal(run["prefill"], one["prefill"])),
+                    forced=bool(torch.equal(run["forced_logits"],
+                                            one["forced_logits"])),
+                    tokens=bool(torch.equal(run["tokens"], one["tokens"])),
+                    cache={k: bool(torch.equal(v, one["cache"][k]))
+                           for k, v in run["cache"].items()})
+        res["seconds"] = time.perf_counter() - t0
+        out.append(res)
+        del run, one
+        dist.barrier()
+    return out
+
+
+def check_serve(serve: list, world: int) -> list:
+    """`multicard_serve`'s checks, each case's line printed first: every
+    kernel of the path launched; the dense cases' collectives the closed
+    form's; at W = 1 everything bitwise the one-card path; above, the
+    prefill's logits and each forced step's within MC_SERVE_MEAN_GAP and
+    MC_SERVE_MAX_GAP of one card's, and the share of equal argmaxes at
+    least MC_SERVE_ARGMAX_MIN over the prefill's positions and over all
+    the forced steps' rows together (one step's 8 rows move in eighths:
+    a single near-tie flipped by bf16 partial sums would take it to
+    0.875)."""
+    for res in serve:
+        if world > 1:
+            res["forced_argmax_agree"] = statistics.fmean(
+                g["argmax_agree"] for g in res["forced_vs_one_card"])
+        emit("multicard_serve", **res)
+        what = f"multicard_serve {res['arch']} {res['mesh']}"
+        want = ("flash_attention", "decode_attention") + (
+            ("mamba_scan",) if res["arch"].startswith("zamba2") else ())
+        check(all(res["launches"][k] > 0 for k in want),
+              f"{what} launches {res['launches']}")
+        if "collectives_equal_closed_form" in res:
+            check(all(res["collectives_equal_closed_form"]),
+                  f"{what} collectives {res['prefill_collectives']}, "
+                  f"{res['decode_collectives']} vs {res['closed_form']}")
+        if world == 1:
+            b = res["bitwise"]
+            check(b["prefill"] and b["forced"] and b["tokens"]
+                  and all(b["cache"].values()), f"{what} bitwise {b}")
+            continue
+        forced = res["forced_vs_one_card"]
+        if "vs_truth" in res:
+            t = res["vs_truth"]
+            for part in ("prefill", "forced"):
+                m, o = t["mesh"][part], t["one_card"][part]
+                p = o["argmax_agree"]
+                slack = MC_SERVE_TRUTH_SIGMAS * math.sqrt(
+                    2 * p * (1 - p) / o["rows"])
+                check(m["argmax_agree"] >= p - slack
+                      and m["mean_gap"] <= MC_SERVE_TRUTH_RATIO
+                      * o["mean_gap"],
+                      f"{what} {part} vs float32: mesh {m}, one card {o}, "
+                      f"slack {slack}")
+        else:
+            check(res["forced_argmax_agree"] >= MC_SERVE_ARGMAX_MIN
+                  and res["prefill_vs_one_card"]["argmax_agree"]
+                  >= MC_SERVE_ARGMAX_MIN,
+                  f"{what} argmax vs one card: prefill "
+                  f"{res['prefill_vs_one_card']}, forced steps "
+                  f"{res['forced_argmax_agree']}")
+        for g in [res["prefill_vs_one_card"], *forced]:
+            check(g["mean_gap"] <= MC_SERVE_MEAN_GAP
+                  and g["max_gap"] <= MC_SERVE_MAX_GAP,
+                  f"{what} vs one card: {g}")
+    return serve
+
+
 def multicard_rank(rank: str, world: str, init: str, out_path: str,
-                   train_dir: str, started: str) -> None:
+                   train_dir: str, started: str, phases: str = "all") -> None:
     """One rank of the multicard phases, in a process of its own (the
     parent starts W of them at wall-clock time `started`): the NCCL group,
     `multicard_train_rank` on (W, 1), at W > 1 then `multicard_tp_rank`,
-    then `multicard_moe_rank`; rank 0 writes what they returned to
+    then `multicard_moe_rank`, then `multicard_serve_rank` (with `phases`
+    "serve" that one alone); rank 0 writes what they returned to
     `out_path`."""
     import torch.distributed as dist
 
@@ -2746,26 +3137,32 @@ def multicard_rank(rank: str, world: str, init: str, out_path: str,
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     counters = train_counters()
     try:
-        t0 = time.perf_counter()
-        out["train"] = multicard_train_rank(dev, world, train_dir, counters)
-        out["train"]["rank_seconds"] = time.perf_counter() - t0
-        if world > 1:
+        if phases == "all":
             t0 = time.perf_counter()
-            out["tp"] = multicard_tp_rank(dev, world, train_dir, counters)
-            out["tp"]["rank_seconds"] = time.perf_counter() - t0
-        out["moe"] = multicard_moe_rank(dev, world, counters, flush)
+            out["train"] = multicard_train_rank(dev, world, train_dir,
+                                                counters)
+            out["train"]["rank_seconds"] = time.perf_counter() - t0
+            if world > 1:
+                t0 = time.perf_counter()
+                out["tp"] = multicard_tp_rank(dev, world, train_dir, counters)
+                out["tp"]["rank_seconds"] = time.perf_counter() - t0
+            out["moe"] = multicard_moe_rank(dev, world, counters, flush)
+        del flush
+        torch.cuda.empty_cache()
+        out["serve"] = multicard_serve_rank(dev, world, counters)
     finally:
         dist.destroy_process_group()
     if rank == 0:
         Path(out_path).write_text(json.dumps(out))
 
 
-def multicard_phase(train_dir, train: dict) -> tuple[dict, dict | None,
-                                                      dict]:
+def multicard_phase(train_dir, train: dict | None, phases: str = "all",
+                    during=None) -> tuple:
     """The multicard phases over an NCCL group of W =
     torch.cuda.device_count() ranks, one process a card, started here and
     stopped here whatever happens: (`multicard_train`, `multicard_tp` or
-    None at W = 1, `multicard_moe`). `multicard_train` must give finite
+    None at W = 1, `multicard_moe`, `multicard_serve`; with `phases`
+    "serve" the first three None). `multicard_train` must give finite
     losses, run the collectives of both axes at each step and launch every
     training kernel. At W = 1 (`train`: the train phase's line) it is also
     checked bitwise against the train phase: its losses at steps 0 and 1,
@@ -2773,7 +3170,10 @@ def multicard_phase(train_dir, train: dict) -> tuple[dict, dict | None,
     checkpoint in `train_dir`; `multicard_moe` against `moe_ref` at
     capacity C2 (loss and every gradient bitwise). At W > 1 (`train`:
     `one_card_tp_reference`'s line) `multicard_tp` follows, checked by
-    `check_tp`."""
+    `check_tp`. `multicard_serve` is checked by `check_serve`. `during`,
+    a function of no arguments, runs here on the host while the ranks
+    work on their cards (the census, which computes nothing on a card);
+    what it returns comes last in the tuple."""
     W = torch.cuda.device_count()
     out_path = Path(train_dir) / "multicard.json"
     torch.cuda.empty_cache()
@@ -2781,11 +3181,13 @@ def multicard_phase(train_dir, train: dict) -> tuple[dict, dict | None,
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--multicard-rank",
          str(r), str(W), f"file://{Path(train_dir) / 'multicard_pg'}",
-         str(out_path), str(train_dir), repr(time.time())],
+         str(out_path), str(train_dir), repr(time.time()), phases],
         stdout=sys.stderr, stderr=sys.stderr) for r in range(W)]
-    limit = MC_TIMEOUT if W == 1 else MC_TP_TIMEOUT
+    limit = MC_SERVE_TIMEOUT if phases == "serve" else \
+        MC_TIMEOUT if W == 1 else MC_TP_TIMEOUT
     deadline = time.monotonic() + limit
     try:
+        meanwhile = during() if during is not None else None
         while any(p.poll() is None for p in procs):
             check(time.monotonic() < deadline,
                   f"multicard ranks outlived {limit} s")
@@ -2801,6 +3203,9 @@ def multicard_phase(train_dir, train: dict) -> tuple[dict, dict | None,
                 p.wait()
     seconds = time.perf_counter() - t0
     res = json.loads(out_path.read_text())
+    serve = check_serve(res["serve"], W)
+    if phases == "serve":
+        return None, None, None, serve, meanwhile
     moe = res["moe"]
     moe.update(world=W)
     check(moe["finite"] and moe["collectives"]["all_to_all"]["calls"] > 0,
@@ -2825,7 +3230,7 @@ def multicard_phase(train_dir, train: dict) -> tuple[dict, dict | None,
         tp = check_tp(res["tp"], train, W)
         tp.update(world=W, seconds=tp["rank_seconds"])
         return (dict(tr, seconds=tr["rank_seconds"],
-                     multicard_seconds=seconds), tp, moe)
+                     multicard_seconds=seconds), tp, moe, serve, meanwhile)
     tr.update(train_step_ms=train["step_ms"],
               losses_equal_train=tr["losses"] == train["losses"][:2],
               loss_gaps=[a - b for a, b in zip(tr["losses"],
@@ -2839,8 +3244,9 @@ def multicard_phase(train_dir, train: dict) -> tuple[dict, dict | None,
     check(moe["loss_equal"] and moe["grads_bitwise"] == moe["grad_leaves"],
           f"multicard_moe vs moe_ref at C2: {moe}")
     # the train phase's seconds: the ranks' start and NCCL's set-up with it
-    return dict(tr, seconds=seconds - moe["seconds"],
-                multicard_seconds=seconds), None, moe
+    return dict(tr, seconds=seconds - moe["seconds"]
+                - sum(r["seconds"] for r in serve),
+                multicard_seconds=seconds), None, moe, serve, meanwhile
 
 
 def vs_one_card(run: dict, one: dict, what: str) -> dict:
@@ -4085,12 +4491,20 @@ def main() -> None:
             trk["timing"][f"{name}/zamba2-1.2b-train"]["launches_timed"] = per
         emit("train_kernel_times", timing=trk["timing"], seconds=trk_seconds)
 
-        # 14b. multicard: data- and expert-parallel training over NCCL ------
-        mc_train, _, mc_moe = multicard_phase(ckpt_root, train)
+        # 14b. multicard: data- and expert-parallel training over NCCL,
+        # then serving over the mesh; meanwhile, on the host, 14c. the
+        # census of the train phase's cell, beside its measured peak ------
+        mc_train, _, mc_moe, mc_serve, census = multicard_phase(
+            ckpt_root, train, during=lambda: census_train_cell(train))
     emit("multicard_train", **mc_train)
     emit("multicard_moe", **mc_moe)
     mc_launches = {k: mc_train["launches"][k] + mc_moe["launches"][k]
+                   + sum(r["launches"].get(k, 0) for r in mc_serve)
                    for k in mc_train["launches"]}
+    mc_launches["decode_attention"] = sum(r["launches"]["decode_attention"]
+                                          for r in mc_serve)
+
+    emit("census_train", **census)
 
     # 15. train_reduced: every reduced config, kernels against plain -------
     t0 = time.perf_counter()
@@ -4116,7 +4530,7 @@ def main() -> None:
         # device-only times (B7, B8), B7's split count and B8's grid,
         # where measured
         extra = ("device_ms", "library_device_ms", "split", "blocks",
-                 "scratch_bytes", "passes")
+                 "scratch_bytes", "passes", "stats_ms", "stats_device_ms")
         entry.update({k: t[k] for k in extra if k in t})
         for case in extra_cases:
             e = lm["timing"][f"{name}/{case}"]
@@ -4272,7 +4686,8 @@ def main() -> None:
                   "whisper-small-cross")),
         lm_entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:70", "qwen3-8b",
-                 ("zamba2-1.2b", "qwen3-8b-reduced", "whisper-small-cross")),
+                 ("zamba2-1.2b", "qwen3-8b-reduced", "whisper-small-cross",
+                  "phi3-medium-14b-seq")),
         lm_entry("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
                  "src/repro/kernels/mamba_scan.py:78", "zamba2-1.2b"),
         train_entry("flash_attention_bwd",
@@ -4292,13 +4707,39 @@ def main() -> None:
         flush=True)
 
 
-def multicard_only() -> None:
-    """``python3 chip_smoke.py --multicard-only``: the build, then the
-    multicard phases alone, for a machine with several cards: at W = 1
-    after the train phase they are held to; at W > 1 after a one-card run
-    of the train phase's command for 2 steps (`one_card_tp_reference`),
-    `multicard_train` on (W, 1), `multicard_tp` on the meshes `tp_meshes`
-    picks, then MC_TP_ARCH on (1, W) from four cards up."""
+def census_train_cell(train: dict) -> dict:
+    """The census record (`repro_torch.launch.dryrun.measure`, on meta
+    tensors) of the train phase's cell: TRAIN_ARCH on a (1, 1) mesh of
+    torch's fake process group, T TRAIN_T, batch TRAIN_BATCH in TRAIN_MB
+    microbatches; its arguments and temporaries beside the phase's
+    measured peak."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import measure
+    from repro_torch.launch.mesh import census_mesh
+    from repro_torch.models.config import ShapeSpec
+
+    t0 = time.perf_counter()
+    with census_mesh((1, 1), ("data", "model")) as mesh:
+        rec = measure(configs.get(TRAIN_ARCH), ShapeSpec(
+            "train", TRAIN_T, TRAIN_BATCH, "train"), mesh, TRAIN_MB)
+    mem = rec["memory"]
+    return dict(arch=TRAIN_ARCH, memory=mem, flops=rec["flops"],
+                collectives=rec["collectives"], kernels=rec["kernels"],
+                census_gb=(mem["argument_size_in_bytes"]
+                           + mem["temp_size_in_bytes"]) / 1e9,
+                measured_peak_gb=train["peak_gb"],
+                seconds=time.perf_counter() - t0)
+
+
+def multicard_only(phases: str = "all") -> None:
+    """``python3 chip_smoke.py --multicard-only [--serve-only]``: the
+    build, then the multicard phases alone, for a machine with several
+    cards: at W = 1 after the train phase they are held to; at W > 1 after
+    a one-card run of the train phase's command for 2 steps
+    (`one_card_tp_reference`), `multicard_train` on (W, 1), `multicard_tp`
+    on the meshes `tp_meshes` picks, then MC_TP_ARCH on (1, W) from four
+    cards up; then `multicard_serve` on the meshes `serve_cases` picks
+    (with ``--serve-only`` that alone)."""
     from repro_torch.kernels import _build
 
     check(torch.cuda.is_available(), "no CUDA device")
@@ -4312,13 +4753,27 @@ def multicard_only() -> None:
     build_dir = Path(__file__).resolve().parent / "build"
     build_dir.mkdir(exist_ok=True)
     W = torch.cuda.device_count()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60).stdout
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    emit("multicard_meshes", world=W, serve=serve_cases(W),
+         tp=tp_meshes(W) if W > 1 else [], cards=cards.strip().splitlines(),
+         topology=topo.strip().splitlines())
     with tempfile.TemporaryDirectory(dir=build_dir) as d:
-        if W == 1:
+        if phases == "serve":
+            train = None
+        elif W == 1:
             train = train_phase(torch.device("cuda"), d)
         else:
             train = one_card_tp_reference(torch.device("cuda", 0))
             emit("multicard_tp_one_card", **train)
-        mc_train, mc_tp, mc_moe = multicard_phase(d, train)
+        mc_train, mc_tp, mc_moe, mc_serve, _ = multicard_phase(d, train,
+                                                               phases)
+    if mc_train is None:
+        print(smi, flush=True)
+        return
     emit("multicard_train", **mc_train)
     if mc_tp is not None:
         for run in mc_tp["zamba2"]:
@@ -4336,6 +4791,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--multicard-rank"]:
         multicard_rank(*sys.argv[2:])
     elif sys.argv[1:2] == ["--multicard-only"]:
-        multicard_only()
+        multicard_only("serve" if "--serve-only" in sys.argv else "all")
     else:
         main()

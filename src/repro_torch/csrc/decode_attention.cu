@@ -401,9 +401,15 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
 }
 
 // One block per (batch, query head) row: its splits merged in split order.
+// With `stats` (float32 (B, Hq, 2), or null) the thread of column 0 also
+// writes the row's (M, L): the maximum of the splits' maxima and the
+// rescaled sum, the softmax statistics that let ranks holding other
+// positions of the same row merge their outputs with this one.
 template <typename T>
 __global__ void decode_merge_kernel(const float* __restrict__ ws,
-                                    T* __restrict__ out, int n_split, int D) {
+                                    T* __restrict__ out,
+                                    float* __restrict__ stats, int n_split,
+                                    int D) {
   const size_t row = blockIdx.x;
   const float* w = ws + row * n_split * (D + 2);
   float mx = cato::kNegInf;
@@ -417,13 +423,18 @@ __global__ void decode_merge_kernel(const float* __restrict__ ws,
       O = __fadd_rn(O, __fmul_rn(ws_s[d], e));
     }
     out[row * D + d] = cato::from_float<T>(L > 0.f ? __fdiv_rn(O, L) : 0.f);
+    if (stats != nullptr && d == 0) {
+      stats[2 * row] = mx;
+      stats[2 * row + 1] = L;
+    }
   }
 }
 
 template <typename T, int Dp, int G, bool kPad>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           float* ws, void* out, int B, int Hq, int Hkv, int S, int D,
-           int split_len, int n_split, float scale, cudaStream_t stream) {
+           float* ws, void* out, float* stats, int B, int Hq, int Hkv, int S,
+           int D, int split_len, int n_split, float scale,
+           cudaStream_t stream) {
   const size_t bytes = split_smem_bytes<T, Dp, G>(split_len);
   cudaError_t err =
       cato::allow_shared_memory(decode_split_kernel<T, Dp, G, kPad>, bytes);
@@ -439,19 +450,21 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_merge_kernel<T><<<B * Hq, D, 0, stream>>>(ws, static_cast<T*>(out),
-                                                   n_split, D);
+                                                   stats, n_split, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int Dp, bool kPad>
 int launch_g(const void* q, const void* k, const void* v, const int* lengths,
-             float* ws, void* out, int B, int Hq, int Hkv, int S, int D,
-             int split_len, int n_split, float scale, cudaStream_t stream) {
+             float* ws, void* out, float* stats, int B, int Hq, int Hkv, int S,
+             int D, int split_len, int n_split, float scale,
+             cudaStream_t stream) {
   return Hq / Hkv <= 4
-             ? launch<T, Dp, 4, kPad>(q, k, v, lengths, ws, out, B, Hq, Hkv,
-                                      S, D, split_len, n_split, scale, stream)
-             : launch<T, Dp, 16, kPad>(q, k, v, lengths, ws, out, B, Hq, Hkv,
-                                       S, D, split_len, n_split, scale,
+             ? launch<T, Dp, 4, kPad>(q, k, v, lengths, ws, out, stats, B, Hq,
+                                      Hkv, S, D, split_len, n_split, scale,
+                                      stream)
+             : launch<T, Dp, 16, kPad>(q, k, v, lengths, ws, out, stats, B, Hq,
+                                       Hkv, S, D, split_len, n_split, scale,
                                        stream);
 }
 
@@ -459,13 +472,14 @@ int launch_g(const void* q, const void* k, const void* v, const int* lengths,
 // next width, padded
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, const int* lengths,
-             float* ws, void* out, int B, int Hq, int Hkv, int S, int D,
-             int split_len, int n_split, float scale, cudaStream_t stream) {
+             float* ws, void* out, float* stats, int B, int Hq, int Hkv, int S,
+             int D, int split_len, int n_split, float scale,
+             cudaStream_t stream) {
   if (D < 2 || D > 128 || D % 2)
     return static_cast<int>(cudaErrorInvalidValue);
-#define CATO_DECODE_LAUNCH(DP, PAD)                                        \
-  return launch_g<T, DP, PAD>(q, k, v, lengths, ws, out, B, Hq, Hkv, S, D, \
-                              split_len, n_split, scale, stream)
+#define CATO_DECODE_LAUNCH(DP, PAD)                                       \
+  return launch_g<T, DP, PAD>(q, k, v, lengths, ws, out, stats, B, Hq, Hkv, \
+                              S, D, split_len, n_split, scale, stream)
   switch (D) {
     case 32: CATO_DECODE_LAUNCH(32, false);
     case 64: CATO_DECODE_LAUNCH(64, false);
@@ -485,19 +499,22 @@ int launch_d(const void* q, const void* k, const void* v, const int* lengths,
 // and caches (else float32); D is even, 2 to 128; Hq is a multiple of Hkv
 // with Hq / Hkv <= 16; q and the caches start on 16-byte boundaries.
 // `workspace` is float32 (B, Hq, n_split, D + 2); split_len is a multiple
-// of 64 with n_split * split_len >= S. Returns cudaGetLastError() after
-// the launches (0 on success).
+// of 64 with n_split * split_len >= S. `stats` is null, or float32 (B,
+// Hq, 2) for each row's (M, L) (`decode_merge_kernel`). Returns
+// cudaGetLastError() after the launches (0 on success).
 extern "C" int decode_attention_launch(
     const void* q, const void* k_cache, const void* v_cache,
-    const void* lengths, void* workspace, void* out, int B, int Hq, int Hkv,
+    const void* lengths, void* workspace, void* out, void* stats, int B,
+    int Hq, int Hkv,
     int S, int D, int bf16, int split_len, int n_split, float scale,
     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   float* ws = static_cast<float*>(workspace);
-  return bf16 ? launch_d<__nv_bfloat16>(q, k_cache, v_cache, len, ws, out, B,
-                                        Hq, Hkv, S, D, split_len, n_split,
+  float* st = static_cast<float*>(stats);
+  return bf16 ? launch_d<__nv_bfloat16>(q, k_cache, v_cache, len, ws, out, st,
+                                        B, Hq, Hkv, S, D, split_len, n_split,
                                         scale, s)
-              : launch_d<float>(q, k_cache, v_cache, len, ws, out, B, Hq, Hkv,
-                                S, D, split_len, n_split, scale, s);
+              : launch_d<float>(q, k_cache, v_cache, len, ws, out, st, B, Hq,
+                                Hkv, S, D, split_len, n_split, scale, s);
 }

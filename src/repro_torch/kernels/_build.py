@@ -58,7 +58,7 @@ _SIGNATURES = {
     "flash_attention_launch": (
         [_VOID] * 4 + [_INT] * 8 + [_FLOAT, _VOID]),
     "decode_attention_launch": (
-        [_VOID] * 6 + [_INT] * 8 + [_FLOAT, _VOID]),
+        [_VOID] * 7 + [_INT] * 8 + [_FLOAT, _VOID]),
     "mamba_scan_launch": (
         [_VOID] * 12 + [_INT] * 7 + [_VOID]),
     "mamba_scan_states_launch": (

@@ -25,8 +25,17 @@ kernel's arithmetic, step by step:
 - the merge: M = max of the splits' m, e = exp(m_s - M), ``L += l_s * e``,
   ``O += acc_s * e`` in split order, out = O / L (0 where L = 0).
 
+With ``stats=True`` both also return each row's softmax statistics,
+float32 (B, Hq, 2): M, the maximum of the splits' maxima (-1e30 for an
+empty row), and L, the merge's rescaled sum (0 for an empty row), the
+values the merge forms before it writes O / L. They let ranks that hold
+other positions of the same rows merge their outputs with this one
+(`repro_torch.models.layers.decode_attention_merged`); `out` is the same
+with or without them.
+
 On the card the two agree to the last bit in float32 and bfloat16 (bf16
-products are exact in float32; float32 ones round once on both sides).
+products are exact in float32; float32 ones round once on both sides),
+the statistics included.
 A head dim below a tile width (`flash_attention.tile_width`: the reduced
 configs' 8, 12, 16, 20) runs the next width's layout on zero-padded rows
 in both.
@@ -103,18 +112,21 @@ def _scale(scale: float | None, D: int) -> float:
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *,
-                           scale: float | None = None) -> torch.Tensor:
-    """(B, Hq, D) attention output in q's type; runs on any device, in the
+                           scale: float | None = None, stats: bool = False):
+    """(B, Hq, D) attention output in q's type, and with `stats` the rows'
+    float32 (B, Hq, 2) (M, L) after it; runs on any device, in the
     kernel's order (see the module note)."""
     B, Hq, Hkv, S, D = _shapes(q, k_cache, v_cache, lengths)
     scale = _scale(scale, D)
     width = tile_width(D) or D
     if width != D:     # the kernel's zero-padded rows
-        out = decode_attention_plain(pad_head(q, width),
+        got = decode_attention_plain(pad_head(q, width),
                                      pad_head(k_cache, width),
                                      pad_head(v_cache, width), lengths,
-                                     scale=scale)
-        return out[..., :D].contiguous()
+                                     scale=scale, stats=stats)
+        if stats:
+            return got[0][..., :D].contiguous(), got[1]
+        return got[..., :D].contiguous()
     g = Hq // Hkv
     n_split, L = split_plan(B, Hkv, S)
     lanes, vec, rows_per_warp = _layout(D)
@@ -169,21 +181,26 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *,
         l_s = l_s + l[..., wi]
     # the merge, in split order: a_s (B, Hkv, ns, g, D), l_s and m_s (.., g)
     m_s = m[..., 0]
-    e = torch.exp(m_s - m_s.amax(dim=2, keepdim=True))
+    m_max = m_s.amax(dim=2, keepdim=True)
+    e = torch.exp(m_s - m_max)
     den = torch.zeros((B, Hkv, g), device=dev)
     num = torch.zeros((B, Hkv, g, D), device=dev)
     for si in range(n_split):
         den = den + l_s[:, :, si] * e[:, :, si]
         num = num + a_s[:, :, si] * e[:, :, si, :, None]
-    den = den[..., None]
-    out = torch.where(den > 0, num / den, torch.zeros_like(num))
-    return out.reshape(B, Hq, D).to(q.dtype)
+    out = torch.where(den[..., None] > 0, num / den[..., None],
+                      torch.zeros_like(num)).reshape(B, Hq, D).to(q.dtype)
+    if stats:
+        return out, torch.stack([m_max[:, :, 0], den], dim=-1).reshape(B, Hq, 2)
+    return out
 
 
 def decode_attention_kernel_call(q, k_cache, v_cache, lengths, *,
-                                 scale: float | None = None) -> torch.Tensor:
+                                 scale: float | None = None,
+                                 stats: bool = False):
     """Launch the B7 CUDA kernels on CUDA tensors; returns (B, Hq, D) in q's
-    type.
+    type, and with `stats` the rows' float32 (B, Hq, 2) (M, L) after it,
+    written by the merge kernel.
 
     q and the caches are contiguous, of one type (float32 or bfloat16),
     start on 16-byte boundaries, with an even D from 2 to 128 and at most
@@ -210,17 +227,20 @@ def decode_attention_kernel_call(q, k_cache, v_cache, lengths, *,
         raise ValueError("the kernel loads q and the caches as 16-byte "
                          "vectors: each must start on a 16-byte boundary")
     out = torch.empty_like(q)
+    st = torch.empty((B, Hq, 2), dtype=torch.float32, device=dev) \
+        if stats else None
     if out.numel() == 0:
-        return out
+        return (out, st) if stats else out
     n_split, split_len = split_plan(B, Hkv, S)
     ws = torch.empty((B, Hq, n_split, D + 2), dtype=torch.float32, device=dev)
     launch("decode_attention_launch", dev,
            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-           lengths.data_ptr(), ws.data_ptr(), out.data_ptr(), B, Hq, Hkv, S,
-           D, int(q.dtype == torch.bfloat16), split_len, n_split,
+           lengths.data_ptr(), ws.data_ptr(), out.data_ptr(),
+           st.data_ptr() if stats else None, B, Hq, Hkv, S, D,
+           int(q.dtype == torch.bfloat16), split_len, n_split,
            _scale(scale, D))
     decode_attention_kernel_call.launches += 1
-    return out
+    return (out, st) if stats else out
 
 
 decode_attention_kernel_call.launches = 0

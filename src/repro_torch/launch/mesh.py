@@ -20,10 +20,16 @@ torchrun's environment, or from an explicit rank, world size and
 ``init_method`` (a ``file://`` or ``tcp://localhost`` address). Nothing
 falls back from NCCL to gloo.
 
+`census_mesh` stands in for a production mesh in one process: rank 0 of
+its 256 or 512 ranks on torch's fake process group, whose collectives
+move nothing, for the census (`launch.dryrun`) to run a step on meta
+tensors with every collective and every rank's block as rank 0 sees them.
+
 Defined as functions, so importing this module touches no device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -34,8 +40,8 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["Mesh", "init_distributed", "make_local_mesh", "make_mesh",
-           "make_production_mesh"]
+__all__ = ["Mesh", "census_mesh", "init_distributed", "make_local_mesh",
+           "make_mesh", "make_production_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,3 +218,25 @@ def make_local_mesh(data: int = 1, model: int = 1,
                          "one process and no process group (init_distributed, "
                          "or run under torchrun)")
     return Mesh(("data", "model"), (data, model), (dev,))
+
+
+@contextlib.contextmanager
+def census_mesh(sizes: tuple, axis_names: tuple):
+    """A mesh of `sizes` over `axis_names` as rank 0 of its world sees it,
+    in this process alone: torch's fake process group of that many ranks
+    (``torch.testing._internal.distributed.fake_pg``: every collective
+    returns at once and moves nothing) with `make_mesh`'s groups over it.
+    The group is torn down on exit: left initialized, it would stand in
+    for every later `torch.distributed` user of the process. Refuses to
+    run beside a real process group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("census_mesh needs a process without a process "
+                           "group")
+    dist.init_process_group("fake", rank=0, world_size=math.prod(sizes),
+                            store=FakeStore())
+    try:
+        yield make_mesh(tuple(sizes), tuple(axis_names), "cpu")
+    finally:
+        dist.destroy_process_group()

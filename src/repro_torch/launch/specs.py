@@ -8,24 +8,24 @@ precomputed patch embeddings. `decode_input_specs` gives the decode cache
 (`init_cache` on the meta device) and the tokens.
 
 `batch_pspecs` and `cache_pspecs` are the reference's specs (as the
-port's spec tuples, `repro_torch.parallel.sharding`), by which each rank
-cuts its block of the inputs (`local_shard`).
+port's spec tuples, `repro_torch.parallel.sharding`).
 
 `build_cell(cfg, shape, mesh, ...)` assembles a cell: the step function
 (train, prefill or decode) run under the mesh's parallel context, its
 inputs as meta tensors, and the specs by which each rank's inputs are
-cut, parallel to them: a train cell's are those its trained state holds
-(`train.optimizer.make_placement`, the port's tensor-parallel layout),
-a serving cell's the reference's `param_pspecs`. The prefill and decode
-steps refuse a model axis above 1 (serving under tensor parallelism is
-slice 17 of the port). The reference returns a jitted function for
-`.lower().compile()`; the port has no compile step (the census of
-parameters, FLOPs, memory and collective bytes per config, on both
-production meshes, is queued for slice 17 with the serving cells).
+cut (`local_shard`), parallel to them: the parameters by the port's
+tensor-parallel layout (`parallel.sharding.tp_pspecs`; a train cell's
+state by `train.optimizer.make_placement`, which adds ZeRO-1's), a
+decode cell's cache by `tp_cache_pspecs`, the batch by `batch_pspecs`.
+Prefill and decode run over any (data, model) mesh (`models.forward`,
+`models.decode_step`). The reference returns a jitted function for
+`.lower().compile()`; the port has no compile step: the census of each
+cell (`launch.dryrun`) runs it once on meta tensors instead.
 
-`train_collectives` is the closed-form count of the collectives one
-dense training step runs over a (data, model) mesh, by kind: what
-`parallel.collectives.counts` must show.
+`train_collectives` and `serve_collectives` are the closed-form counts of
+the collectives one dense training step, prefill or decode step runs
+over a (data, model) mesh, by kind: what `parallel.collectives.counts`
+must show.
 """
 from __future__ import annotations
 
@@ -37,15 +37,21 @@ import torch
 
 from ..models import init_cache
 from ..models.config import ModelConfig, ShapeSpec
-from ..parallel import ParallelCtx, maybe_axis, param_pspecs, parallel_ctx
-from ..parallel.sharding import default_rules
+from ..parallel import ParallelCtx, maybe_axis, parallel_ctx
+from ..parallel.sharding import (
+    default_rules,
+    kv_cache_cut,
+    tp_cache_pspecs,
+    tp_pspecs,
+)
 from ..serve import make_prefill, make_serve_step
 from ..train import AdamW, make_train_step
 from ..train.optimizer import make_placement
 
 __all__ = [
     "Cell", "batch_pspecs", "build_cell", "cache_pspecs",
-    "decode_input_specs", "input_specs", "skip_reason", "train_collectives",
+    "decode_input_specs", "input_specs", "serve_collectives", "skip_reason",
+    "train_collectives",
 ]
 
 _DT = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -175,11 +181,11 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
     rules = default_rules(mesh)
     with parallel_ctx(mesh, rules) as ctx:
         params = LM(cfg, _META)
-        p_specs = param_pspecs(params, ctx)
+        shapes = {n: p.shape for n, p in params.named_parameters()}
+        p_specs = tp_pspecs(shapes, cfg, ctx)[0]
 
         if shape.kind == "train":
             opt = AdamW(zero1=zero1)
-            shapes = {n: p.shape for n, p in params.named_parameters()}
             pl = make_placement(shapes, mesh, cfg)
             p_specs = pl.params
             base = pl.state if zero1 else p_specs
@@ -208,14 +214,14 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
                         (p_specs, batch_pspecs(batch, ctx)))
 
         cache, tokens = decode_input_specs(cfg, shape)
-        sstep = make_serve_step(cfg, device=device)
+        sstep = make_serve_step(cfg, device=device, max_len=shape.seq_len)
 
         def decode_fn(params, cache, tokens):
             with parallel_ctx(mesh, rules):
                 return sstep(params, cache, tokens)
 
         return Cell(decode_fn, (params, cache, tokens), "decode",
-                    (p_specs, cache_pspecs(cache, ctx, cfg),
+                    (p_specs, tp_cache_pspecs(cache, cfg, ctx),
                      batch_pspecs(tokens, ctx)))
 
 
@@ -309,4 +315,50 @@ def train_collectives(cfg: ModelConfig, shape: ShapeSpec, data: int,
     if partial_numel:                        # the partial parts, end to end
         add("all_reduce", 1, partial_numel * 4)
     add("all_reduce", 1, 4)                  # the global norm
+    return out
+
+
+def serve_collectives(cfg: ModelConfig, shape: ShapeSpec, data: int,
+                      model: int) -> dict:
+    """{kind: {"calls", "bytes"}} of one prefill (`shape.kind` "prefill")
+    or decode step ("decode") of a dense model over a (data, model) mesh,
+    each call's bytes its input's (as `parallel.collectives.counts`),
+    written from the config for this rank's B / data sequences: the
+    embedding's exit, per layer the attention's and the MLP's entry and
+    exit, the head's entry and the all-gather of the vocab-parallel
+    logits. A decode step over a KV cache that the model axis cuts by
+    sequence (`parallel.sharding.kv_cache_cut` at ``shape.seq_len``) adds
+    per layer the all-gather of q over the heads and the merge's maximum
+    and sum (`models.layers.decode_attention_merged`); one cut by heads
+    adds nothing. Needs heads, d_ff and the vocabulary divisible by
+    `model`."""
+    if cfg.family != "dense" or shape.kind not in ("prefill", "decode"):
+        raise NotImplementedError(f"closed form for dense serving, not "
+                                  f"{cfg.family} {shape.kind}")
+    d, V, M, hd = cfg.d_model, cfg.vocab_size, model, cfg.hd
+    H = cfg.heads_eff
+    if H % M or cfg.d_ff % M or V % M or d % M:
+        raise ValueError(f"{cfg.name} does not cut evenly over {M}")
+    es = torch.finfo(_DT[cfg.dtype]).bits // 8
+    b = shape.global_batch // data
+    n = b * (shape.seq_len if shape.kind == "prefill" else 1)
+    out: dict = {}
+
+    def add(kind, calls, nbytes):
+        c = out.setdefault(kind, {"calls": 0, "bytes": 0})
+        c["calls"] += calls
+        c["bytes"] += calls * nbytes
+
+    full, block, L = n * d * es, n * d // M * es, cfg.n_layers
+    if cfg.residual == "tp":
+        add("reduce_scatter", 1 + 2 * L, full)     # embedding; layer exits
+        add("all_gather", 2 * L + 1, block)        # layer entries; head
+    else:
+        add("all_reduce", 1 + 2 * L, full)
+    if shape.kind == "decode" and \
+            kv_cache_cut(cfg.n_kv_heads, shape.seq_len, M) == "seq":
+        add("all_gather", L, b * H // M * hd * es)     # q to all heads
+        add("all_reduce", L, b * H * 4)                # the maxima
+        add("all_reduce", L, b * H * (hd + 1) * 4)     # (o w, w)
+    add("all_gather", 1, n * V // M * es)          # the logits
     return out

@@ -28,7 +28,13 @@ over a dimension cut over the axis (Mamba2's and the mLSTM's inner norms,
 the MoE block's input under "tp") sums its mean of squares over the axis
 (`rms_norm_tp`). At a model axis of size 1 every collective is a copy and
 every block its whole: the same arithmetic as without a mesh, bit for
-bit.
+bit. `tp_enter` and `tp_leave` take a decode step's (B, d) token as they
+take a sequence's (B, T, d).
+
+Decoding over a KV cache cut by sequence (`parallel.sharding.
+kv_cache_cut`) goes through `decode_attention_merged`: each rank runs B7
+on its positions and keeps its rows' softmax statistics (M, L), and the
+ranks merge their outputs with one maximum and one sum over the axis.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch.nn.functional as F
 from ..kernels import ops
 from ..parallel.collectives import (
     all_gather,
+    pmax,
     psum,
     psum_replicated,
     psum_scatter,
@@ -54,6 +61,7 @@ __all__ = [
     "apply_rope",
     "attention",
     "decode_attention",
+    "decode_attention_merged",
     "init_dense",
     "init_mlp",
     "init_norm",
@@ -222,6 +230,31 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     caches valid below ``lengths`` (B,), through B7."""
     return ops.decode_attention(q, k_cache, v_cache,
                                 lengths.to(torch.int32).contiguous())
+
+
+def decode_attention_merged(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, lengths: torch.Tensor,
+                            tp: TP) -> torch.Tensor:
+    """`decode_attention` against a cache cut by sequence over the model
+    axis: this rank's block (B, S_loc, Hkv, D) holds positions [r S_loc,
+    (r + 1) S_loc), r its index on the axis; q (B, Hq, D) and ``lengths``
+    (B,) are every rank's whole. B7 runs on the local lengths ``clamp(
+    lengths - r S_loc, 0, S_loc)`` and returns each row's output o_r and
+    its statistics (M_r, L_r); then, with M* the maximum of the M_r over
+    the axis and w_r = L_r exp(M_r - M*), out = sum_r o_r w_r / sum_r w_r
+    (0 where the sum is 0), one all-reduce of the (o_r w_r, w_r) rows. A
+    rank whose positions all lie at or past a sequence's length has L = 0
+    and weighs nothing. Returns (B, Hq, D) in q's type, on every rank."""
+    S_loc = k_cache.shape[1]
+    local = torch.clamp(lengths.to(torch.int32) - tp.index * S_loc, 0, S_loc)
+    o, st = ops.decode_attention(q, k_cache, v_cache,
+                                 local.to(torch.int32).contiguous(), stats=True)
+    m, l = st[..., 0], st[..., 1]
+    w = l * torch.exp(m - pmax(m, tp.axis, tp.mesh))
+    both = psum_replicated(torch.cat([o.float() * w[..., None], w[..., None]],
+                                     dim=-1), tp.axis, tp.mesh)
+    num, den = both[..., :-1], both[..., -1:]
+    return torch.where(den > 0, num / den, torch.zeros_like(num)).to(q.dtype)
 
 
 class MLP(nn.Module):

@@ -116,13 +116,22 @@ def _capacity(n_slots: int, n_buckets: int, cf: float) -> int:
     return int(math.ceil(n_slots / n_buckets * cf))
 
 
+def _bucket_counts(b: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """The number of entries of `b` in each of `n_buckets` buckets (int64):
+    `torch.bincount`'s, by an integer scatter-add, which also runs on meta
+    tensors (the census)."""
+    return torch.zeros(n_buckets, dtype=torch.int64, device=b.device) \
+        .scatter_add_(0, b.long(), torch.ones(b.shape, dtype=torch.int64,
+                                               device=b.device))
+
+
 def _dispatch_indices(sel_flat: torch.Tensor, n_buckets: int, capacity: int):
     """Sort token-slots by bucket (stably); return (order, bucket_sorted,
     pos, keep): each sorted slot's position in its bucket, kept below the
     capacity."""
     order = torch.sort(sel_flat, stable=True).indices
     sorted_b = sel_flat[order]
-    counts = torch.bincount(sel_flat.long(), minlength=n_buckets)
+    counts = _bucket_counts(sel_flat, n_buckets)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(sel_flat.shape[0], device=sel_flat.device) \
         - starts[sorted_b.long()]
@@ -213,13 +222,14 @@ def _slot_experts(sel_flat, order, sorted_g, pos, keep, grp, n_groups: int,
     eid[sorted_g.long(), torch.where(keep, pos, capacity)] = torch.where(
         keep, sel_flat[order] % e_loc, e_loc).to(torch.int32)
     eid = eid[:, :capacity].contiguous()
-    overflow = torch.bincount(grp.long(), minlength=n_groups) > capacity
+    overflow = _bucket_counts(grp, n_groups) > capacity
     eid[:, 0] = torch.where(overflow, e_loc, eid[:, 0])
     return eid
 
 
 def moe_sharded(x: torch.Tensor, p: MoE, cfg, mesh, *, ep_axes,
-                tp_axis: str = "model") -> torch.Tensor:
+                tp_axis: str = "model", capacity: tuple | None = None
+                ) -> torch.Tensor:
     """The MoE layer on this rank's blocks, x (B / G, T, d / tp) -> the
     same block of the output, G the ranks along `ep_axes`; `p` holds this
     rank's blocks of the weights, cut as the reference's ``specs_in``:
@@ -246,7 +256,13 @@ def moe_sharded(x: torch.Tensor, p: MoE, cfg, mesh, *, ep_axes,
     sum (the tests hold it to 1e-5). At G = 1 and tp = 1 every slot goes
     to group 0 in slot order, so the second stage is `moe_ref`'s dispatch
     at capacity C2, and the output and gradients are `moe_ref`'s, bitwise,
-    at a capacity factor that makes its capacity C2."""
+    at a capacity factor that makes its capacity C2.
+
+    `capacity` (C, C2) replaces the two capacities. Decode passes C = N_loc
+    k (no first-stage drop) and C2 = `moe_ref`'s capacity over all G N_loc
+    tokens: the slots a rank receives lie in the senders' order, which is
+    the whole batch's token order, so each expert keeps the first C2 of
+    them, the slots `moe_ref` keeps on the whole batch."""
     from ..parallel.collectives import all_gather, all_to_all, psum, psum_scatter
 
     E, k, cf = cfg.expert_slots, cfg.experts_per_tok, cfg.capacity_factor
@@ -261,8 +277,11 @@ def moe_sharded(x: torch.Tensor, p: MoE, cfg, mesh, *, ep_axes,
     B, T, d_loc = x.shape
     xt = x.reshape(-1, d_loc)
     N = xt.shape[0]
-    C = _capacity(N * k, G, cf)            # per destination group
-    C2 = _capacity(G * C, E_loc, cf)       # per local expert after the a2a
+    if capacity is None:
+        C = _capacity(N * k, G, cf)        # per destination group
+        C2 = _capacity(G * C, E_loc, cf)   # per local expert after the a2a
+    else:
+        C, C2 = capacity
 
     # router: partial logits + psum over tp
     weights, sel = _topk(psum(xt.float() @ p.w_router.float(), tp_axis, mesh), k)

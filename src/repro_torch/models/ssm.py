@@ -25,7 +25,10 @@ gated norm over the cut inner dimension with its mean of squares summed
 over the axis (`layers.rms_norm_tp`), `w_out` row-parallel. The mLSTM runs
 on its heads the same way (`w_gates` cut per gate). The sLSTM runs whole
 on every rank: cutting its gates would need an all-gather of h at every
-one of its T steps.
+one of its T steps. The decode steps run the same way: Mamba2's on its
+local heads, with the conv state cut as `conv_w` (its x channels this
+rank's heads', B and C whole) and the inner norm through `rms_norm_tp`;
+the mLSTM's on its local heads; the sLSTM's whole.
 """
 from __future__ import annotations
 
@@ -161,11 +164,15 @@ def mamba2_init_state(batch: int, d: int, cfg, dtype, device) -> dict:
     }
 
 
-def mamba2_decode_step(x: torch.Tensor, state: dict, p: Mamba2, cfg):
+def mamba2_decode_step(x: torch.Tensor, state: dict, p: Mamba2, cfg,
+                       tp=None):
     """x (B, d) single token; updates ``state["ssm"]`` and ``state["conv"]``
-    in place and returns (out (B, d), state)."""
+    in place and returns (out (B, d), state); under a model axis on this
+    rank's heads (module docstring), out the row-parallel partial sum."""
     B, d = x.shape
-    di, H, S = _mamba_dims(d, cfg)
+    S = cfg.ssm_state
+    H = p.A_log.shape[0]
+    di = H * _HEAD_P
     z, xs, B_, C_, dt = _mamba_split(x @ p.w_in, di, H, S)
     conv_in = torch.cat([xs, B_, C_], dim=-1)[:, None, :]
     window = torch.cat([state["conv"], conv_in], dim=1)          # (B, K, C)
@@ -182,7 +189,8 @@ def mamba2_decode_step(x: torch.Tensor, state: dict, p: Mamba2, cfg):
     yh = (h * C_.float()[:, None, None, :]).sum(-1)              # (B,H,P)
     yh = yh + p.D[None, :, None] * xh
     yv = yh.reshape(B, di).to(x.dtype)
-    yv = rms_norm(yv * F.silu(z.float()).to(x.dtype), p.norm)
+    yv = _inner_norm(yv * F.silu(z.float()).to(x.dtype), p.norm, tp,
+                     mamba2_whole(p, cfg, tp))
     state["ssm"].copy_(h)
     state["conv"].copy_(window[:, 1:])
     return yv @ p.w_out, state
@@ -239,21 +247,24 @@ def mlstm_forward(x: torch.Tensor, p: MLSTM, n_heads: int, chunk: int = 128,
 
 
 def mlstm_decode_step(x: torch.Tensor, state: torch.Tensor, p: MLSTM,
-                      n_heads: int):
+                      n_heads: int, tp=None):
     """x (B, d); state (B, H, hd_v, hd_k) float32, updated in place.
-    Returns (out (B, d), state)."""
+    Returns (out (B, d), state); under a model axis on this rank's H heads
+    (module docstring), out the row-parallel partial sum."""
     B, d = x.shape
     hd = d // n_heads
-    q = (x @ p.w_q).reshape(B, n_heads, hd)
-    k = (x @ p.w_k).reshape(B, n_heads, hd) * (hd ** -0.5)
-    v = (x @ p.w_v).reshape(B, n_heads, hd)
+    H = p.w_gates.shape[1] // 2
+    q = (x @ p.w_q).reshape(B, H, hd)
+    k = (x @ p.w_k).reshape(B, H, hd) * (hd ** -0.5)
+    v = (x @ p.w_v).reshape(B, H, hd)
     gates = x.float() @ p.w_gates
     i_g, f_g = torch.chunk(gates, 2, dim=-1)                  # (B, H)
     f_s, i_s = torch.sigmoid(f_g), torch.sigmoid(i_g)
     upd = (i_s[..., None] * v.float())[..., None] * k.float()[:, :, None, :]
     h = f_s[..., None, None] * state + upd                    # (B, H, hd, hd)
     y = (h * q.float()[:, :, None, :]).sum(-1)                # (B, H, hd)
-    y = rms_norm(y.reshape(B, d).to(x.dtype), p.norm)
+    y = _inner_norm(y.reshape(B, H * hd).to(x.dtype), p.norm, tp,
+                    mlstm_whole(p, n_heads, tp))
     state.copy_(h)
     return y @ p.w_out, state
 
@@ -288,9 +299,18 @@ def _slstm_cell(g: torch.Tensor, c: torch.Tensor, n: torch.Tensor, dtype):
 
 def slstm_forward(x: torch.Tensor, p: SLSTM):
     """Scalar LSTM scanned over time. x (B, T, d) -> (out (B, T, d),
-    (c, n, h) after the last step)."""
+    (c, n, h) after the last step). On meta tensors (the census,
+    `launch.step_stats`) the T steps run as one batch of the same
+    products and elementwise ops, the recurrence's h standing in for a
+    slice of the gates (it has no values to carry), so that counting them
+    does not walk every step in Python."""
     B, T, d = x.shape
     gx = x @ p.w_x                                            # (B, T, 4d)
+    if x.is_meta:
+        state = torch.empty((B, T, d), dtype=torch.float32, device=x.device)
+        c, n, h = _slstm_cell(gx + gx[..., :d] @ p.w_h, state, state, x.dtype)
+        y = rms_norm(h, p.norm)
+        return y @ p.w_out, (c[:, -1], n[:, -1], h[:, -1])
     c = torch.zeros((B, d), dtype=torch.float32, device=x.device)
     n = torch.zeros_like(c)
     h = torch.zeros((B, d), dtype=x.dtype, device=x.device)

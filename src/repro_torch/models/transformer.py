@@ -22,7 +22,19 @@ axes, as the reference does when its mesh has them, on this rank's d
 block of its normed input, and `moe_ref` otherwise.
 
 `attn_decode` writes the new token's key and value into the caches it is
-given in place (JAX returns updated copies) and returns them.
+given in place (JAX returns updated copies) and returns them. Under a
+model axis q comes from this rank's heads (all of them where the block is
+whole) and the kv side follows the cache's cut (`parallel.sharding.
+kv_cache_cut`): by kv heads, each rank projects, writes and attends its
+own; by sequence, every rank projects every kv head from the replicated
+`w_k`/`w_v`, only the rank holding position ``pos[b]`` writes it, q is
+gathered to all heads, each rank attends its positions and the ranks
+merge (`layers.decode_attention_merged`), and this rank keeps its heads
+for the row-parallel `w_o`; replicated, every rank writes and attends
+the whole cache with all heads and keeps its own. `xattn_decode`, the
+cross attention against whisper's cached memory, attends the same way.
+In decode the MoE block's capacity is the one `moe_ref` gives the whole
+batch (`_moe`).
 """
 from __future__ import annotations
 
@@ -36,6 +48,7 @@ from .layers import (
     apply_rope,
     attention,
     decode_attention,
+    decode_attention_merged,
     init_dense,
     init_mlp,
     init_norm,
@@ -49,12 +62,13 @@ from .layers import (
     tp_of,
     whole_block,
 )
-from ..parallel.collectives import psum_replicated, replicated_copy
-from ..parallel.sharding import current_ctx
-from .moe import MoE, init_moe, moe_ref, moe_sharded
+from ..parallel.collectives import all_gather, psum_replicated, replicated_copy
+from ..parallel.sharding import current_ctx, kv_cache_cut
+from .moe import MoE, _capacity, init_moe, moe_ref, moe_sharded
 
 __all__ = ["Attention", "Block", "attn_block", "attn_decode", "attn_forward",
-           "attn_whole", "block_forward", "init_attn", "init_block"]
+           "attn_whole", "block_forward", "init_attn", "init_block",
+           "xattn_decode"]
 
 
 class Attention(nn.Module):
@@ -170,17 +184,45 @@ def attn_block(x: torch.Tensor, ln: torch.Tensor, p: Attention, cfg, tp, *,
     return tp_leave(o, tp, whole)
 
 
+def _cache_cut(cfg, tp, length: int | None) -> str:
+    """The cut of a KV cache of `length` positions in all (None: a cache
+    cut by heads or whole)."""
+    if tp is None:
+        return "heads"
+    if length is None:
+        return "heads" if cfg.n_kv_heads % tp.size == 0 else "whole"
+    return kv_cache_cut(cfg.n_kv_heads, length, tp.size)
+
+
+def _attend(q, k_cache, v_cache, lengths, cut: str, tp, whole: bool):
+    """q (B, Hq_loc, hd), this rank's heads (all with `whole`), against a
+    cache cut by `cut`: the attention output of the same heads."""
+    if cut == "heads":
+        return decode_attention(q, k_cache, v_cache, lengths)
+    n = q.shape[1]
+    qa = q if whole else all_gather(q, tp.axis, 1, tp.mesh)
+    if cut == "seq":
+        o = decode_attention_merged(qa, k_cache, v_cache, lengths, tp)
+    else:
+        o = decode_attention(qa, k_cache, v_cache, lengths)
+    return o if whole else o.narrow(1, tp.index * n, n)
+
+
 def attn_decode(x: torch.Tensor, p: Attention, cfg, k_cache: torch.Tensor,
-                v_cache: torch.Tensor, pos: torch.Tensor):
+                v_cache: torch.Tensor, pos: torch.Tensor, tp=None,
+                max_len: int | None = None):
     """One token per sequence, x (B, d), at positions `pos` (B,). Writes
     its key and value into ``k_cache``/``v_cache`` (B, S, Hkv, hd) in place
     and attends to positions ``< pos + 1``; returns (out (B, d), k_cache,
-    v_cache)."""
+    v_cache). Under a model axis (`tp`) x is whole, the caches this rank's
+    blocks of caches `max_len` long (module docstring), and out the
+    row-parallel product's partial sum (of a whole block, its whole)."""
     B, _ = x.shape
     hd = cfg.hd
-    q = (x @ p.w_q).reshape(B, cfg.heads_eff, hd)
-    k = (x @ p.w_k).reshape(B, cfg.n_kv_heads, hd)
-    v = (x @ p.w_v).reshape(B, cfg.n_kv_heads, hd)
+    cut = _cache_cut(cfg, tp, max_len)
+    q = (x @ p.w_q).reshape(B, p.w_q.shape[1] // hd, hd)
+    k = (x @ p.w_k).reshape(B, p.w_k.shape[1] // hd, hd)
+    v = (x @ p.w_v).reshape(B, p.w_v.shape[1] // hd, hd)
     if p.q_norm is not None:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
@@ -188,10 +230,36 @@ def attn_decode(x: torch.Tensor, p: Attention, cfg, k_cache: torch.Tensor,
     q = apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
     k = apply_rope(k[:, None], cos[:, None], sin[:, None])[:, 0]
     rows = torch.arange(B, device=x.device)
-    k_cache[rows, pos] = k.to(k_cache.dtype)
-    v_cache[rows, pos] = v.to(v_cache.dtype)
-    o = decode_attention(q, k_cache, v_cache, pos + 1)
-    return o.reshape(B, cfg.heads_eff * hd) @ p.w_o, k_cache, v_cache
+    k, v = k.to(k_cache.dtype), v.to(v_cache.dtype)
+    if cut == "seq":
+        # only the rank holding position pos[b] writes it
+        S = k_cache.shape[1]
+        lo = tp.index * S
+        mine = ((pos >= lo) & (pos < lo + S))[:, None, None]
+        at = torch.where(mine[:, 0, 0], pos - lo, torch.zeros_like(pos))
+        k = torch.where(mine, k, k_cache[rows, at])
+        v = torch.where(mine, v, v_cache[rows, at])
+    else:
+        at = pos
+    k_cache[rows, at] = k
+    v_cache[rows, at] = v
+    o = _attend(q, k_cache, v_cache, pos + 1, cut, tp, attn_whole(p, cfg, tp))
+    return o.reshape(B, q.shape[1] * hd) @ p.w_o, k_cache, v_cache
+
+
+def xattn_decode(x: torch.Tensor, p: Attention, cfg, xk: torch.Tensor,
+                 xv: torch.Tensor, mem_len: torch.Tensor, tp=None,
+                 mem_max: int | None = None) -> torch.Tensor:
+    """Cross attention of one token per sequence, x (B, d) normed, against
+    the cached memory ``xk``/``xv`` (B, M, Hkv, hd) valid below `mem_len`
+    (B,): (B, d), under a model axis as `attn_decode` (the memory's cut
+    from `mem_max`, its whole length)."""
+    B, _ = x.shape
+    hd = cfg.hd
+    q = (x @ p.w_q).reshape(B, p.w_q.shape[1] // hd, hd)
+    o = _attend(q, xk, xv, mem_len, _cache_cut(cfg, tp, mem_max), tp,
+                attn_whole(p, cfg, tp))
+    return o.reshape(B, q.shape[1] * hd) @ p.w_o
 
 
 class Block(nn.Module):
@@ -227,18 +295,29 @@ def init_block(p: Block, gen: torch.Generator, cfg) -> Block:
     return p
 
 
-def _moe(x: torch.Tensor, p: Block, cfg, tp) -> torch.Tensor:
+def _moe(x: torch.Tensor, p: Block, cfg, tp, decode: bool = False
+         ) -> torch.Tensor:
     """The MoE block's residual update. Over a process group with ep axes
     `moe_sharded` takes this rank's d block of the normed input: under
     residual "tp" the block the rank holds, under "replicated" its slice
-    of the whole (its output summed back whole)."""
+    of the whole (its output summed back whole). With `decode` (one token
+    a sequence, the batch cut over the ep axes) its capacities are those
+    that give `moe_ref`'s drops over the whole batch, as the reference's
+    decode runs `moe_ref` on it: no first-stage drop, and each expert's
+    capacity `moe_ref`'s."""
     ctx = current_ctx()
     if not (tp is not None and ctx.axes("ep")):
         return moe_ref(rms_norm(x, p.ln2), p.moe, cfg)
+    ep = ctx.axes("ep")
+    capacity = None
+    if decode:
+        k, n_loc = cfg.experts_per_tok, x.shape[0] * x.shape[1]
+        capacity = (n_loc * k, _capacity(n_loc * tp.mesh.axis_size(ep) * k,
+                                         cfg.n_experts, cfg.capacity_factor))
 
     def sharded(h):
-        return moe_sharded(h, p.moe, cfg, tp.mesh, ep_axes=ctx.axes("ep"),
-                           tp_axis=tp.axis)
+        return moe_sharded(h, p.moe, cfg, tp.mesh, ep_axes=ep,
+                           tp_axis=tp.axis, capacity=capacity)
 
     if tp.residual == "tp":
         return sharded(rms_norm_tp(x, p.ln2, tp))
@@ -249,9 +328,10 @@ def _moe(x: torch.Tensor, p: Block, cfg, tp) -> torch.Tensor:
     return psum_replicated(y, tp.axis, tp.mesh)
 
 
-def _ffn(x: torch.Tensor, p: Block, cfg, tp) -> torch.Tensor:
+def _ffn(x: torch.Tensor, p: Block, cfg, tp, decode: bool = False
+         ) -> torch.Tensor:
     if cfg.family == "moe":
-        return _moe(x, p, cfg, tp)
+        return _moe(x, p, cfg, tp, decode)
     whole = whole_block(tp, p.mlp.w_up.shape[1], cfg.d_ff)
     return tp_leave(mlp(tp_enter(x, p.ln2, tp, whole), p.mlp, cfg.act), tp,
                     whole)

@@ -6,7 +6,7 @@ Port of `repro.models.zoo` for every family: dense, moe, vlm, audio, ssm
   init_params(cfg, seed, device)             -> LM (an nn.Module)
   forward(params, batch, cfg)                -> logits (prefill)
   init_cache(cfg, batch, max_len, device)    -> decode cache dict
-  decode_step(params, cache, tokens, cfg)    -> (logits, cache)
+  decode_step(params, cache, tokens, cfg, max_len=None) -> (logits, cache)
 
 `batch` is a dict: the LM families use {"tokens"} (B, T); whisper (audio)
 {"frames", "tokens"}; internvl (vlm) {"patches", "tokens"}. The modality
@@ -45,9 +45,20 @@ whole once; zamba2's shared block takes the whole [h, e0] (its `w_concat`
 is replicated); the head is column-parallel over the vocabulary and the
 cross-entropy vocab-parallel (`_xent`). A vocabulary the axis does not
 divide (internvl2's 92,553, whisper's 51,865) is replicated, and the
-head's input then gathered whole. `forward` and `decode_step` refuse a
-model axis above 1: serving under tensor parallelism is slice 17 of the
-port.
+head's input then gathered whole.
+
+`forward` and `decode_step` serve under a model axis the same way, on
+this rank's blocks of the weights (`parallel.sharding.tp_pspecs`) and of
+the cache (`tp_cache_pspecs`), and return the whole logits on every rank:
+the vocab-parallel block all-gathered over the axis, or a replicated
+head's as they are. Decode embeds vocab-parallel, runs each layer through
+`layers.tp_enter`/`tp_leave` on the (B, d) token, zamba2's concat-skip
+embedding whole (`_whole`), the attention over its cache's cut
+(`transformer.attn_decode`), the SSM and mLSTM steps on their local heads
+and the MoE block through `moe_sharded` at `moe_ref`'s capacity over the
+whole batch. A rank holding a cache cut by sequence cannot see its whole
+length, so `decode_step` takes it (``max_len``). At a model axis of 1
+both are bitwise the one-device path.
 """
 from __future__ import annotations
 
@@ -68,10 +79,8 @@ from ..parallel.collectives import (
 from ..parallel.sharding import current_ctx, parallel_ctx
 from .config import ModelConfig
 from .layers import (
-    decode_attention,
     init_dense,
     init_norm,
-    mlp,
     param,
     rms_norm,
     rms_norm_tp,
@@ -80,7 +89,6 @@ from .layers import (
     tp_of,
     whole_block,
 )
-from .moe import moe_ref
 from .ssm import (
     _CONV_K,
     _HEAD_P,
@@ -103,12 +111,14 @@ from .ssm import (
 from .transformer import (
     Attention,
     Block,
+    _ffn,
     attn_decode,
     attn_forward,
     attn_whole,
     block_forward,
     init_attn,
     init_block,
+    xattn_decode,
 )
 
 __all__ = ["LM", "decode_step", "forward", "init_cache", "init_params", "loss_fn"]
@@ -227,15 +237,6 @@ def _head(p: LM, x: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, p.ln_f) @ p.lm_head
 
 
-def _refuse_tp(cfg: ModelConfig, what: str) -> None:
-    tp = tp_of(cfg)
-    if tp is not None and tp.size > 1:
-        raise NotImplementedError(
-            f"{what} over a model axis of {tp.size}: serving under tensor "
-            "parallelism (the KV cache and SSM states cut by heads) is "
-            "slice 17 of the port; training runs through loss_fn")
-
-
 def _embed(p: LM, tokens: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
     """The token embeddings in the residual's layout. Vocab-parallel: this
     rank's rows look up the tokens in their range, the others zero, summed
@@ -300,6 +301,17 @@ def _logits(p: LM, x: torch.Tensor, cfg: ModelConfig, tp):
     k = h.shape[-1]
     h = F.pad(h, (tp.index * k, (tp.size - 1 - tp.index) * k))
     return psum_replicated(h, tp.axis, tp.mesh) @ p.lm_head, 0
+
+
+def _all_logits(p: LM, x: torch.Tensor, cfg: ModelConfig, tp):
+    """The whole logits on every rank: `_logits`' vocabulary block
+    all-gathered over the model axis, or a replicated head's as they
+    are."""
+    logits, _ = _logits(p, x, cfg, tp)
+    if tp is not None and not whole_block(tp, p.lm_head.shape[1],
+                                          cfg.vocab_size):
+        logits = all_gather(logits, tp.axis, logits.ndim - 1, tp.mesh)
+    return logits
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor, lo: int, tp):
@@ -419,11 +431,11 @@ def forward(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Logits of the full sequence: (B, T, V) for ``batch["tokens"]`` (B,
     T); for the vlm family (B, Np + T, V), the patches first; for the audio
     family the decoder's (B, Td, V) over the encoded ``batch["frames"]``.
-    Each layer runs under ``cfg.remat`` (`_layers`). Not over a model axis
-    above 1 (module docstring)."""
-    _refuse_tp(cfg, "forward (prefill)")
+    Each layer runs under ``cfg.remat`` (`_layers`). Under a model axis
+    on this rank's blocks, the whole logits on every rank (module
+    docstring)."""
     tp = tp_of(cfg)
-    return _logits(params, _hidden(params, batch, cfg, tp), cfg, tp)[0]
+    return _all_logits(params, _hidden(params, batch, cfg, tp), cfg, tp)
 
 
 def loss_fn(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -496,68 +508,82 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(params: LM, cache: dict, tokens: torch.Tensor,
-                cfg: ModelConfig):
+                cfg: ModelConfig, max_len: int | None = None):
     """One decode step. tokens (B,) -> (logits (B, V), cache), the cache
-    updated in place. Not over a model axis above 1."""
+    updated in place. Under a model axis `params` and `cache` are this
+    rank's blocks (module docstring); ``max_len`` is the whole cache's
+    length, which a rank holding a KV cache cut by sequence cannot read
+    from its block: needed where the axis does not divide the kv heads
+    (None: the cache is whole)."""
     _check_family(cfg)
-    _refuse_tp(cfg, "decode_step")
     fam = cfg.family
+    tp = tp_of(cfg)
+    if tp is not None and max_len is None and cfg.n_kv_heads % tp.size and \
+            fam != "ssm":
+        raise ValueError(f"{cfg.n_kv_heads} kv heads over a model axis of "
+                         f"{tp.size}: pass the cache's whole length "
+                         "(max_len), which decides whether it is cut by "
+                         "sequence")
     pos = cache["pos"]
-    x = F.embedding(tokens, params.tok_emb)                      # (B, d)
+    x = _embed(params, tokens, cfg, tp)                          # (B, d)
+
+    def attn(h, blk_attn, k, v):
+        whole = attn_whole(blk_attn, cfg, tp)
+        return tp_leave(attn_decode(h, blk_attn, cfg, k, v, pos, tp,
+                                    max_len)[0], tp, whole)
+
+    def self_attn(h, blk, i):
+        return attn(tp_enter(h, blk.ln1, tp, attn_whole(blk.attn, cfg, tp)),
+                    blk.attn, cache["k"][i], cache["v"][i])
 
     def ffn(h, blk):
-        h2 = rms_norm(h, blk.ln2)[:, None, :]
-        if fam == "moe":
-            return moe_ref(h2, blk.moe, cfg)[:, 0]
-        return mlp(h2, blk.mlp, cfg.act)[:, 0]
+        return _ffn(h[:, None], blk, cfg, tp, decode=True)[:, 0]
 
     if fam in ("dense", "moe", "vlm"):
         for i, blk in enumerate(params.blocks):
-            a, _, _ = attn_decode(rms_norm(x, blk.ln1), blk.attn, cfg,
-                                  cache["k"][i], cache["v"][i], pos)
-            x = x + a
+            x = x + self_attn(x, blk, i)
             x = x + ffn(x, blk)
     elif fam == "audio":
-        B, hd = x.shape[0], cfg.hd
+        mem_max = None if max_len is None else min(max_len, 1500)
         for i, blk in enumerate(params.dec_blocks):
-            a, _, _ = attn_decode(rms_norm(x, blk.ln1), blk.attn, cfg,
-                                  cache["k"][i], cache["v"][i], pos)
-            x = x + a
+            x = x + self_attn(x, blk, i)
             # cross attention against the cached encoder memory, through B7
-            qx = (rms_norm(x, blk.ln_x) @ blk.xattn.w_q).reshape(
-                B, cfg.heads_eff, hd)
-            ax = decode_attention(qx, cache["xk"][i], cache["xv"][i],
-                                  cache["mem_len"])
-            x = x + ax.reshape(B, cfg.heads_eff * hd) @ blk.xattn.w_o
+            whole = attn_whole(blk.xattn, cfg, tp)
+            ax = xattn_decode(tp_enter(x, blk.ln_x, tp, whole), blk.xattn,
+                              cfg, cache["xk"][i], cache["xv"][i],
+                              cache["mem_len"], tp, mem_max)
+            x = x + tp_leave(ax, tp, whole)
             x = x + ffn(x, blk)
     elif fam == "ssm":
         for i, pair in enumerate(params.pairs):
-            y, _ = mlstm_decode_step(rms_norm(x, pair.ln_m), cache["mlstm"][i],
-                                     pair.mlstm, cfg.n_heads)
-            x = x + y
+            whole = mlstm_whole(pair.mlstm, cfg.n_heads, tp)
+            y, _ = mlstm_decode_step(tp_enter(x, pair.ln_m, tp, whole),
+                                     cache["mlstm"][i], pair.mlstm,
+                                     cfg.n_heads, tp)
+            x = x + tp_leave(y, tp, whole)
             y, _ = slstm_decode_step(
-                rms_norm(x, pair.ln_s),
+                tp_enter(x, pair.ln_s, tp, True),
                 (cache["slstm_c"][i], cache["slstm_n"][i], cache["slstm_h"][i]),
                 pair.slstm)
-            x = x + y
+            x = x + tp_leave(y, tp, True)
     else:
         # one KV slot per application point of the shared block (ceil(L /
         # every) slots), not per layer: 38 copies of a long cache would be
         # a 5x memory regression, as the reference notes
         shared = params.shared
-        emb0 = x   # zamba2's concat-skip uses the original embedding
+        emb0 = _whole(x, tp)   # zamba2's concat-skip uses the embedding
         for i, blk in enumerate(params.blocks):
             if i % cfg.shared_attn_every == 0:
                 slot = i // cfg.shared_attn_every
-                a_in = torch.cat([x, emb0], dim=-1) @ shared.w_concat
-                a, _, _ = attn_decode(rms_norm(a_in, shared.ln), shared.attn,
-                                      cfg, cache["attn_k"][slot],
-                                      cache["attn_v"][slot], pos)
-                x = x + a
+                a_in = torch.cat([_whole(x, tp), emb0], dim=-1) @ \
+                    shared.w_concat
+                x = x + attn(rms_norm(a_in, shared.ln), shared.attn,
+                             cache["attn_k"][slot], cache["attn_v"][slot])
+            whole = mamba2_whole(blk.mamba, cfg, tp)
             y, _ = mamba2_decode_step(
-                rms_norm(x, blk.ln),
+                tp_enter(x, blk.ln, tp, whole),
                 {"ssm": cache["ssm"][i], "conv": cache["conv"][i]},
-                blk.mamba, cfg)
-            x = x + y
+                blk.mamba, cfg, tp)
+            x = x + tp_leave(y, tp, whole)
     pos += 1
-    return _head(params, x), cache
+    return _all_logits(params, x, cfg, tp), cache

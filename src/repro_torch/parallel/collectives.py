@@ -47,7 +47,11 @@ what its gradient is depends on who consumes that value:
 Every call, forward or backward, adds one to its kind's count and its
 input's bytes to the kind's bytes (`counts`, `reset_counts`; the sums and
 the maximum count as "all_reduce"), so that a run can show which
-collectives its path ran.
+collectives its path ran. `payloads` gives the same calls in the
+reference dry-run's convention (`repro.launch.hlo_stats`): its kind
+names, and a call's payload its output's size, an all-reduce's twice
+(an all-gather's output is its input times the group's size, a
+reduce-scatter's its input over it).
 """
 from __future__ import annotations
 
@@ -57,15 +61,24 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather", "all_to_all", "compressed_pod_psum", "counts",
-           "hierarchical_psum", "int8_decode", "int8_encode", "pmax", "psum",
+           "hierarchical_psum", "int8_decode", "int8_encode", "payloads",
+           "pmax", "psum",
            "psum_replicated", "psum_scatter", "replicated_copy",
            "reset_counts"]
 
 _COUNTS: dict = {}
+_PAYLOADS: dict = {}
+# the reference's kind names, and each kind's payload over its input's
+# bytes for a group of n ranks
+_REF_KIND = {"all_reduce": ("all-reduce", lambda n: 2.0),
+             "all_gather": ("all-gather", lambda n: float(n)),
+             "reduce_scatter": ("reduce-scatter", lambda n: 1.0 / n),
+             "all_to_all": ("all-to-all", lambda n: 1.0)}
 
 
 def reset_counts() -> None:
     _COUNTS.clear()
+    _PAYLOADS.clear()
 
 
 def counts() -> dict:
@@ -73,10 +86,24 @@ def counts() -> dict:
     return {k: dict(v) for k, v in _COUNTS.items()}
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def payloads() -> dict:
+    """{reference kind: bytes, ..., "count": calls} since the last
+    `reset_counts`, in the reference dry-run's convention (module
+    docstring)."""
+    out = {k: 0.0 for k, _ in _REF_KIND.values()}
+    out.update(_PAYLOADS)
+    out["count"] = sum(c["calls"] for c in _COUNTS.values())
+    return out
+
+
+def _count(kind: str, t: torch.Tensor, group) -> None:
     c = _COUNTS.setdefault(kind, {"calls": 0, "bytes": 0})
     c["calls"] += 1
-    c["bytes"] += t.numel() * t.element_size()
+    nbytes = t.numel() * t.element_size()
+    c["bytes"] += nbytes
+    ref, factor = _REF_KIND[kind]
+    _PAYLOADS[ref] = _PAYLOADS.get(ref, 0.0) + nbytes * factor(
+        dist.get_world_size(group))
 
 
 def int8_encode(x: torch.Tensor):
@@ -98,7 +125,7 @@ def int8_decode(q: torch.Tensor, absmax: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    _count("all_reduce", x)
+    _count("all_reduce", x, group)
     y = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=op, group=group)
     return y
@@ -108,7 +135,7 @@ def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Rank i's block i of the sum along `dim`: x viewed as (..., n, size
     / n, ...) with the blocks moved first (one copy, none for dim 0), so
     that each rank's output is its block, contiguous."""
-    _count("reduce_scatter", x)
+    _count("reduce_scatter", x, group)
     n = dist.get_world_size(group)
     dim = dim % x.ndim
     if x.shape[dim] % n:
@@ -129,7 +156,7 @@ def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The ranks' blocks joined along `dim` in rank order: gathered as
     (n, *x.shape), then the rank axis moved beside `dim` and merged with
     it (one copy, none for dim 0)."""
-    _count("all_gather", x)
+    _count("all_gather", x, group)
     n = dist.get_world_size(group)
     dim = dim % x.ndim
     xt = x.contiguous()
@@ -143,7 +170,7 @@ def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    _count("all_to_all", x)
+    _count("all_to_all", x, group)
     n = dist.get_world_size(group)
     if x.shape[0] % n:
         raise ValueError(f"dim 0 of {tuple(x.shape)} does not split over "

@@ -57,6 +57,13 @@ over the cut residual, replicated blocks, `w_concat`); under
 replicated `w_k`/`w_v`, the Mamba and mLSTM norms over their cut inner
 dimension, a replicated MoE shared expert). Of a `Segments` parameter
 the replicated segments are the partial part.
+
+`tp_cache_pspecs` is the decode cache's layout matched to `tp_pspecs`
+(the reference's `cache_pspecs` but where the port's layers hold a block
+otherwise; its docstring lists where): a KV cache cut by kv heads where
+the model axis divides them, else by sequence where it divides the
+cache's length, else replicated (`kv_cache_cut`), and each state cut as
+the block that updates it.
 """
 from __future__ import annotations
 
@@ -75,6 +82,7 @@ __all__ = [
     "current_ctx",
     "default_rules",
     "gather_full",
+    "kv_cache_cut",
     "local_shape",
     "local_shard",
     "maybe_axis",
@@ -82,6 +90,7 @@ __all__ = [
     "parallel_ctx",
     "shard_module",
     "spec_axes",
+    "tp_cache_pspecs",
     "tp_pspecs",
 ]
 
@@ -425,3 +434,68 @@ def tp_pspecs(shapes: dict, cfg, ctx: Optional[ParallelCtx] = None):
             part = False
         out[name], partial[name] = tuple(spec), bool(part)
     return out, partial
+
+
+def kv_cache_cut(n_kv_heads: int, length: int, tp: int) -> str:
+    """How a KV cache of `n_kv_heads` heads and `length` positions is cut
+    over a model axis of `tp` ranks, in the reference's `maybe_axis`
+    order: "heads" where tp divides the kv heads (at tp 1 too), else
+    "seq" where it divides the length, else "whole" (replicated)."""
+    if n_kv_heads % tp == 0:
+        return "heads"
+    return "seq" if length % tp == 0 else "whole"
+
+
+def tp_cache_pspecs(cache: dict, cfg, ctx: Optional[ParallelCtx] = None
+                    ) -> dict:
+    """{name: spec} of a decode cache of global shapes (`models.init_cache`)
+    in the layout the port's decode runs on, matched to `tp_pspecs`. The
+    reference's `cache_pspecs` but for these departures:
+      - ``conv`` (L, B, K-1, di + 2S): `Segments` (x, B, C) with x cut by
+        heads and B, C whole, as `conv_w`; the reference cuts the last
+        dimension contiguously, across the segments;
+      - ``ssm`` and ``mlstm``: by heads only where the block is cut, else
+        whole, as the block's weights (the reference's `maybe_axis` cuts
+        any heads the axis divides);
+      - ``slstm_*``: whole, as the sLSTM's weights; the reference cuts
+        them by channel.
+    The KV caches (``k``, ``v``, ``xk``, ``xv``, ``attn_k``, ``attn_v``)
+    follow `kv_cache_cut`; ``pos`` and ``mem_len`` are cut over dp, and
+    every batch dimension is, where dp divides it."""
+    ctx = ctx or current_ctx()
+    tp_axes = ctx.axes("tp") if ctx.mesh is not None else None
+    tp = ctx.axis_size("tp") if tp_axes else 1
+    ax = None
+    if tp > 1:
+        ax = tp_axes[0] if len(tp_axes) == 1 else tuple(tp_axes)
+    d, S = cfg.d_model, cfg.ssm_state
+    di = cfg.ssm_expand * d
+
+    def dp(n):
+        return maybe_axis(ctx, "dp", n) if ctx.mesh is not None else None
+
+    def spec(name, x):
+        shape = tuple(x.shape)
+        if name in ("k", "v", "xk", "xv", "attn_k", "attn_v"):
+            _, B, T, H, _ = shape
+            cut = kv_cache_cut(H, T, tp)
+            return (None, dp(B), ax if cut == "seq" else None,
+                    ax if cut == "heads" else None, None)
+        if name == "ssm":
+            return (None, dp(shape[1]), ax if shape[2] % tp == 0 else None,
+                    None, None)
+        if name == "conv":
+            if (di // 64) % tp or ax is None:
+                return (None, dp(shape[1]), None, None)
+            return (None, dp(shape[1]), None,
+                    Segments((di, S, S), (True, False, False), ax))
+        if name == "mlstm":
+            return (None, dp(shape[1]), ax if cfg.n_heads % tp == 0 else None,
+                    None, None)
+        if name.startswith("slstm"):
+            return (None, dp(shape[1]), None)
+        if name in ("pos", "mem_len"):
+            return (dp(shape[0]),)
+        return ()
+
+    return {name: spec(name, x) for name, x in cache.items()}

@@ -20,17 +20,24 @@ __all__ = ["make_prefill", "make_serve_step"]
 
 
 def make_serve_step(cfg: ModelConfig, temperature: float = 0.0,
-                    device: str | torch.device = "cuda"):
+                    device: str | torch.device = "cuda",
+                    max_len: int | None = None):
     """``serve_step(params, cache, tokens, generator=None) -> (next (B,)
     int32, cache)``. Greedy (first maximum, as `jnp.argmax`) unless
     `temperature` > 0 and a `torch.Generator` is given; sampling draws from
-    torch's generator, so its tokens are not the reference's."""
+    torch's generator, so its tokens are not the reference's.
+
+    Under a mesh's parallel context the tokens are this data rank's
+    sequences, `params` and `cache` this rank's blocks, and the step picks
+    from the whole logits `decode_step` gives every rank; ``max_len`` is
+    the whole cache's length (`models.decode_step`)."""
     dev = resolve_device(device)
 
     @torch.no_grad()
     def serve_step(params, cache, tokens: torch.Tensor,
                    generator: torch.Generator | None = None):
-        logits, cache = decode_step(params, cache, tokens.to(dev), cfg)
+        logits, cache = decode_step(params, cache, tokens.to(dev), cfg,
+                                    max_len)
         if temperature > 0.0 and generator is not None:
             probs = torch.softmax(logits.float() / temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]

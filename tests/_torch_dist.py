@@ -12,7 +12,10 @@ with the ranks' output; every process is stopped either way.
 
 `run_jax(script, tmp, timeout)` runs a reference script in a subprocess
 on 4 fake host devices (``XLA_FLAGS``), as the reference's own
-distribution tests do, and returns what it pickled to ``OUT``.
+distribution tests do, and returns what it pickled to ``OUT``;
+`run_script` runs a script of the port's the same way, without them (a
+census on torch's fake process group, which must not outlive its
+process).
 
 This file imports no JAX: the ranks load the port alone.
 """
@@ -84,17 +87,24 @@ def run_world(world: int, jobs: dict, tmp, timeout: float = 240.0,
 def run_jax(script: str, tmp, timeout: float = 600.0, devices: int = 4):
     """Run `script` with ``OUT`` (a path) defined, on `devices` fake CPU
     devices; returns the object it pickled to ``OUT``."""
+    return run_script(script, tmp, timeout, {
+        "XLA_FLAGS": f"--xla_force_host_platform_device_count={devices}",
+        "JAX_PLATFORMS": "cpu"})
+
+
+def run_script(script: str, tmp, timeout: float = 600.0,
+               env: dict | None = None):
+    """Run `script` with ``OUT`` (a path) defined in a subprocess; returns
+    the object it pickled to ``OUT``."""
     tmp = pathlib.Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     out = tmp / "reference.pkl"
     code = f"OUT = {str(out)!r}\n" + script
     r = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
-        timeout=timeout, cwd=ROOT, env=_env({
-            "XLA_FLAGS": f"--xla_force_host_platform_device_count={devices}",
-            "JAX_PLATFORMS": "cpu"}))
+        timeout=timeout, cwd=ROOT, env=_env(env))
     if r.returncode != 0 or not out.exists():
-        raise AssertionError(f"reference script failed ({r.returncode}):\n"
+        raise AssertionError(f"script failed ({r.returncode}):\n"
                              f"{r.stdout[-4000:]}\n{r.stderr[-8000:]}")
     return pickle.loads(out.read_bytes())
 

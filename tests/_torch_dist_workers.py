@@ -528,30 +528,104 @@ def tp_checkpoint(rank, world, payload):
     return out
 
 
-def tp_serving_refuses(rank, world, payload):
-    """Prefill and decode of the reduced qwen3-8b under a (1, world) mesh:
-    the error each raises (None if it ran); then under (world, 1), where
-    the model axis has size 1, whether both run."""
-    from repro_torch.models import init_cache, init_params
-    from repro_torch.serve import make_prefill, make_serve_step
+def _serve_cfg(case):
+    return dataclasses.replace(configs.get_reduced(case["arch"]),
+                               dtype="float32", **case.get("replace", {}))
 
-    cfg = configs.get_reduced("qwen3-8b")
-    params = init_params(cfg, 0, "cpu")
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
+
+def _serve_one_device(params, cfg, batch, toks, max_len):
+    """The port's one-device serving of `batch` (this rank's sequences):
+    prefill logits, each forced decode step's logits, the cache after."""
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.serve import make_prefill
+
+    prefill = _np(make_prefill(cfg, "cpu")(params, batch))
+    cache = init_cache(cfg, toks.shape[0], max_len, "cpu")
+    steps = []
+    with torch.no_grad():
+        for t in range(toks.shape[1]):
+            steps.append(_np(decode_step(params, cache, toks[:, t], cfg)[0]))
+    return {"prefill": prefill, "decode": np.stack(steps),
+            "cache": {k: _np(v) for k, v in cache.items()}}
+
+
+def tp_serve(rank, world, payload):
+    """Each case served on its own (data, model) mesh from the reference's
+    parameters cut by `tp_pspecs`: the prefill logits and each forced
+    decode step's logits (gathered over data: the whole batch's), the
+    cache after the last step gathered whole by `tp_cache_pspecs`, this
+    rank's own blocks of all three, the collectives of the prefill and of
+    one decode step; with ``"one_device"`` also the port's one-device
+    serving of this rank's sequences in this process."""
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.specs import batch_pspecs
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.parallel import shard_module
+    from repro_torch.parallel.sharding import tp_cache_pspecs, tp_pspecs
+    from repro_torch.serve import make_prefill
+
     out = {}
-    for shape in ((1, world), (world, 1)):
-        mesh = make_local_mesh(*shape, "cpu")
-        got = {}
-        with parallel_ctx(mesh):
-            for name, run in (
-                    ("prefill", lambda: make_prefill(cfg, "cpu")(
-                        params, {"tokens": tokens})),
-                    ("decode", lambda: make_serve_step(cfg, device="cpu")(
-                        params, init_cache(cfg, 2, 16, "cpu"), tokens[:, 0]))):
-                try:
-                    run()
-                    got[name] = None
-                except NotImplementedError as e:
-                    got[name] = str(e)
-        out[shape] = got
+    for key, case in payload.items():
+        cfg = _serve_cfg(case)
+        mesh = make_local_mesh(*case["mesh"], "cpu")
+        max_len = case["max_len"]
+        full = lm_params_from_numpy(case["params"], cfg, CPU)
+        with parallel_ctx(mesh) as ctx:
+            shapes = {n: tuple(t.shape) for n, t in full.named_parameters()}
+            params = lm_params_from_numpy(case["params"], cfg, CPU)
+            shard_module(params, tp_pspecs(shapes, cfg, ctx)[0], mesh)
+            batch = _named(case["batch"])
+            b_specs = batch_pspecs(batch, ctx)
+            batch = {k: local_shard(v, b_specs[k], mesh)
+                     for k, v in batch.items()}
+            toks = torch.from_numpy(case["tokens"])
+            tok_spec = batch_pspecs(toks, ctx)
+            toks = local_shard(toks, tok_spec, mesh)
+            cache = init_cache(cfg, case["tokens"].shape[0], max_len, "cpu")
+            c_specs = tp_cache_pspecs(cache, cfg, ctx)
+            cache = {k: local_shard(v, c_specs[k], mesh)
+                     for k, v in cache.items()}
+            dp = (tok_spec[0],)
+            reset_counts()
+            logits = make_prefill(cfg, "cpu")(params, batch)
+            res = {"prefill_counts": counts(),
+                   "prefill": _np(gather_full(logits, dp, mesh)),
+                   "local": {"prefill": _np(logits)}}
+            steps, local = [], []
+            with torch.no_grad():
+                for t in range(toks.shape[1]):
+                    reset_counts()
+                    lg = decode_step(params, cache, toks[:, t], cfg, max_len)[0]
+                    if t == 0:
+                        res["decode_counts"] = counts()
+                    local.append(_np(lg))
+                    steps.append(_np(gather_full(lg, dp, mesh)))
+            res["decode"] = np.stack(steps)
+            res["local"]["decode"] = np.stack(local)
+            res["local"]["cache"] = {k: _np(v) for k, v in cache.items()}
+            res["cache"] = {k: _np(gather_full(v, c_specs[k], mesh))
+                            for k, v in cache.items()}
+            res["cuts"] = {k: tuple(str(e) if e is not None else None
+                                    for e in v) for k, v in c_specs.items()}
+        if case.get("one_device"):
+            res["one_device"] = _serve_one_device(full, cfg, batch, toks,
+                                                  max_len)
+        out[key] = res
+    return out
+
+
+def b7_merge(rank, world, payload):
+    """`layers.decode_attention_merged` on (1, world): each rank's block
+    of the cache cut by sequence, the merged output every rank returns."""
+    from repro_torch.models.layers import TP, decode_attention_merged
+
+    mesh = make_local_mesh(1, world, "cpu")
+    k, v = (torch.from_numpy(payload[n]) for n in ("k", "v"))
+    n = k.shape[1] // world
+    tp = TP(mesh, "model", world, rank, "tp")
+    out = {}
+    for key, lens in payload["lengths"].items():
+        out[key] = _np(decode_attention_merged(
+            torch.from_numpy(payload["q"]), k[:, rank * n:(rank + 1) * n],
+            v[:, rank * n:(rank + 1) * n], torch.from_numpy(lens), tp))
     return out

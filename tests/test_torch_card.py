@@ -733,6 +733,34 @@ def test_decode_attention_kernel_matches_plain(cuda, B, Hq, Hkv, S, D,  # noqa: 
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,S,D", [
+    (2, 4, 2, 256, 64), (4, 32, 8, 300, 128), (8, 40, 10, 16, 128),
+    (8, 32, 32, 168, 64), (3, 7, 1, 300, 20)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_stats_match_plain(cuda, B, Hq, Hkv, S, D,  # noqa: F811
+                                            dtype):
+    """With the rows' statistics (M, L) asked for, one launch writes them
+    bitwise the plain version's, an empty row (-1e30, 0), and the output
+    bitwise what it is without them."""
+    R = np.random.default_rng(S * D + Hq + 1)
+    q = _randn(R, (B, Hq, D), cuda, dtype)
+    kc = _randn(R, (B, S, Hkv, D), cuda, dtype)
+    vc = _randn(R, (B, S, Hkv, D), cuda, dtype)
+    lens = R.integers(1, S + 1, B)
+    lens[0] = 0
+    lens = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+    out = decode_attention_kernel_call(q, kc, vc, lens)
+    n0 = decode_attention_kernel_call.launches
+    got, st = decode_attention_kernel_call(q, kc, vc, lens, stats=True)
+    want, st_plain = decode_attention_plain(q, kc, vc, lens, stats=True)
+    torch.cuda.synchronize()
+    assert decode_attention_kernel_call.launches == n0 + 1
+    assert st.dtype == torch.float32 and st.shape == (B, Hq, 2)
+    assert torch.equal(got, out) and torch.equal(got, want)
+    assert torch.equal(st, st_plain)
+    assert torch.all(st[0, :, 0] == -1e30) and torch.all(st[0, :, 1] == 0)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [
     (1, 4, 1, 200, 64), (2, 8, 2, 700, 128), (2, 8, 8, 1100, 32),
     (8, 32, 8, 4096, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

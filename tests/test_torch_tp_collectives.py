@@ -18,7 +18,8 @@ the closed-form collective count of a training step.
   residual layout, with 1 and 2 microbatches, runs the collectives
   `launch.specs.train_collectives` writes from the config, call for call
   and byte for byte.
-- Serving: prefill and decode refuse a model axis above 1 (slice 17).
+Serving over the model axis is held to the reference in
+`tests/test_torch_tp_serve.py`.
 """
 import re
 
@@ -54,8 +55,7 @@ def world2(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp_collectives")
     payload = _payload()
     return payload, run_world(2, {"tp_conjugates": payload,
-                                  "tp_counts": {"seq": 16, "batch": 4},
-                                  "tp_serving_refuses": {}},
+                                  "tp_counts": {"seq": 16, "batch": 4}},
                               tmp / "w2")
 
 
@@ -140,17 +140,6 @@ def test_step_runs_the_closed_form_collectives(world2, residual,
     for got in world2[1]:
         counted, closed = got["tp_counts"][(residual, microbatches)]
         assert counted == closed
-
-
-@pytest.mark.parametrize("step", ["prefill", "decode"])
-def test_serving_refuses_a_model_axis_above_one(world2, step):
-    """Prefill and decode on (1, 2) raise and name slice 17 rather than
-    compute on this rank's blocks as if they were whole; on (2, 1), a
-    model axis of size 1, both run."""
-    for got in world2[1]:
-        got = got["tp_serving_refuses"]
-        assert "slice 17" in got[(1, 2)][step]
-        assert got[(2, 1)][step] is None
 
 
 # ---------------------------------------------------------------------------
