@@ -77,6 +77,7 @@ from ..parallel.collectives import (
     replicated_copy,
 )
 from ..parallel.sharding import current_ctx, parallel_ctx
+from ..spans import backward_span, span
 from .config import ModelConfig
 from .layers import (
     init_dense,
@@ -241,18 +242,19 @@ def _embed(p: LM, tokens: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
     """The token embeddings in the residual's layout. Vocab-parallel: this
     rank's rows look up the tokens in their range, the others zero, summed
     over the model axis (`layers.tp_leave`)."""
-    emb = p.tok_emb
-    if tp is None:
-        return F.embedding(tokens, emb)
-    n = emb.shape[0]
-    if whole_block(tp, n, cfg.vocab_size):
-        return tp_leave(F.embedding(tokens, emb), tp, whole=True)
-    local = tokens - tp.index * n
-    ok = (local >= 0) & (local < n)
-    e = F.embedding(torch.where(ok, local, torch.zeros_like(local)), emb)
-    e = torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype,
-                                                  device=e.device))
-    return tp_leave(e, tp)
+    with span("model.embed", p.tok_emb):
+        emb = p.tok_emb
+        if tp is None:
+            return F.embedding(tokens, emb)
+        n = emb.shape[0]
+        if whole_block(tp, n, cfg.vocab_size):
+            return tp_leave(F.embedding(tokens, emb), tp, whole=True)
+        local = tokens - tp.index * n
+        ok = (local >= 0) & (local < n)
+        e = F.embedding(torch.where(ok, local, torch.zeros_like(local)), emb)
+        e = torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                      device=e.device))
+        return tp_leave(e, tp)
 
 
 def _embedded_input(t: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
@@ -285,22 +287,24 @@ def _whole(x: torch.Tensor, tp) -> torch.Tensor:
 def _logits(p: LM, x: torch.Tensor, cfg: ModelConfig, tp):
     """(logits, first vocabulary index): this rank's vocabulary block of
     the logits (all of them without a model axis, or of a replicated
-    `lm_head`)."""
-    if tp is None:
-        return _head(p, x), 0
-    n = p.lm_head.shape[1]
-    if not whole_block(tp, n, cfg.vocab_size):
-        return tp_enter(x, p.ln_f, tp) @ p.lm_head, tp.index * n
-    # a replicated head: every rank computes all the logits, so its input
-    # is gathered whole with a backward that keeps each rank's block
-    # (this rank's block normed first, so that ln_f's gradient stays this
-    # rank's part of it, as every norm weight's under residual "tp")
-    if tp.residual != "tp":
-        return rms_norm(x, p.ln_f) @ p.lm_head, 0
-    h = rms_norm_tp(x, p.ln_f, tp)
-    k = h.shape[-1]
-    h = F.pad(h, (tp.index * k, (tp.size - 1 - tp.index) * k))
-    return psum_replicated(h, tp.axis, tp.mesh) @ p.lm_head, 0
+    `lm_head`); span ``model.head``."""
+    with span("model.head", x):
+        if tp is None:
+            return _head(p, x), 0
+        n = p.lm_head.shape[1]
+        if not whole_block(tp, n, cfg.vocab_size):
+            return tp_enter(x, p.ln_f, tp) @ p.lm_head, tp.index * n
+        # a replicated head: every rank computes all the logits, so its
+        # input is gathered whole with a backward that keeps each rank's
+        # block (this rank's block normed first, so that ln_f's gradient
+        # stays this rank's part of it, as every norm weight's under
+        # residual "tp")
+        if tp.residual != "tp":
+            return rms_norm(x, p.ln_f) @ p.lm_head, 0
+        h = rms_norm_tp(x, p.ln_f, tp)
+        k = h.shape[-1]
+        h = F.pad(h, (tp.index * k, (tp.size - 1 - tp.index) * k))
+        return psum_replicated(h, tp.axis, tp.mesh) @ p.lm_head, 0
 
 
 def _all_logits(p: LM, x: torch.Tensor, cfg: ModelConfig, tp):
@@ -344,21 +348,31 @@ def _layers(cfg: ModelConfig, params: LM):
     parallel context: on the card autograd runs the backward, and so the
     recomputation, on a thread of its own, where the context (thread-local,
     as the reference's) would otherwise be empty and an MoE layer would
-    recompute through `moe_ref` instead of `moe_sharded`."""
+    recompute through `moe_ref` instead of `moe_sharded`. Each application
+    is span ``model.layer``, and a recomputation ``model.layer.recompute``
+    (`_layer`)."""
     remat = cfg.remat in ("block", "dots") and torch.is_grad_enabled() and \
         any(p.requires_grad for p in params.parameters())
     if not remat:
-        return lambda fn, *args: fn(*args)
+        return _layer
     ctx = current_ctx()
 
     def in_ctx(fn):
         def run(*args):
             with parallel_ctx(ctx.mesh, ctx.rules):
-                return fn(*args)
+                return _layer(fn, *args)
         return run
 
     return lambda fn, *args: checkpoint(in_ctx(fn), *args,
                                         use_reentrant=False)
+
+
+def _layer(fn, *args):
+    """``fn(*args)`` in span ``model.layer``, or ``model.layer.recompute``
+    where autograd runs it again inside the backward (checkpoint)."""
+    with span("model.layer", args[0],
+              in_backward="model.layer.recompute"):
+        return fn(*args)
 
 
 def _hidden(params: LM, batch: dict, cfg: ModelConfig, tp) -> torch.Tensor:
@@ -443,18 +457,25 @@ def loss_fn(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     float32 from the logits, as `repro.models.loss_fn`: the vlm family
     scores only the text tail (the last T positions), and targets below 0
     are masked out. Under a model axis on this rank's blocks, the
-    cross-entropy vocab-parallel (`_xent`); every rank returns the loss."""
+    cross-entropy vocab-parallel (`_xent`); every rank returns the loss.
+    Spans: ``model.loss`` from the logits to the loss, and under a
+    profiler ``model.head.backward`` over the backward from the loss to
+    the last layer's output (the loss's and the head's)."""
     tp = tp_of(cfg)
-    logits, lo = _logits(params, _hidden(params, batch, cfg, tp), cfg, tp)
-    logits = logits.float()
+    h = _hidden(params, batch, cfg, tp)
+    logits, lo = _logits(params, h, cfg, tp)
     targets = batch["targets"]
-    if cfg.family == "vlm":
-        logits = logits[:, -targets.shape[1]:]
-    cut = tp is not None and not whole_block(tp, params.lm_head.shape[1],
-                                             cfg.vocab_size)
-    nll = _xent(logits, targets, lo, tp if cut else None)
-    mask = (targets >= 0).float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    with span("model.loss", logits):
+        logits = logits.float()
+        if cfg.family == "vlm":
+            logits = logits[:, -targets.shape[1]:]
+        cut = tp is not None and not whole_block(
+            tp, params.lm_head.shape[1], cfg.vocab_size)
+        nll = _xent(logits, targets, lo, tp if cut else None)
+        mask = (targets >= 0).float()
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    backward_span("model.head.backward", loss, h)
+    return loss
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

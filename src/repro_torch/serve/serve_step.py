@@ -15,6 +15,7 @@ import torch
 from ..device import resolve_device
 from ..models import decode_step, forward
 from ..models.config import ModelConfig
+from ..spans import span
 
 __all__ = ["make_prefill", "make_serve_step"]
 
@@ -51,11 +52,16 @@ def make_serve_step(cfg: ModelConfig, temperature: float = 0.0,
 def make_prefill(cfg: ModelConfig, device: str | torch.device = "cuda"):
     """``prefill(params, batch) -> logits`` of `forward`; every tensor of
     `batch` (``tokens``, and ``patches`` or ``frames``) is moved to the
-    device first."""
+    device first. Spans: ``serve.prefill`` over the call (its host time is
+    the time the host takes to issue it), counting its ``tokens``, and
+    ``serve.inputs`` over the move."""
     dev = resolve_device(device)
 
     @torch.no_grad()
     def prefill(params, batch: dict):
-        return forward(params, {k: v.to(dev) for k, v in batch.items()}, cfg)
+        with span("serve.prefill", dev, tokens=batch["tokens"].numel()):
+            with span("serve.inputs", dev):
+                batch = {k: v.to(dev) for k, v in batch.items()}
+            return forward(params, batch, cfg)
 
     return prefill

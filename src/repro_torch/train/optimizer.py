@@ -221,6 +221,13 @@ def make_placement(shapes: dict, mesh, cfg) -> Placement:
                      state, partial)
 
 
+def _scalar(x: float, device) -> torch.Tensor:
+    """`x` rounded to a float32 scalar tensor, filled on `device`: on the
+    card a tensor made from a Python float is a copy from pageable host
+    memory that the host waits for."""
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
 @dataclasses.dataclass
 class AdamW:
     lr: Callable | float = 3e-4
@@ -234,7 +241,7 @@ class AdamW:
     def _lr(self, step: torch.Tensor) -> torch.Tensor:
         if callable(self.lr):
             return self.lr(step)
-        return torch.tensor(self.lr, dtype=torch.float32, device=step.device)
+        return _scalar(self.lr, step.device)
 
     def init(self, params: torch.nn.Module,
              placement: Optional[Placement] = None) -> dict:
@@ -279,10 +286,8 @@ class AdamW:
 
     def _corrections(self, step: torch.Tensor):
         stepf = step.to(torch.float32)
-        c1 = 1 - torch.pow(torch.tensor(self.b1, dtype=torch.float32,
-                                        device=step.device), stepf)
-        c2 = 1 - torch.pow(torch.tensor(self.b2, dtype=torch.float32,
-                                        device=step.device), stepf)
+        c1 = 1 - torch.pow(_scalar(self.b1, step.device), stepf)
+        c2 = 1 - torch.pow(_scalar(self.b2, step.device), stepf)
         return c1, c2
 
     def _adam(self, p, g, m, v, lr, c1, c2) -> None:

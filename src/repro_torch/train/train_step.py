@@ -19,6 +19,12 @@ gradients (the partial ones over the model axis too) and updates through
 ZeRO-1 (`AdamW.update`), and the loss, which every model rank computes
 whole, is averaged over the data-parallel axes only. It takes this path
 at any world size, one rank included: nothing shortcuts the reductions.
+
+Under a profiler the step's phases are spans (`repro_torch.spans`):
+``train.forward`` and ``train.backward`` of each microbatch (the
+recomputation inside the backward), ``train.accumulate`` (the float32
+accumulators, each microbatch's sum, the division by their count) and
+``train.optimizer`` (norm, clip and AdamW, ZeRO-1's collectives too).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from ..models import init_params, loss_fn
 from ..models.config import ModelConfig
 from ..parallel import default_rules, psum
 from ..parallel.sharding import local_shard, shard_module
+from ..spans import span
 from .optimizer import AdamW, make_placement
 
 __all__ = ["TrainState", "init_state", "make_train_step", "shard_state"]
@@ -82,8 +89,11 @@ def _split_mb(batch: dict, n: int, i: int) -> dict:
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1):
     def grads_of(params, plist, batch):
-        loss = loss_fn(params, batch, cfg)
-        return loss.detach(), list(torch.autograd.grad(loss, plist))
+        with span("train.forward", plist[0]):
+            loss = loss_fn(params, batch, cfg)
+        with span("train.backward", loss):
+            grads = list(torch.autograd.grad(loss, plist))
+        return loss.detach(), grads
 
     def train_step(state: TrainState, batch: dict):
         params = state["params"]
@@ -92,20 +102,26 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1):
         if microbatches <= 1:
             loss, grads = grads_of(params, plist, batch)
         else:
-            loss = torch.zeros((), dtype=torch.float32, device=plist[0].device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in plist]
+            with span("train.accumulate", plist[0]):
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=plist[0].device)
+                grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                     device=p.device) for p in plist]
             for i in range(microbatches):
                 mb_loss, g = grads_of(params, plist,
                                       _split_mb(batch, microbatches, i))
-                loss = loss + mb_loss
-                grads = [a + b.float() for a, b in zip(grads, g)]
+                with span("train.accumulate", plist[0]):
+                    loss = loss + mb_loss
+                    grads = [a + b.float() for a, b in zip(grads, g)]
                 del g
-            loss = loss / microbatches
-            grads = [g / microbatches for g in grads]
+            with span("train.accumulate", plist[0]):
+                loss = loss / microbatches
+                grads = [g / microbatches for g in grads]
         grads = dict(zip(names, grads))
         kw = {} if placement is None else {"placement": placement}
-        _, new_opt, metrics = opt.update(grads, state["opt"], params, **kw)
+        with span("train.optimizer", plist[0]):
+            _, new_opt, metrics = opt.update(grads, state["opt"], params,
+                                             **kw)
         if placement is not None:
             dp = default_rules(placement.mesh)["dp"]
             loss = psum(loss, dp, placement.mesh) / placement.mesh.axis_size(dp)

@@ -303,6 +303,39 @@ def train_step(rank, world, payload):
     return out
 
 
+def train_spans(rank, world, payload):
+    """One ZeRO-1 step of the reduced `payload["arch"]` (remat by layer)
+    over a (data world, model 1) mesh from seed 0, without and then under
+    a CPU profile: whether the loss and the parameters kept their bits,
+    and the profiled step's spans' calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import AdamW, init_state
+    from repro_torch.train.data import make_batch
+
+    mesh = make_local_mesh(world, 1, "cpu")
+    cfg = dataclasses.replace(configs.get_reduced(payload["arch"]),
+                              remat="block")
+    mb = payload["microbatches"]
+    batch = make_batch(cfg, ShapeSpec("t", 16, 2 * mb * world, "train"), 0,
+                       device="cpu")
+    runs = []
+    for profiled in (False, True):
+        state = init_state(cfg, 0, AdamW(lr=1e-3), "cpu", mesh)
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU]):
+                state, met = _step(state, cfg, batch, mesh, mb)
+        else:
+            state, met = _step(state, cfg, batch, mesh, mb)
+        runs.append([met["loss"], *(p.detach().clone() for p in
+                                    state["params"].parameters())])
+    got = spans.totals()
+    return {"same_bits": all(torch.equal(a, b) for a, b in zip(*runs)),
+            "calls": {k: v["calls"] for k, v in got.items()}}
+
+
 def checkpoint_write(rank, world, payload):
     """Step 0, a checkpoint of step 1, step 1 (the uninterrupted run);
     then a fresh state restored from the checkpoint takes step 1 again."""

@@ -1176,6 +1176,56 @@ def test_training_step_kernels_equal_plain(cuda, arch):  # noqa: F811
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
 
 
+def test_train_spans_cover_the_traced_step(cuda):  # noqa: F811
+    """One step of the reduced qwen3-8b (remat by layer, 2 microbatches)
+    under `torch.profiler`, traced as the benchmark traces its train cell
+    (`perfbench.harness.profile_window`): the four ``train.*`` phases'
+    device ms add up to at least 98% of the trace's busy seconds and no
+    more than its window."""
+    import dataclasses
+
+    from perfbench.harness import profile_window
+    from repro_torch import configs, spans
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import AdamW, init_state, make_train_step
+    from repro_torch.train.data import make_batch
+
+    cfg = dataclasses.replace(configs.get_reduced("qwen3-8b"), remat="block")
+    opt = AdamW(lr=1e-3)
+    state = init_state(cfg, 0, opt, device=cuda)
+    step = make_train_step(cfg, opt, 2)
+    batch = make_batch(cfg, ShapeSpec("t", 256, 4, "train"), 0, device=cuda)
+    state, _ = step(state, batch)          # the build, cuBLAS's plans
+    tr = profile_window(lambda: step(state, batch), host_ops=False)
+    got = spans.totals()
+    phases = sum(got[k]["device_ms"] for k in (
+        "train.forward", "train.backward", "train.accumulate",
+        "train.optimizer")) / 1e3
+    assert 0.98 * tr.busy_s() <= phases <= tr.window_s
+
+
+def test_adamw_update_waits_for_nothing(cuda):  # noqa: F811
+    """`AdamW.update` on the card issues no host synchronisation, with a
+    float and with a scheduled learning rate."""
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamW, cosine_schedule
+
+    params = init_params(configs.get_reduced("qwen3-8b"), 0, cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for lr in (1e-3, cosine_schedule(1e-3, 2, 10)):
+        opt = AdamW(lr=lr)
+        state = opt.init(params)
+        grads = {n: torch.randn(p.shape, generator=g, device=cuda)
+                 for n, p in params.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.update(grads, state, params)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
 # ---------------------------------------------------------------------------
 # the collectives and expert parallelism over NCCL
 # ---------------------------------------------------------------------------
